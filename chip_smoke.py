@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
      llark_tpu_torch/csrc/ (nvcc, one process per source, in parallel);
   2. flash-prefill kernel vs its plain PyTorch version (bf16, seeded), at
-     the shape batch_infer gives it (batch 1) and at batch 4;
+     the shape batch_infer gives it (batch 1) and at batch 4, held per
+     query row: |kernel - plain| / |plain| over the head dim (L2);
   3. flash-decode kernel vs its plain PyTorch version, likewise;
   4. the serving path at full Llama-2-7B width (32 layers, random bf16
      weights made on the card from a seed): 4 requests through
@@ -15,7 +16,9 @@ Phases, in order; any failure exits non-zero before the final line:
      counts read around that run; then the same requests with the plain
      attention path, comparing prefill logits and greedy tokens, and a
      torch.profiler split of one request into device and idle time;
-  5. per-kernel timings at batch 1 and 4 (median of CUDA-event device
+  5. per-kernel timings at batch 1, the shape batch_infer gives the
+     kernels and the one the {"kernels": ...} line reports, and at batch 4
+     (printed only): medians of CUDA-event device
      times, L2 flushed before each launch) beside the plain version, PyTorch's
      scaled_dot_product_attention as the library yardstick, and the bound
      from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16).
@@ -46,7 +49,15 @@ from llark_tpu_torch.ops import decode_attention as dec_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 
 SEED = 0
-KERNEL_TOL = 2e-2  # max |kernel - plain| / max |plain|, bf16 inputs
+# Kernel vs plain, both rounded to bf16 on output. ROW_TOL bounds the worst
+# query row's |kernel - plain| / |plain| (L2 over the head dim). On an H100
+# 80GB HBM3 at 700 W the cases below read at most 4.9e-3 for the prefill
+# kernel, which rounds the probabilities to bf16 for the P.V product, and
+# 4.8e-4 for the decode kernel, which keeps them in fp32 (PERF.md); each
+# limit is about one bf16 ulp (2**-8 = 3.9e-3 relative) above its reading.
+# KERNEL_TOL bounds max |kernel - plain| / max |plain| over the output.
+ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3}
+KERNEL_TOL = 2e-2
 LOGITS_TOL = 5e-2  # prefill logits, kernel path vs plain attention path
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -61,6 +72,26 @@ def check(cond: bool, msg: str) -> None:
 def rel_err(got: torch.Tensor, want: torch.Tensor):
     diff = (got.float() - want.float()).abs().max().item()
     return diff / max(want.float().abs().max().item(), 1e-6), diff
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst |got - want| / |want| over the rows of the last axis (L2). A
+    row of zeros in want (a query with no live key) must be zeros in got."""
+    g, w = got.float(), want.float()
+    w_norm = w.norm(dim=-1)
+    live = w_norm > 0
+    check(bool((g.norm(dim=-1)[~live] == 0).all()), "a row with no live key is not zeros")
+    return ((g - w).norm(dim=-1)[live] / w_norm[live]).max().item()
+
+
+def check_close(kernel: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold a kernel's output against its plain version; the max |diff|."""
+    row = row_err(got, want)
+    rel, diff = rel_err(got, want)
+    print(f"{kernel} {name}: worst row {row:.3e}, max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+    check(row <= ROW_TOL[kernel], f"{kernel} {name}: row error {row:.3e} > {ROW_TOL[kernel]}")
+    check(rel <= KERNEL_TOL, f"{kernel} {name}: rel-to-max {rel:.3e} > {KERNEL_TOL}")
+    return diff
 
 
 def bf16_randn(gen: torch.Generator, *shape) -> torch.Tensor:
@@ -132,13 +163,7 @@ def check_flash_fwd(gen: torch.Generator, plen: int) -> float:
         want = attn_ops._flash_attention_fwd_plain(
             q, k, v, causal=True, kv_lengths=kv_lengths, slopes=slopes
         )
-        rel, diff = rel_err(got, want)
-        print(f"flash_fwd {name}: max|d| {diff:.3e}, rel-to-max {rel:.3e}")
-        check(rel <= KERNEL_TOL, f"flash_fwd {name}: rel err {rel:.3e} > {KERNEL_TOL}")
-        for row, n in enumerate(lengths):
-            if n == 0:
-                check(got[row].abs().max().item() == 0.0, "flash_fwd: the empty row is not zeros")
-        worst_abs = max(worst_abs, diff)
+        worst_abs = max(worst_abs, check_close("flash_fwd", name, got, want))
     return worst_abs
 
 
@@ -168,11 +193,8 @@ def check_flash_decode(gen: torch.Generator, plen: int) -> float:
                 q, k, v, kv_lengths=kv_lengths, q_positions=q_positions, k_scale=None,
                 v_scale=None, slopes=slopes, block_tables=None,
             )
-            rel, diff = rel_err(got, want)
             name = f"cache [{b},{hkv},2048,128] kv_len {lengths} Sq={sq}{' ALiBi' if alibi else ''}"
-            print(f"flash_decode {name}: max|d| {diff:.3e}, rel-to-max {rel:.3e}")
-            check(rel <= KERNEL_TOL, f"flash_decode {name}: rel err {rel:.3e} > {KERNEL_TOL}")
-            worst_abs = max(worst_abs, diff)
+            worst_abs = max(worst_abs, check_close("flash_decode", name, got, want))
     return worst_abs
 
 
@@ -387,9 +409,9 @@ def main() -> int:
         ("flash_decode", "llark_tpu_torch/csrc/flash_decode.cu",
          "llark_tpu/ops/decode_attention.py:495", dec_err, time_flash_decode, plen + 16),
     ):
-        # batch 1 is what batch_infer gives the kernel; the JSON line keeps
-        # batch 4, the shape of the kernel checks above
-        for b in (1, 4):
+        # batch 1 is what batch_infer gives the kernel: the JSON line reports
+        # it; batch 4 is printed beside it
+        for b in (4, 1):
             ms, plain_ms, lib_ms, (bound_ms, bound_by), shape = time_fn(gen, length, b)
             print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "

@@ -1,11 +1,12 @@
 """Model configuration for the PyTorch/CUDA port.
 
-Own copy of `ModelConfig` with the JAX package's field names and defaults,
-so a config built for one package describes the same model in the other.
-Fields that only steer XLA/TPU compilation (remat, layer unrolling, Pallas
-block sizes) are kept so configs carry across; the port reads only what
-its serving path needs. `use_pallas_attention` switches the hand-written
-Hopper flash-prefill kernel and `use_flash_decode` the flash-decode kernel.
+Own copy of the JAX package's `ModelConfig`, cut to the fields the port
+reads, with the same names and defaults: the architecture, the numerics and
+two kernel switches. `use_pallas_attention` switches the hand-written Hopper
+flash-prefill kernel and `use_flash_decode` the flash-decode kernel; the
+names are the JAX package's so that the same keyword arguments build the
+same model in both. Features of later slices (int8 KV cache, MoE) keep only
+the field that makes the decoder raise.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ class ModelConfig:
     num_heads: int = 32
     num_kv_heads: int = 32  # < num_heads => GQA/MQA
     head_dim: Optional[int] = None  # default hidden/num_heads
-    max_seq_len: int = 2048
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     # MPT-specific
@@ -38,46 +38,25 @@ class ModelConfig:
     norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
     # Multimodal
     mm_hidden_size: int = 4800  # Jukebox embedding dim; 512 for CLAP
-    use_audio_start_end: bool = True
     # Numerics
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
     # Kernels: the Hopper flash-prefill kernel (ops/attention.py)
     use_pallas_attention: bool = True
-    attention_block_q: int = 256
-    attention_block_k: int = 256
     # int8 KV cache (not in this slice of the port: the decoder raises)
     kv_cache_quant: bool = False
     # Hopper flash-decode kernel for short cached steps (ops/
     # decode_attention.py). None = off, as in the JAX package's Generator;
     # the serving stack turns it on.
     use_flash_decode: Optional[bool] = None
-    decode_block_k: int = 512
-    decode_unroll_layers: Optional[bool] = None
-    remat: bool = True
-    remat_policy: str = "full"
     # from-scratch init scheme: kaiming | xavier | small
     init_scheme: str = "kaiming"
-    # LoRA / MoE (not in this slice of the port: the decoder raises)
-    lora_rank: int = 0
-    lora_alpha: float = 16.0
-    lora_dropout: float = 0.0
+    # MoE (not in this slice of the port: the decoder raises)
     moe_num_experts: int = 0
-    moe_top_k: int = 2
-    moe_capacity_factor: float = 1.25
-    moe_aux_loss_weight: float = 0.01
-    moe_routing: str = "switch"
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
-        if self.moe_routing not in ("switch", "mixtral"):
-            raise ValueError(f"unknown moe_routing={self.moe_routing!r}")
-        if self.moe_num_experts > 0 and self.moe_top_k > self.moe_num_experts:
-            raise ValueError(
-                f"moe_top_k={self.moe_top_k} must be <= "
-                f"moe_num_experts={self.moe_num_experts}"
-            )
 
     @classmethod
     def llama2_7b(cls, **kw) -> "ModelConfig":
@@ -94,7 +73,6 @@ class ModelConfig:
             num_layers=24,
             num_heads=16,
             num_kv_heads=16,
-            max_seq_len=2048,
             use_alibi=True,
             tie_embeddings=True,
             mlp_activation="gelu",
@@ -114,10 +92,8 @@ class ModelConfig:
             num_layers=2,
             num_heads=4,
             num_kv_heads=4,
-            max_seq_len=256,
             mm_hidden_size=48,
             use_pallas_attention=False,
-            remat=False,
         )
         if arch == "mpt":
             base.update(

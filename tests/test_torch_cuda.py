@@ -7,9 +7,14 @@ nothing of JAX, so it also runs on a machine without it:
 
 (`--noconftest` because tests/conftest.py pins JAX to the CPU.)
 
-Tolerance: 2e-2 relative to max |plain|, for bf16 inputs -- the kernels
-round the probabilities to bf16 for the P.V product and sum in another
-order; the plain versions compute in fp32.
+Tolerance, for bf16 inputs with both outputs rounded to bf16: the worst
+query row's |kernel - plain| / |plain| (L2 over the head dim) stays within
+ROW_TOL, the limits of chip_smoke.py: about one bf16 ulp (2**-8 relative)
+above the errors its cases read on an H100 (4.9e-3 prefill, 4.8e-4 decode;
+PERF.md). The prefill kernel rounds the
+probabilities to bf16 for the P.V product and both kernels sum in another
+order than the plain versions, which compute in fp32. A row with no live
+key must be zeros.
 """
 
 import numpy as np
@@ -19,7 +24,7 @@ import torch
 from llark_tpu_torch.ops import attention as tattn
 from llark_tpu_torch.ops import decode_attention as tdec
 
-CARD_TOL = 2e-2
+ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3}
 
 pytestmark = pytest.mark.cuda
 
@@ -31,9 +36,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _rel_err(got, want):
+def _row_err(got, want):
     g, w = got.float().cpu(), want.float().cpu()
-    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-6))
+    w_norm = w.norm(dim=-1)
+    live = w_norm > 0
+    assert bool((g.norm(dim=-1)[~live] == 0).all()), "a row with no live key is not zeros"
+    return float(((g - w).norm(dim=-1)[live] / w_norm[live]).max())
 
 
 def _qkv(dev, seed, b, h, hkv, sq, sk, d):
@@ -58,7 +66,7 @@ def test_flash_fwd_kernel_matches_plain(dev, d, hkv, alibi):
     want = tattn._flash_attention_fwd_plain(
         q, k, v, causal=True, kv_lengths=kv_lengths, slopes=slopes
     )
-    assert _rel_err(got, want) < CARD_TOL
+    assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
     assert float(got[0].abs().max()) == 0.0  # the row with no live key
 
 
@@ -75,7 +83,7 @@ def test_flash_fwd_kernel_strided_noncausal(dev):
     want = tattn._flash_attention_fwd_plain(
         q, k, v, causal=False, kv_lengths=kv_lengths, slopes=None
     )
-    assert _rel_err(got, want) < CARD_TOL
+    assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
 
 
 @pytest.mark.parametrize("sq", [1, 5])
@@ -96,7 +104,7 @@ def test_flash_decode_kernel_matches_plain(dev, sq, hkv, alibi):
         q, k, v, kv_lengths=kv_lengths, q_positions=q_positions, k_scale=None,
         v_scale=None, slopes=slopes, block_tables=None,
     )
-    assert _rel_err(got, want) < CARD_TOL
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
 def test_flash_decode_kernel_many_rows(dev):
@@ -110,7 +118,7 @@ def test_flash_decode_kernel_many_rows(dev):
         q, k, v, kv_lengths=kv_lengths, q_positions=q_positions, k_scale=None,
         v_scale=None, slopes=None, block_tables=None,
     )
-    assert _rel_err(got, want) < CARD_TOL
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -1,12 +1,16 @@
 """Port generation and inference against the JAX package's, fp32 on the CPU.
 
 Greedy tokens and completion texts must be EQUAL: both packages run the
-same weights (converted with `params_from_numpy`) in fp32, so only
+same weights in fp32 (a seeded init of the port's as numpy arrays in the
+JAX layout, handed to JAX as they are and to the port through
+`params_from_numpy`; JAX's init would add a compile per config), so only
 summation order differs, far below the gaps between the tiny model's top
 logits. Sampling cannot share random numbers across frameworks, so the
 top-k/top-p masking is held to JAX's by feeding both the same Gumbel noise
 (jax.random.categorical is argmax(logits + gumbel)).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,24 +21,34 @@ import torch
 from llark_tpu import generate as jgen
 from llark_tpu import infer as jinfer
 from llark_tpu.config import ModelConfig as JaxConfig
-from llark_tpu.models.fusion import init_llark_params as jinit
 from llark_tpu.tokenization import TokenizerBundle as JBundle
 from llark_tpu.tokenization import WordTokenizer as JWordTokenizer
 from llark_tpu_torch import generate as tgen
 from llark_tpu_torch import infer as tinfer
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.interop.from_jax import params_from_numpy
+from llark_tpu_torch.models.fusion import init_llark_params as tinit
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 
 PATCH_ID = 7
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_tree(arch, seed, num_kv_heads):
+    # the weights depend on these only, so cases that differ in kernel
+    # switches share one init
+    tcfg = ModelConfig.tiny(arch, num_kv_heads=num_kv_heads, dtype="float32",
+                            param_dtype="float32")
+    params = tinit(tcfg, seed=seed, device="cpu")
+    return jax.tree.map(lambda t: t.numpy(), params)
 
 
 def _models(arch="llama", seed=0, **kw):
     over = dict(dtype="float32", param_dtype="float32", **kw)
     jcfg = JaxConfig.tiny(arch, **over)
     tcfg = ModelConfig.tiny(arch, **over)
-    jparams = jinit(jcfg, jax.random.PRNGKey(seed))
-    return jcfg, jparams, tcfg, params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    tree = _numpy_tree(arch, seed, tcfg.num_kv_heads)
+    return jcfg, jax.tree.map(jnp.asarray, tree), tcfg, params_from_numpy(tree, tcfg, "cpu")
 
 
 def _bundles():
@@ -56,7 +70,8 @@ def test_generator_greedy_matches_jax(arch, flash_decode):
     lengths = np.array([7, 5], np.int32)
     audio = rng.randn(2, 3, jcfg.mm_hidden_size).astype(np.float32)
     counts = np.array([3, 3], np.int32)
-    gcfg = dict(max_new_tokens=7, stop_text="", decode_chunk=4)
+    # 1 token from prefill, then two chunks of 3: one JAX chunk program
+    gcfg = dict(max_new_tokens=7, stop_text="", decode_chunk=3)
     want = jgen.Generator(
         jcfg, jparams, PATCH_ID, jgen.GenerationConfig(**gcfg), max_cache_len=32
     ).generate(ids, lengths, audio, counts)

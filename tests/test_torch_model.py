@@ -1,10 +1,14 @@
 """Port decoder and fusion against the JAX package's, fp32 on the CPU.
 
-Both packages run the same weights: the JAX package's parameter tree,
-converted with `params_from_numpy`. Inputs come from a numpy seed.
-Tolerance: 1e-5 relative to max |JAX| -- both sides compute in fp32 and
-differ only in summation order.
+Both packages run the same weights: a seeded init as numpy arrays in the
+JAX package's layout, handed to JAX as they are and to the port through
+`params_from_numpy`. (The port's init makes them: JAX's init would add a
+compile to every config, and `test_init_matches_jax_layout` holds the two
+layouts equal.) Inputs come from a numpy seed. Tolerance: 1e-5 relative to
+max |JAX| -- both sides compute in fp32 and differ only in summation order.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,14 +39,29 @@ def _rel_err(got, want):
     return float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-6))
 
 
+@functools.lru_cache(maxsize=None)
+def _numpy_tree(name, seed):
+    # the weights depend on the architecture and the seed only, so the
+    # parametrised cases of a config share one init
+    over = dict(CONFIGS[name], dtype="float32", param_dtype="float32")
+    tcfg = ModelConfig.tiny(over.pop("arch"), **over)
+    params = tfusion.init_llark_params(tcfg, seed=seed, device="cpu")
+    return jax.tree.map(lambda t: t.numpy(), params)
+
+
 def _models(name, seed=0, **kw):
     over = dict(CONFIGS[name], dtype="float32", param_dtype="float32", **kw)
     arch = over.pop("arch")
     jcfg = JaxConfig.tiny(arch, **over)
     tcfg = ModelConfig.tiny(arch, **over)
-    jparams = jfusion.init_llark_params(jcfg, jax.random.PRNGKey(seed))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
-    return jcfg, jparams, tcfg, tparams
+    tree = _numpy_tree(name, seed)
+    return jcfg, jax.tree.map(jnp.asarray, tree), tcfg, params_from_numpy(tree, tcfg, "cpu")
+
+
+def _jforward(jcfg):
+    # jitted: eager op-by-op dispatch would triple the multi-step test's time
+    return jax.jit(functools.partial(jdecoder.decoder_forward, jcfg),
+                   static_argnames=("prefill_from_empty",))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -78,8 +97,9 @@ def test_prefill_then_decode_cache_matches_jax(name, flash_decode):
     lengths = np.array([10, 6], np.int32)
     jcache = jdecoder.init_kv_cache(jcfg, b, max_len)
     tcache = tdecoder.init_kv_cache(tcfg, b, max_len)
-    jl, jcache = jdecoder.decoder_forward(
-        jcfg, jparams, inputs_embeds=jnp.asarray(embeds), seq_lengths=jnp.asarray(lengths),
+    jforward = _jforward(jcfg)
+    jl, jcache = jforward(
+        jparams, inputs_embeds=jnp.asarray(embeds), seq_lengths=jnp.asarray(lengths),
         kv_cache=jcache, prefill_from_empty=True,
     )
     tl, tcache = tdecoder.decoder_forward(
@@ -91,8 +111,8 @@ def test_prefill_then_decode_cache_matches_jax(name, flash_decode):
     pos = lengths.copy()
     for step in range(3):
         tok = rng.randint(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
-        jl, jcache = jdecoder.decoder_forward(
-            jcfg, jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
+        jl, jcache = jforward(
+            jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
             cache_positions=jnp.asarray(pos),
         )
         tl, tcache = tdecoder.decoder_forward(
@@ -178,9 +198,11 @@ def test_splice_matches_jax():
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_init_matches_jax_layout(name):
-    jcfg, jparams, tcfg, _ = _models(name)
+    jcfg, _, tcfg, _ = _models(name)
     tparams = tfusion.init_llark_params(tcfg, seed=0, device="cpu")
-    jshapes = jax.tree.map(lambda a: tuple(a.shape), jparams)
+    jlayout = jax.eval_shape(lambda key: jfusion.init_llark_params(jcfg, key),
+                             jax.random.PRNGKey(0))
+    jshapes = jax.tree.map(lambda a: tuple(a.shape), jlayout)
     tshapes = jax.tree.map(lambda t: tuple(t.shape), tparams)
     assert tshapes == jshapes
     # the same init scheme: kaiming N(0, 1/fan_in) dense weights
@@ -208,6 +230,11 @@ def test_out_of_slice_features_raise():
     _, _, tcfg, tparams = _models("llama_gqa")
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         tdecoder.init_kv_cache(ModelConfig.tiny(kv_cache_quant=True), 1, 8)
+    moe = ModelConfig.tiny(moe_num_experts=2)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tdecoder.init_decoder_params(moe, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tdecoder.decoder_forward(moe, tparams, input_ids=torch.tensor([[1, 2]]))
     lora = dict(tparams, layers=dict(tparams["layers"], wq_lora_a=tparams["layers"]["wq"]))
     with pytest.raises(NotImplementedError, match="LoRA"):
         tdecoder.decoder_forward(tcfg, lora, input_ids=torch.tensor([[1, 2]]))
