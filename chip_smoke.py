@@ -21,7 +21,23 @@ Phases, in order; any failure exits non-zero before the final line:
      (printed only): medians of CUDA-event device
      times, L2 flushed before each launch) beside the plain version, PyTorch's
      scaled_dot_product_attention as the library yardstick, and the bound
-     from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16).
+     from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16);
+  6. the training kernels against their plain versions at the training
+     path's shape ([2, 32, 1024, 128] bf16, causal, kv_lengths [1024, 700])
+     and with GQA + ALiBi and head_dim 64: the forward's log-sum-exp, the
+     dq kernel and the dk/dv kernel;
+  7. one training step's loss and projector gradient at 7B width, 2 layers,
+     through the flash kernels and through the plain attention path;
+  8. the adapter stage at full Llama-2-7B (32 layers, fp32 parameters,
+     frozen backbone, remat) through `train()` on shards written to a temp
+     dir: batch 2 x 2 accumulation steps, 1024 tokens, 256 x 4800 audio
+     frames; the loss must fall;
+  9. the run-of-record flags (the whole model trains) at 7B width, 4
+     layers, likewise; for both: median step ms, tokens/s, MFU, peak
+     memory, launches of the three flash kernels per step and the card's
+     idle share in a torch.profiler trace of one step;
+ 10. the training kernels' timings at the phase-6 shape beside their plain
+     versions and PyTorch's scaled_dot_product_attention backward.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or llark_tpu.
@@ -31,15 +47,20 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import shutil
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from llark_tpu_torch.config import ModelConfig
+from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
+from llark_tpu_torch.data.pipeline import make_data_module
+from llark_tpu_torch.data.webdataset import TarShardWriter
 from llark_tpu_torch.generate import GenerationConfig, Generator
 from llark_tpu_torch.infer import batch_infer, build_prompt_ids
 from llark_tpu_torch.models.fusion import init_llark_params
@@ -47,6 +68,9 @@ from llark_tpu_torch.ops import _build
 from llark_tpu_torch.ops import attention as attn_ops
 from llark_tpu_torch.ops import decode_attention as dec_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
+from llark_tpu_torch.train import flops
+from llark_tpu_torch.train.step import make_loss_fn
+from llark_tpu_torch.train.train import train
 
 SEED = 0
 # Kernel vs plain, both rounded to bf16 on output. ROW_TOL bounds the worst
@@ -56,8 +80,21 @@ SEED = 0
 # 4.8e-4 for the decode kernel, which keeps them in fp32 (PERF.md); each
 # limit is about one bf16 ulp (2**-8 = 3.9e-3 relative) above its reading.
 # KERNEL_TOL bounds max |kernel - plain| / max |plain| over the output.
-ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3}
+ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
 KERNEL_TOL = 2e-2
+# The backward kernels are held to the JAX package's bound for its flash
+# backward, 1.6e-2 relative to max (PERFORMANCE.md:130-132). Their per-row
+# measure floors each row's norm at 1e-2 of the tensor's RMS row norm: a
+# dq row can be ~0 by cancellation (the first query sees one key, so its
+# ds is p (dp - delta) = 0 up to rounding), and a relative error there says
+# nothing. On the cases below an H100 80GB HBM3 at 700 W read at most
+# 5.4e-3 per row and 6.1e-3 relative to max (PERF.md): the row limit is
+# about one bf16 ulp (3.9e-3 relative) above that.
+BWD_TOL = 1.6e-2
+ROW_FLOOR = {"flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
+# log-sum-exp of the forward, kernel vs plain, absolute (fp32): read at
+# most 3.1e-5 on the cases below
+LSE_TOL = 1e-4
 LOGITS_TOL = 5e-2  # prefill logits, kernel path vs plain attention path
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -74,11 +111,15 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return diff / max(want.float().abs().max().item(), 1e-6), diff
 
 
-def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Worst |got - want| / |want| over the rows of the last axis (L2). A
-    row of zeros in want (a query with no live key) must be zeros in got."""
+def row_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """Worst |got - want| / |want| over the rows of the last axis (L2).
+    Without a floor, a row of zeros in want (a query with no live key) must
+    be zeros in got; with one, each row's norm counts as at least `floor`
+    times the RMS row norm of want."""
     g, w = got.float(), want.float()
     w_norm = w.norm(dim=-1)
+    if floor:
+        w_norm = w_norm.clamp_min(floor * w_norm.square().mean().sqrt().item())
     live = w_norm > 0
     check(bool((g.norm(dim=-1)[~live] == 0).all()), "a row with no live key is not zeros")
     return ((g - w).norm(dim=-1)[live] / w_norm[live]).max().item()
@@ -86,11 +127,12 @@ def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_close(kernel: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Hold a kernel's output against its plain version; the max |diff|."""
-    row = row_err(got, want)
+    row = row_err(got, want, ROW_FLOOR.get(kernel, 0.0))
     rel, diff = rel_err(got, want)
+    limit = BWD_TOL if kernel in ROW_FLOOR else KERNEL_TOL
     print(f"{kernel} {name}: worst row {row:.3e}, max|d| {diff:.3e}, rel-to-max {rel:.3e}")
     check(row <= ROW_TOL[kernel], f"{kernel} {name}: row error {row:.3e} > {ROW_TOL[kernel]}")
-    check(rel <= KERNEL_TOL, f"{kernel} {name}: rel-to-max {rel:.3e} > {KERNEL_TOL}")
+    check(rel <= limit, f"{kernel} {name}: rel-to-max {rel:.3e} > {limit}")
     return diff
 
 
@@ -370,6 +412,231 @@ def time_flash_decode(gen, kv_len, b):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = (2, 32, 1024, 128)  # the training path's q/k/v: batch 2, 1024 tokens
+TRAIN_LENGTHS = [1024, 700]
+
+
+def check_flash_bwd(gen: torch.Generator):
+    """LSE, dq and dk/dv against their plain versions; the worst max |diff|
+    of each kernel."""
+    b, h, s, d = TRAIN_SHAPE
+    cases = [
+        (f"main path [{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}", h, d, False),
+        ("GQA Hkv=8 + ALiBi", 8, d, True),
+        ("head_dim 64", h, 64, False),
+    ]
+    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for name, hkv, dd, alibi in cases:
+        q, do = bf16_randn(gen, b, h, s, dd), bf16_randn(gen, b, h, s, dd)
+        k, v = bf16_randn(gen, b, hkv, s, dd), bf16_randn(gen, b, hkv, s, dd)
+        kv = torch.tensor(TRAIN_LENGTHS, device="cuda")
+        kw = dict(causal=True, kv_lengths=kv, slopes=attn_ops.alibi_slopes(h, "cuda") if alibi else None)
+        out, lse = attn_ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        _, lse_p = attn_ops._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+        lse_err = (lse - lse_p).abs().max().item()
+        print(f"flash_fwd log-sum-exp {name}: max|d| {lse_err:.3e}")
+        check(lse_err <= LSE_TOL, f"log-sum-exp {name}: {lse_err:.3e} > {LSE_TOL}")
+        worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = attn_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = attn_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        pdq, pdk, pdv = attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], check_close("flash_bwd_dq", name, dq, pdq))
+        for part, got, want in (("dk", dk, pdk), ("dv", dv, pdv)):
+            err = check_close("flash_bwd_dkv", f"{part} {name}", got, want)
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err)
+            # keys at or past kv_len get exact zeros
+            check(bool((got[1, :, TRAIN_LENGTHS[1]:] == 0).all()), f"{part}: a dead key is not zeros")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the training path
+# ---------------------------------------------------------------------------
+
+# one step at 7B width, kernel path vs plain attention path (both bf16): the
+# loss read 3.2e-3 apart and the projector gradient 1.15e-2 relative to max
+# on an H100 80GB HBM3 at 700 W; the limits sit a few bf16 ulps above
+TRAIN_ABS_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 3e-2
+
+
+def write_shards(directory: str, cfg: ModelConfig) -> str:
+    """4 identical samples (one question, one answer, a [256, 4800] random
+    encoding made from the seed): every training batch holds the same
+    example, so the loss of a few steps must fall."""
+    enc = np.random.RandomState(SEED).randn(256, cfg.mm_hidden_size).astype(np.float32)
+    writer = TarShardWriter(os.path.join(directory, "mir-train-%05d.tar"), max_count=100)
+    for i in range(4):
+        writer.write({
+            "__key__": f"clip{i:03d}",
+            "json": {"response": [{"question": "What is the tempo of this piece ?",
+                                   "answer": "It is a slow ballad at 70 beats per minute ."}]},
+            "audio_encoding.pyd": enc,
+        })
+    writer.close()
+    return writer.written_paths[0]
+
+
+def train_args(directory: str, shard: str, steps: int, lr: float = 1e-3, **flags):
+    model_args = ModelArguments(model_name_or_path="llama2-7b", **flags)
+    data_args = DataArguments(train_data_path=shard, max_audio_frames=256,
+                              task_sample_probs={"mir": 1.0})
+    training_args = TrainingArguments(
+        output_dir=os.path.join(directory, "out"), per_device_train_batch_size=2,
+        gradient_accumulation_steps=2, model_max_length=1024, learning_rate=lr,
+        max_steps=steps, save_steps=10**6, logging_steps=1, seed=SEED,
+        profile_dir=os.path.join(directory, "profile"), profile_start_step=steps - 1,
+        profile_num_steps=1, checkpoint_on_preemption=False,
+    )
+    return model_args, data_args, training_args
+
+
+def check_gradient_through_kernels(cfg: ModelConfig, directory: str, shard: str) -> None:
+    """One training step's loss and projector gradient at 7B width and 2
+    layers, with the flash kernels and with the plain attention path: the
+    kernels' backward reaches q, k and v."""
+    small = dataclasses.replace(cfg, num_layers=2)
+    model_args, data_args, training_args = train_args(directory, shard, 1)
+    bundle = TokenizerBundle.from_tokenizer(WordTokenizer(1024))
+    batch = next(iter(make_data_module(
+        bundle, data_args, batch_size=2, max_seq_len=1024, mm_hidden_size=cfg.mm_hidden_size,
+        seed=SEED)["train_iterator"]()))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items() if isinstance(v, np.ndarray)}
+    params = init_llark_params(small, seed=SEED, device="cuda")
+    proj = params["mm_projector"]["kernel"].requires_grad_()
+    results = {}
+    for use_kernels in (True, False):
+        c = dataclasses.replace(small, use_pallas_attention=use_kernels)
+        attn_ops.flash_attention_bwd_dq.launches = 0
+        loss, _ = make_loss_fn(c, audio_patch_id=bundle.audio_patch_id)(params, batch)
+        (grad,) = torch.autograd.grad(loss, [proj])
+        results[use_kernels] = (loss.item(), grad, attn_ops.flash_attention_bwd_dq.launches)
+    (lk, gk, nk), (lp, gp, _) = results[True], results[False]
+    rel, _ = rel_err(gk, gp)
+    print(f"7B width, 2 layers, one step: loss {lk:.5f} (kernels) vs {lp:.5f} (plain), "
+          f"projector gradient rel-to-max {rel:.3e}, |grad| {gk.norm().item():.4e} vs "
+          f"{gp.norm().item():.4e}; dq launches {nk}")
+    check(nk == small.num_layers, "the kernel path did not run the flash backward")
+    check(abs(lk - lp) <= TRAIN_ABS_LOSS_TOL, f"loss differs by {abs(lk - lp):.3e}")
+    check(rel <= TRAIN_GRAD_TOL, f"projector gradient rel err {rel:.3e} > {TRAIN_GRAD_TOL}")
+    del params, proj, batch
+    torch.cuda.empty_cache()
+
+
+def device_split(trace_path: str, wall_ms: float, top: int = 6) -> None:
+    """Device kernel time of one profiled train step (its chrome trace)
+    beside the unprofiled median step time: the card's idle share."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e["name"], [0.0, 0])
+            kernels[e["name"]][0] += e.get("dur", 0.0) / 1e3
+            kernels[e["name"]][1] += 1
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy <= 0:
+        print("device busy time: not measured (the trace holds no device kernels)")
+        return
+    print(f"  one step: device kernels {busy:.1f} ms against a median step of {wall_ms:.1f} ms, "
+          f"idle share {1 - busy / wall_ms:.1%}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+
+
+def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps: int,
+                 frozen_base: bool, lr: float, **flags):
+    """Drive `train()` on the card; check and print what the path did.
+    Returns the launches of the three training kernels in the run."""
+    model_args, data_args, training_args = train_args(directory, shard, steps, lr, **flags)
+    torch.cuda.reset_peak_memory_stats()
+    counters = (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd_dq,
+                attn_ops.flash_attention_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = train(model_args, data_args, training_args, model_cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = result["losses"]
+    with open(os.path.join(training_args.output_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    # the first step warms up, the last one is profiled
+    step_ms = statistics.median(r["step_time_s"] for r in records[1:-1]) * 1e3
+    tokens = (training_args.per_device_train_batch_size * training_args.gradient_accumulation_steps
+              * training_args.model_max_length)
+    tok_s = tokens / (step_ms / 1e3)
+    mfu = flops.train_mfu(cfg, training_args.model_max_length, tok_s, frozen_base=frozen_base)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {steps} steps in {wall:.1f} s; losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(r['grad_norm'], 4) for r in records]}")
+    print(f"  median step {step_ms:.1f} ms, {tok_s:.0f} tokens/s (batch 2 x 2 x 1024 positions), "
+          f"MFU {mfu:.1%}, peak memory {peak_gb:.2f} GiB, launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }")
+    device_split(os.path.join(training_args.profile_dir, "trace.json"), step_ms)
+    check(result["final_step"] == steps, f"{label}: stopped at step {result['final_step']}")
+    check(all(np.isfinite(r["grad_norm"]) for r in records), f"{label}: a non-finite grad norm")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    check(all(n > 0 for n in launches.values()), f"{label}: a training kernel never launched: {launches}")
+    del result
+    shutil.rmtree(directory)  # the checkpoint: 27 GB at 32 layers
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training kernels' timings
+# ---------------------------------------------------------------------------
+
+
+def time_flash_bwd(gen):
+    """(dq row, dkv row) timings at the training shape: (ms, plain_ms,
+    library_ms, (bound_ms, bound_by), shape)."""
+    b, h, s, d = TRAIN_SHAPE
+    q, k, v, do = (bf16_randn(gen, b, h, s, d) for _ in range(4))
+    kv = torch.tensor(TRAIN_LENGTHS, dtype=torch.int32, device="cuda")
+    out, lse = attn_ops.flash_attention_fwd(q, k, v, kv_lengths=kv, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    kw = dict(causal=True, kv_lengths=kv, slopes=None)
+    # library yardstick: SDPA forward and backward (dq, dk and dv together)
+    # at the same mask; no query row here is without a visible key, which
+    # would make SDPA's softmax NaN
+    pos = torch.arange(s, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] < kv[:, None, None]))[:, None]
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl, mask)
+    # visible (query, key) pairs; the forward does 2 products of 2*D FLOPs
+    # per pair, dq 3, dk/dv 4; bytes: inputs read once (bf16 q, k, v, dO;
+    # fp32 lse, delta), outputs written once
+    qi, ki = np.arange(s)[:, None], np.arange(s)[None, :]
+    pairs = sum(int(((ki <= qi) & (ki < n)).sum()) for n in TRAIN_LENGTHS) * h
+    tensor = 2 * b * h * s * d  # one bf16 [B, H, S, D]
+    fwd_ms = median_ms(lambda: attn_ops.flash_attention_fwd(q, k, v, return_lse=True, **kw))
+    fwd_plain = median_ms(lambda: attn_ops._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw))
+    fwd_lib = median_ms(lambda: sdpa(q, k, v, mask))
+    fwd_bound, fwd_by = bound(4 * tensor + 4 * b * h * s, 4.0 * d * pairs)
+    print(f"flash_fwd with log-sum-exp at [{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}: "
+          f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA {fwd_lib:.4f} ms, "
+          f"bound {fwd_bound:.4f} ms ({fwd_by}), {fwd_bound / fwd_ms:.1%} of bound")
+    dq_ms = median_ms(lambda: attn_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+    dkv_ms = median_ms(lambda: attn_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    plain_ms = median_ms(lambda: attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw))
+    lib_ms = median_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
+    io_in = 4 * tensor + 2 * 4 * b * h * s
+    dq_bound = bound(io_in + tensor, 6.0 * d * pairs)
+    dkv_bound = bound(io_in + 2 * tensor, 8.0 * d * pairs)
+    shape = f"[{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}"
+    return ((dq_ms, plain_ms, lib_ms, dq_bound, shape), (dkv_ms, plain_ms, lib_ms, dkv_bound, shape))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -401,6 +668,21 @@ def main() -> int:
     dec_err = check_flash_decode(gen, plen)
     launches = run_main_path(cfg, bundle, rows)
 
+    bwd_err = check_flash_bwd(gen)
+    train_cfg = ModelConfig.llama2_7b()  # fp32 parameters, bf16 compute, remat
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = write_shards(tmp, train_cfg)
+        check_gradient_through_kernels(train_cfg, os.path.join(tmp, "grad"), shard)
+        adapter = run_training(
+            "adapter stage, Llama-2-7B, 32 layers", train_cfg, os.path.join(tmp, "adapter"),
+            shard, 6, frozen_base=True, lr=1e-3, freeze_backbone=True, tune_mm_mlp_adapter=True)
+        run_training(
+            "run-of-record flags, 7B width, 4 layers", dataclasses.replace(train_cfg, num_layers=4),
+            os.path.join(tmp, "full"), shard, 6, frozen_base=False, lr=1e-4,
+            tune_mm_mlp_adapter=True)
+    launches.update(flash_bwd_dq=adapter["flash_attention_bwd_dq"],
+                    flash_bwd_dkv=adapter["flash_attention_bwd_dkv"])
+
     kernels = []
     for name, src, replaces, err, time_fn, length in (
         ("flash_fwd", "llark_tpu_torch/csrc/flash_fwd.cu",
@@ -422,6 +704,23 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    # the training kernels, at the training path's shape; their launches are
+    # the adapter stage's (32 layers x 2 micro-batches x 6 steps)
+    bwd_rows = time_flash_bwd(gen)
+    for name, replaces, (ms, plain_ms, lib_ms, (bound_ms, bound_by), shape) in zip(
+        ("flash_bwd_dq", "flash_bwd_dkv"),
+        ("llark_tpu/ops/attention.py:536", "llark_tpu/ops/attention.py:570"), bwd_rows,
+    ):
+        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (dq, dk and dv), "
+              f"SDPA backward {lib_ms:.4f} ms (dq, dk and dv), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of bound")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "llark_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": bwd_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    print(f"flash_fwd log-sum-exp, worst |d| {bwd_err['flash_fwd_lse']:.3e}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

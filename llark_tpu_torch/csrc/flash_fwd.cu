@@ -4,7 +4,10 @@
 // (reached through `flash_attention_fwd`): blocked online-softmax attention
 // with causal tile skip plus in-tile triangle, per-row kv_lengths, in-kernel
 // ALiBi `|slope| * (k_pos - q_pos)`, GQA (q head h reads kv head h / group)
-// and zeros for fully masked rows.
+// and zeros for fully masked rows. With an `lse` pointer it also writes the
+// per-row log-sum-exp of the scaled, biased scores ([B, H, Sq] fp32, natural
+// log) that the backward (flash_bwd.cu) rebuilds the probabilities from; a
+// row that sees no key gets +0.7 * FLT_MAX there, so exp(s - lse) is 0.
 //
 // What bounds it on the H100: at the serving prefill shape ([B, 32, 384, 128]
 // causal) the work is ~4.8 GFLOP against ~50 MB of q/k/v/o, so the least time
@@ -27,15 +30,16 @@
 // mma.m16n8k16 fragments (lane = 4 * g + t): A (16x16, row-major) holds
 // rows g and g+8 at columns 2t, 2t+1 (regs 0, 1) and 2t+8, 2t+9 (regs 2, 3);
 // B (16x8) holds column g at rows 2t, 2t+1 (reg 0) and 2t+8, 2t+9 (reg 1);
-// C (16x8, fp32) holds rows g (c0, c1) and g+8 (c2, c3) at columns 2t, 2t+1.
+// C (16x8, fp32) holds rows g (c0, c1) and g+8 (c2, c3) at columns 2t, 2t+1
+// (mma_tiles.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <float.h>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_tiles.cuh"
 
 namespace {
+
+using namespace tiles;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
@@ -52,84 +56,11 @@ struct Plan {
   static constexpr size_t bytes = v_off + size_t(BK) * LD * 2;
 };
 
-// Copy rows [r0, r0 + ROWS) of one or two [*, D] bf16 matrices (row stride
-// `ss` elements) into shared memory; rows at or past `limit` are zero. All
-// 16-byte loads are issued into registers before the first shared-memory
-// store: the compiler cannot move a global load above a store through
-// another pointer it might alias, so a load-store loop would pay one memory
-// round trip per iteration.
-template <int D, int ROWS, int NMAT>
-__device__ __forceinline__ void load_tiles(bf16* const (&dst)[NMAT], int ldd,
-                                           const bf16* const (&src)[NMAT],
-                                           const long long (&ss)[NMAT], int r0,
-                                           int limit) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int N = ROWS * CH / NTHREADS;
-  static_assert(ROWS * CH % NTHREADS == 0, "whole copy rounds");
-  uint4 val[NMAT][N];
-#pragma unroll
-  for (int m = 0; m < NMAT; ++m) {
-#pragma unroll
-    for (int it = 0; it < N; ++it) {
-      const int i = threadIdx.x + it * NTHREADS;
-      const int r = i / CH;
-      val[m][it] = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < limit) {
-        val[m][it] = *reinterpret_cast<const uint4*>(src[m] + (long long)(r0 + r) * ss[m] +
-                                                     (i % CH) * 8);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < NMAT; ++m) {
-#pragma unroll
-    for (int it = 0; it < N; ++it) {
-      const int i = threadIdx.x + it * NTHREADS;
-      *reinterpret_cast<uint4*>(dst[m] + (i / CH) * ldd + (i % CH) * 8) = val[m][it];
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from separate addresses, the first in the low half
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return uint32_t(*reinterpret_cast<const unsigned short*>(lo)) |
-         (uint32_t(*reinterpret_cast<const unsigned short*>(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b on the tensor cores: m16n8k16, bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 const int* __restrict__ kv_lengths,
+                 float* __restrict__ lse, const int* __restrict__ kv_lengths,
                  const float* __restrict__ slopes, int group, int Sq, int Sk,
                  long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
@@ -162,7 +93,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* const dst[1] = {sQ};
     const bf16* const src[1] = {q + b * q_sb + h * q_sh};
     const long long ss[1] = {q_ss};
-    load_tiles<D, BQ, 1>(dst, LD, src, ss, q0, Sq);
+    load_tiles<D, BQ, 1, NTHREADS>(dst, LD, src, ss, q0, Sq);
   }
   __syncthreads();
 
@@ -204,7 +135,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       bf16* const dst[2] = {sK, sV};
       const bf16* const src[2] = {kb, vb};
       const long long ss[2] = {k_ss, v_ss};
-      load_tiles<D, BK, 2>(dst, LD, src, ss, k0, kv_len);
+      load_tiles<D, BK, 2, NTHREADS>(dst, LD, src, ss, k0, kv_len);
     }
     __syncthreads();
 
@@ -284,6 +215,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const float lsum = quad_sum(l[r]);
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    if (lse != nullptr && t == 0 && qpos[r] < Sq) {
+      lse[((long long)b * gridDim.y + h) * Sq + qpos[r]] =
+          lsum > 0.f ? m[r] + logf(lsum) : 0.7f * FLT_MAX;
+    }
     if (qpos[r] < Sq) {
       bf16* orow = ob + (long long)qpos[r] * o_ss + 2 * t;
 #pragma unroll
@@ -297,7 +232,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* kv_lengths, const float* slopes, int B, int H,
+                   float* lse, const int* kv_lengths, const float* slopes, int B, int H,
                    int Hkv, int Sq, int Sk, const long long* st, int causal,
                    float scale, cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes;
@@ -307,7 +242,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), kv_lengths, slopes,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, kv_lengths, slopes,
       H / Hkv, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], causal, scale);
   return cudaGetLastError();
@@ -317,19 +252,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // C entry point, bound with ctypes. q [B,H,Sq,D], k/v [B,Hkv,Sk,D], o
 // [B,H,Sq,D], all bf16 with unit stride in D; `strides` holds the
-// (batch, head, seq) element strides of q, k, v, o in that order. `slopes`
-// may be null (no ALiBi). Returns the launch's cudaError_t.
+// (batch, head, seq) element strides of q, k, v, o in that order. `lse`
+// ([B,H,Sq] fp32, contiguous) and `slopes` may be null (no log-sum-exp, no
+// ALiBi). Returns the launch's cudaError_t.
 extern "C" int llark_flash_fwd(const void* q, const void* k, const void* v,
-                               void* o, const int* kv_lengths,
+                               void* o, float* lse, const int* kv_lengths,
                                const float* slopes, int B, int H, int Hkv,
                                int Sq, int Sk, int D, const long long* strides,
                                int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, o, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
+    return launch<64>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
                       strides, causal, scale, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
+    return launch<128>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
                        strides, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 """Decoder for Llama-2 (RoPE/RMSNorm/SwiGLU/GQA) and MPT (ALiBi/LayerNorm/
 GELU/tied embeddings) from one config: the counterpart of
-llark_tpu/models/decoder.py for the serving path.
+llark_tpu/models/decoder.py for serving and training.
 
 Parameters are a plain dict with the JAX package's layout: layer weights
 are stacked [L, ...] and the layer loop is a Python loop over views of
@@ -12,6 +12,12 @@ and is UPDATED IN PLACE: `decoder_forward` writes the new keys/values into
 the cache tensors it is given (slice assignment for prefill, a per-row
 index write for ragged decode) and returns a dict that shares them with
 an advanced "index".
+
+Training runs the no-cache branch with autograd: attention goes through the
+flash forward and backward kernels (`ops/attention.py` `_FlashAttention`),
+and with `cfg.remat` each layer is a `torch.utils.checkpoint` segment whose
+activations are recomputed in the backward (the JAX package's "full"
+policy).
 
 Not in this slice of the port, each raising a clear error: paged caches,
 the int8 KV cache, LoRA factors, MoE layers and quantized weights.
@@ -25,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
@@ -334,7 +341,7 @@ def _check_slice(cfg: ModelConfig, params: Params, kv_cache: Optional[Params]) -
     if cfg.moe_num_experts > 0:
         raise NotImplementedError("MoE layers come with a later slice of the port")
     if any(name.endswith(("_lora_a", "_lora_b")) for name in params["layers"]):
-        raise NotImplementedError("LoRA factors come with the training slice of the port")
+        raise NotImplementedError("LoRA factors come with a later slice of the port")
     if kv_cache is not None and "block_tables" in kv_cache:
         raise NotImplementedError("paged KV caches come with the serving-engine slice of the port")
     if kv_cache is not None and "k_scale" in kv_cache:
@@ -354,6 +361,7 @@ def decoder_forward(
     return_hidden: bool = False,
     prefix_lengths: Optional[torch.Tensor] = None,  # [B] prefix-LM boundaries
     prefill_from_empty: bool = False,  # this call fills an EMPTY cache
+    trainable_token_start: Optional[int] = None,  # tied-LM-head freeze boundary
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder (llark_tpu/models/decoder.py:579-778). Returns
     (logits_or_hidden, kv_cache|None); logits are fp32.
@@ -385,8 +393,16 @@ def decoder_forward(
     # layer-invariant inputs, computed once per forward
     rope = None if cfg.use_alibi else _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     slopes = alibi_slopes(cfg.num_heads, device=dev) if cfg.use_alibi else None
+    # remat: only where autograd records a training forward
+    remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in params["layers"].items()}
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None, None,
+                prefix_lengths, use_reentrant=False,
+            )
+            continue
         x = _layer_forward(
             cfg, lp, x, rope, seq_lengths, slopes,
             None if kv_cache is None else kv_cache["k"][l],
@@ -400,24 +416,63 @@ def decoder_forward(
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     if return_hidden:
         return x, new_cache
-    return compute_logits(cfg, params, x), new_cache
+    return compute_logits(cfg, params, x, trainable_token_start), new_cache
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids.long()].to(torch_dtype(cfg.dtype))
 
 
-def compute_logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head, tied to the embedding for MPT (reference: m2t/models/mpt.py:312).
-    The product runs in the compute dtype and the logits come back as
-    fp32 (in bf16 they carry bf16 rounding; the JAX package keeps the fp32
-    accumulator)."""
+class _LowPrecisionLogits(torch.autograd.Function):
+    """[N, H] x [H, V] in bf16/fp16 with an fp32 result: one tensor-core
+    GEMM that keeps its fp32 accumulator (`torch.mm(..., out_dtype=)`, which
+    has no derivative of its own). The backward rounds the fp32 cotangent to
+    the operands' dtype and runs two GEMMs there."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return torch.mm(g, w.t()), torch.mm(h.t(), g)
+
+
+def _logits_matmul(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """hidden [..., H] x w [H, V] -> fp32 logits [..., V] from operands in
+    hidden's dtype, accumulated in fp32 and never rounded to that dtype
+    (the JAX package's preferred_element_type=float32)."""
+    if hidden.dtype == torch.float32 or hidden.device.type != "cuda":
+        return torch.matmul(hidden.float(), w.float())
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    return _LowPrecisionLogits.apply(h2, w).reshape(*hidden.shape[:-1], w.shape[-1])
+
+
+def compute_logits(
+    cfg: ModelConfig,
+    params: Params,
+    hidden: torch.Tensor,
+    trainable_token_start: Optional[int] = None,
+) -> torch.Tensor:
+    """LM head, tied to the embedding for MPT (reference: m2t/models/mpt.py:312;
+    llark_tpu/models/decoder.py:785-830). The weights are rounded to the
+    compute dtype and the product keeps its fp32 accumulator: fp32 logits.
+
+    With tied embeddings the LM head IS the embedding table, so the
+    adapter-stage freeze (`trainable_token_start`: only appended audio-token
+    rows train) also detaches the head's rows below the start."""
     dtype = hidden.dtype
     if cfg.tie_embeddings:
-        return torch.matmul(hidden, params["embed"].to(dtype).t()).float()
+        w = params["embed"]  # [V, H]
+        if trainable_token_start is not None:
+            w = torch.cat([w[:trainable_token_start].detach(), w[trainable_token_start:]])
+        return _logits_matmul(hidden, w.to(dtype).t())
     w = params["lm_head"]
     if isinstance(w, dict):
         raise NotImplementedError(
             "quantized (int8/int4) weights come with a later slice of the port"
         )
-    return torch.matmul(hidden, w.to(dtype)).float()
+    return _logits_matmul(hidden, w.to(dtype))

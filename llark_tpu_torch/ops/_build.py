@@ -4,8 +4,9 @@ Each `csrc/*.cu` source has a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`.
 The build happens at first use, never at import: every source is compiled
 at once, one `nvcc` process each, into `llark_tpu_torch/_build/`, with a
-file name keyed by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is reused. `nvcc -Xptxas -v`'s
+file name keyed by a hash of the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edited kernel is rebuilt and an unchanged one is
+reused. `nvcc -Xptxas -v`'s
 report (registers, shared memory, spills) is kept beside each library and
 returned by `build_all()`.
 """
@@ -23,7 +24,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "flash_decode.cu")
+SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +49,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 

@@ -1,13 +1,19 @@
 """Attention ops: the plain PyTorch reference path and the Hopper
-flash-attention forward kernel.
+flash-attention kernels, forward and backward.
 
 Counterparts of llark_tpu/ops/attention.py. `xla_attention` keeps its name
 so the two packages read side by side; in the port it is the plain PyTorch
-path (fp32 softmax, products accumulated in fp32). `flash_attention_fwd`
-wraps the hand-written CUDA kernel `csrc/flash_fwd.cu`, which replaces the
-TPU kernel `_flash_fwd_kernel`; for CPU tensors it runs the kernel's plain
-PyTorch version instead, and for CUDA tensors it launches the kernel or
-raises.
+path (fp32 softmax, products accumulated in fp32). Three wrappers launch
+hand-written CUDA kernels:
+
+  flash_attention_fwd      csrc/flash_fwd.cu   replaces `_flash_fwd_kernel`
+  flash_attention_bwd_dq   csrc/flash_bwd.cu   replaces `_flash_bwd_dq_kernel`
+  flash_attention_bwd_dkv  csrc/flash_bwd.cu   replaces `_flash_bwd_dkv_kernel`
+
+For CPU tensors each runs its plain PyTorch version instead; for CUDA
+tensors it launches its kernel or raises. `_FlashAttention`, the
+counterpart of the JAX package's `_flash_mha` custom VJP, ties the forward
+(with its log-sum-exp) to the two backward kernels for autograd.
 
 Slope convention everywhere: `slopes` are positive magnitudes; the additive
 bias is `slope * (k_pos - q_pos)` (<= 0 on the causal triangle).
@@ -17,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -108,10 +114,9 @@ def xla_attention(
 # ---------------------------------------------------------------------------
 
 
-def _flash_attention_fwd_plain(q, k, v, *, causal, kv_lengths, slopes):
-    """Plain PyTorch version of `csrc/flash_fwd.cu` (and of the TPU kernel
-    `_flash_fwd_kernel`): the same masking, ALiBi and GQA, fp32 softmax,
-    and zeros for a row that sees no key."""
+def _scores_and_mask(q, k, *, causal, kv_lengths, slopes):
+    """The flash kernels' scaled, ALiBi-biased scores [B, H, Sq, Sk] in fp32
+    and their mask (True where a query sees a key)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dev = q.device
@@ -127,17 +132,32 @@ def _flash_attention_fwd_plain(q, k, v, *, causal, kv_lengths, slopes):
     mask = k_pos < kv_lengths.to(dev).reshape(b, 1, 1, 1)  # [B, 1, 1, Sk]
     if causal:
         mask = mask & (k_pos <= q_pos)
+    return s, mask
+
+
+def _flash_attention_fwd_plain(q, k, v, *, causal, kv_lengths, slopes, return_lse=False):
+    """Plain PyTorch version of `csrc/flash_fwd.cu` (and of the TPU kernel
+    `_flash_fwd_kernel`): the same masking, ALiBi and GQA, fp32 softmax,
+    and zeros for a row that sees no key. With `return_lse`, also the
+    per-row log-sum-exp [B, H, Sq] fp32, -DEFAULT_MASK_VALUE for a row that
+    sees no key."""
+    s, mask = _scores_and_mask(q, k, causal=causal, kv_lengths=kv_lengths, slopes=slopes)
     s = s.masked_fill(~mask, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)  # masked entries: exp(-inf) = 0
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, _broadcast_kv(v, h).float()) / torch.where(l == 0, 1.0, l)
-    return out.to(q.dtype)
+    l_safe = torch.where(l == 0, 1.0, l)
+    out = torch.matmul(p, _broadcast_kv(v, q.shape[1]).float()) / l_safe
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, -DEFAULT_MASK_VALUE, m + torch.log(l_safe))[..., 0]
+    return out, lse
 
 
 _FWD_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -150,10 +170,10 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _check_kernel_inputs(name, q, k, v):
+def _check_kernel_inputs(name, q, k, v, *rest):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {q.device}")
-    for t in (q, k, v):
+    for t in (q, k, v, *rest):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
         if t.device != q.device or t.dim() != 4:
@@ -167,32 +187,46 @@ def _check_kernel_inputs(name, q, k, v):
         raise ValueError(f"{name}: {q.shape[1]} q heads not a multiple of {k.shape[1]} kv heads")
 
 
-def _flash_attention_fwd_cuda(q, k, v, *, causal, kv_lengths, slopes):
+def _kernel_lengths_slopes(q, k, kv_lengths, slopes):
+    """kv_lengths as contiguous int32 [B] and slopes as fp32 [H] (or None) on
+    q's device, as the kernels read them."""
+    b, h = q.shape[:2]
+    dev = q.device
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), k.shape[2], dtype=torch.int32, device=dev)
+    kvl = kv_lengths.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
+    sl = None if slopes is None else slopes.to(device=dev, dtype=torch.float32).reshape(h).contiguous()
+    return kvl, sl
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _flash_attention_fwd_cuda(q, k, v, *, causal, kv_lengths, slopes, return_lse):
     _check_kernel_inputs("flash_attention_fwd", q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     dev = q.device
-    if kv_lengths is None:
-        kv_lengths = torch.full((b,), sk, dtype=torch.int32, device=dev)
-    kvl = kv_lengths.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
-    sl = None if slopes is None else slopes.to(device=dev, dtype=torch.float32).reshape(h).contiguous()
+    kvl, sl = _kernel_lengths_slopes(q, k, kv_lengths, slopes)
     o = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
     )
     fn = _build.load("flash_fwd.cu").llark_flash_fwd
     fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kvl.data_ptr(),
-        None if sl is None else sl.data_ptr(), b, h, hkv, sq, sk, d, strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), kvl.data_ptr(),
+        _ptr(sl), b, h, hkv, sq, sk, d, strides,
         int(causal), 1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_fwd")
     flash_attention_fwd.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_fwd(
@@ -203,25 +237,172 @@ def flash_attention_fwd(
     causal: bool = True,
     kv_lengths: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Flash-attention forward. q:[B,H,Sq,D], k/v:[B,Hkv,Sk,D] -> [B,H,Sq,D].
+    return_lse: bool = False,
+):
+    """Flash-attention forward. q:[B,H,Sq,D], k/v:[B,Hkv,Sk,D] -> [B,H,Sq,D],
+    and with `return_lse` also the per-row log-sum-exp [B,H,Sq] fp32 that
+    the backward reads (the TPU kernel's 128-lane copies of it are a layout
+    artifact the port drops).
 
     Counterpart of llark_tpu/ops/attention.py:227-332. CUDA tensors launch
     `csrc/flash_fwd.cu` (bf16, head_dim 64 or 128; anything else raises);
     CPU tensors run the plain version. Unlike the TPU kernel, no length has
-    to divide a block size: the kernel masks ragged edges itself. The
-    per-row log-sum-exp (training) is not produced here.
+    to divide a block size: the kernel masks ragged edges itself.
     `flash_attention_fwd.launches` counts kernel launches."""
-    if q.device.type == "cpu":
-        return _flash_attention_fwd_plain(
-            q, k, v, causal=causal, kv_lengths=kv_lengths, slopes=slopes
-        )
-    return _flash_attention_fwd_cuda(
-        q, k, v, causal=causal, kv_lengths=kv_lengths, slopes=slopes
-    )
+    impl = _flash_attention_fwd_plain if q.device.type == "cpu" else _flash_attention_fwd_cuda
+    return impl(q, k, v, causal=causal, kv_lengths=kv_lengths, slopes=slopes,
+                return_lse=return_lse)
 
 
 flash_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flash-attention backward: two Hopper kernels + their plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _flash_bwd_plain(q, k, v, g, lse, delta, *, causal, kv_lengths, slopes):
+    """Plain PyTorch version of both backward kernels (`csrc/flash_bwd.cu`,
+    the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`):
+    p rebuilt from the log-sum-exp, ds = p (dO v^T - delta) scale, then
+    dq = ds k, dk = ds^T q, dv = p^T dO, all in fp32; dk/dv summed over
+    the q heads that share a kv head. Returns (dq, dk, dv) in q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    s, mask = _scores_and_mask(q, k, causal=causal, kv_lengths=kv_lengths, slopes=slopes)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    gf = g.float()
+    kb, vb = _broadcast_kv(k, h).float(), _broadcast_kv(v, h).float()
+    ds = p * (torch.matmul(gf, vb.transpose(-1, -2)) - delta.float()[..., None]) / math.sqrt(d)
+    dq = torch.matmul(ds, kb)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    if h != hkv:
+        dk = dk.reshape(b, hkv, h // hkv, sk, d).sum(dim=2)
+        dv = dv.reshape(b, hkv, h // hkv, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+_BWD_DQ_ARGTYPES = (
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+)
+_BWD_DKV_ARGTYPES = (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+)
+
+
+def _flash_bwd_cuda(entry, q, k, v, g, lse, delta, outs, *, causal, kv_lengths, slopes):
+    """Launch one backward kernel of `csrc/flash_bwd.cu` into `outs`."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq) or not t.is_contiguous():
+            raise ValueError(f"{entry}: {name} must be contiguous fp32 [B, H, Sq]")
+    kvl, sl = _kernel_lengths_slopes(q, k, kv_lengths, slopes)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3]
+    )
+    fn = getattr(_build.load("flash_bwd.cu"), entry)
+    argtypes = _BWD_DQ_ARGTYPES if len(outs) == 1 else _BWD_DKV_ARGTYPES
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(o.data_ptr() for o in outs), kvl.data_ptr(), _ptr(sl),
+        b, h, hkv, sq, sk, d, strides, int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, entry)
+
+
+def flash_attention_bwd_dq(
+    q, k, v, g, lse, delta, *, causal=True, kv_lengths=None, slopes=None
+) -> torch.Tensor:
+    """dq [B,H,Sq,D] of flash attention from q, k, v, the output cotangent
+    g, the forward's log-sum-exp and delta = rowsum(g * out), both [B,H,Sq]
+    fp32. Counterpart of the TPU kernel `_flash_bwd_dq_kernel`
+    (llark_tpu/ops/attention.py:370-419, called at :536). CUDA tensors
+    launch `llark_flash_bwd_dq` of `csrc/flash_bwd.cu`; CPU tensors run the
+    plain version. `flash_attention_bwd_dq.launches` counts launches."""
+    kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, g, lse, delta, **kw)[0]
+    _check_kernel_inputs("flash_attention_bwd_dq", q, k, v, g)
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    if dq.numel():
+        _flash_bwd_cuda("llark_flash_bwd_dq", q, k, v, g, lse, delta, (dq,), **kw)
+        flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(
+    q, k, v, g, lse, delta, *, causal=True, kv_lengths=None, slopes=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each [B,Hkv,Sk,D] and summed over the q heads of a kv head
+    (GQA), from the same inputs as `flash_attention_bwd_dq`. Counterpart of
+    the TPU kernel `_flash_bwd_dkv_kernel` (llark_tpu/ops/attention.py:
+    422-488, called at :570) plus the group-sum of `_flash_mha_bwd`. CUDA
+    tensors launch `llark_flash_bwd_dkv` of `csrc/flash_bwd.cu`; CPU tensors
+    run the plain version. `flash_attention_bwd_dkv.launches` counts
+    launches."""
+    kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, g, lse, delta, **kw)[1:]
+    _check_kernel_inputs("flash_attention_bwd_dkv", q, k, v, g)
+    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.bfloat16, device=q.device)
+    if dk.numel():
+        _flash_bwd_cuda("llark_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv), **kw)
+        flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, g, *, causal=True, kv_lengths=None, slopes=None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention, k/v at their own head count
+    (llark_tpu/ops/attention.py:491-596 with the group-sum of
+    `_flash_mha_bwd`). delta = rowsum(g * out) is a torch reduction, as in
+    the JAX package; the two kernels do the rest."""
+    delta = (g.float() * out.float()).sum(dim=-1)
+    kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its flash backward: the counterpart of the JAX
+    package's `_flash_mha` custom VJP (llark_tpu/ops/attention.py:599-648).
+    The forward keeps (q, k, v, out, lse); the backward recomputes the
+    probabilities in the two backward kernels. kv_lengths and slopes get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_lengths, slopes):
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, kv_lengths=kv_lengths, slopes=slopes, return_lse=True
+        )
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse, kv_lengths, slopes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, kv_lengths, slopes = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, g, causal=ctx.causal, kv_lengths=kv_lengths, slopes=slopes
+        )
+        return dq, dk, dv, None, None, None
 
 
 def multihead_attention(
@@ -238,9 +419,14 @@ def multihead_attention(
     """Dispatching attention entry point (llark_tpu/ops/attention.py:693-735).
 
     With `use_pallas`, a multi-token query without prefix-LM masking goes
-    to `flash_attention_fwd`; a single-token query and prefix-LM masking
-    take the plain `xla_attention` path, as on the TPU."""
+    to the flash kernels: through `_FlashAttention` (forward with its
+    log-sum-exp, flash backward) when autograd records and an input needs a
+    gradient, else straight to `flash_attention_fwd` (serving, eval). A
+    single-token query and prefix-LM masking take the plain `xla_attention`
+    path, as on the TPU."""
     if use_pallas and q.shape[2] > 1 and prefix_lengths is None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal, kv_lengths, slopes)
         return flash_attention_fwd(
             q, k, v, causal=causal, kv_lengths=kv_lengths, slopes=slopes
         )

@@ -1,9 +1,11 @@
-"""Tokenization and audio-token expansion for the serving path.
+"""Tokenization, audio-token expansion and label masking.
 
-Host-side (pure Python) and framework-free: what `infer.py` needs to turn
-a prompt plus an audio frame count into the token ids the model reads.
-Behaviour parity targets (semantics, not code): audio token expansion
-(reference m2t/data_modules.py:112-143) and the prompt split
+Host-side (pure Python/numpy) and framework-free: what `infer.py` needs to
+turn a prompt plus an audio frame count into the token ids the model
+reads, and what the training data pipeline needs to turn a conversation
+into input ids and labels. Behaviour parity targets (semantics, not code):
+audio token expansion (reference m2t/data_modules.py:112-143), tokenize +
+mask (reference m2t/data_modules.py:57-109, 260-283) and the prompt split
 (reference m2t/tokenizer.py:41-58).
 """
 
@@ -13,12 +15,19 @@ import dataclasses
 import re
 from typing import Any, Dict, List, Optional, Sequence
 
-from llark_tpu_torch.conversation import PROMPT_END_TEXT
+import numpy as np
+
+from llark_tpu_torch.conversation import (
+    DEFAULT_CONVERSATION_HEADER,
+    PROMPT_END_TEXT,
+    format_conversation,
+)
 from llark_tpu_torch.special_tokens import (
     DEFAULT_AUDIO_END_TOKEN,
     DEFAULT_AUDIO_PATCH_TOKEN,
     DEFAULT_AUDIO_START_TOKEN,
     DEFAULT_AUDIO_TOKEN,
+    IGNORE_INDEX,
 )
 
 
@@ -100,6 +109,46 @@ class TokenizerBundle:
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
         return self.tokenizer.decode(list(ids), skip_special_tokens=skip_special_tokens)
 
+    def nonpad_len(self, ids: Sequence[int]) -> int:
+        return int(sum(1 for i in ids if i != self.pad_token_id))
+
+
+def mask_labels(
+    labels: np.ndarray, tokenized_lens: Sequence[int], speakers: Sequence[str]
+) -> np.ndarray:
+    """Apply IGNORE_INDEX to the header and (most of) each human turn.
+
+    The reference masking rule: the header is fully masked; for human turns,
+    positions [start+2, start+len) are masked -- the first two tokens of the
+    '### Human:' tag are left unmasked (reference m2t/data_modules.py:81-89;
+    quirk kept for loss parity).
+    """
+    labels = labels.copy()
+    cur = tokenized_lens[0]
+    labels[:cur] = IGNORE_INDEX
+    for tlen, speaker in zip(tokenized_lens[1:], speakers):
+        if speaker == "human":
+            labels[cur + 2 : cur + tlen] = IGNORE_INDEX
+        cur += tlen
+    return labels
+
+
+def preprocess_conversation(
+    turns: Sequence[Dict[str, str]],
+    bundle: TokenizerBundle,
+    header: str = DEFAULT_CONVERSATION_HEADER,
+) -> Dict[str, np.ndarray]:
+    """Format, tokenize, and mask one conversation.
+
+    Returns {"input_ids": int32 [S], "labels": int32 [S]} with S <= max length.
+    """
+    conversation, rendered = format_conversation(turns, header)
+    input_ids = np.asarray(bundle.encode(conversation), dtype=np.int32)
+    piece_lens = [bundle.nonpad_len(bundle.encode(piece)) for piece in [header] + rendered]
+    speakers = [t["from"] for t in turns]
+    labels = mask_labels(input_ids.copy(), piece_lens, speakers)
+    return {"input_ids": input_ids, "labels": labels}
+
 
 def subsequence_pos(seq: Sequence[int], subseq: Sequence[int]) -> int:
     """Index of the first occurrence of subseq in seq, or -1."""
@@ -134,7 +183,7 @@ def extract_prompt_tokens(ids: Sequence[int], end_seq: Sequence[int]) -> List[in
 
 class WordTokenizer:
     """Minimal deterministic word-level tokenizer with the HF surface the
-    serving path touches. For tests and offline smoke runs (no pretrained
+    framework touches. For tests and offline smoke runs (no pretrained
     tokenizer assets are needed)."""
 
     _TOKEN_RE = re.compile(r"<[a-z_]+>|###|\n|[^\s<]+|<")
@@ -194,3 +243,16 @@ class WordTokenizer:
 
     def __len__(self) -> int:
         return len(self._vocab)
+
+    def to_dict(self) -> Dict:
+        return {"model_max_length": self.model_max_length, "vocab": dict(self._vocab)}
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "WordTokenizer":
+        tok = cls(d.get("model_max_length", 512))
+        # re-intern in id order to reproduce the exact mapping
+        for t, _ in sorted(d["vocab"].items(), key=lambda kv: kv[1]):
+            tok._intern(t)
+        if tok._vocab != d["vocab"]:
+            raise ValueError("vocab reload mismatch")
+        return tok

@@ -1,0 +1,294 @@
+"""Optimizer, learning-rate schedule and train/eval steps (counterpart of
+llark_tpu/train/step.py).
+
+  * lr_schedule: HF lr_scheduler_type semantics with optax's formulas
+    (warmup to peak, then cosine or linear decay to 0, or constant);
+  * trainable_mask / ParamPartition: which tensors train (reference
+    m2t/train.py:79-106,143-164); the port marks them with requires_grad;
+  * AdamW (make_optimizer): optax.chain(clip_by_global_norm(1.0),
+    adamw(schedule, 0.9, 0.999, 1e-8, weight_decay)) with optax's
+    arithmetic, on the trainable tensors only, in place;
+  * make_train_step: gradient accumulation as the mean of the micro-batch
+    gradients, then one optimizer update; make_eval_step: loss sums.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from llark_tpu_torch.config import ModelConfig, TrainingArguments
+from llark_tpu_torch.models.fusion import causal_lm_loss, chunked_causal_lm_loss, llark_forward
+from llark_tpu_torch.train.state import TrainState, iter_leaves, trainable_leaves
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init -> end over `steps`, then held."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        frac = 1 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with alpha 0."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count):
+        return init * 0.5 * (1 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+
+    return schedule
+
+
+def _join(first: Callable, second: Callable, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules with one boundary."""
+    return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def lr_schedule(args: TrainingArguments) -> Callable[[int], float]:
+    """Learning rate at optimizer step `count` (0 for the first update):
+    cosine/linear warm up to the peak and decay to 0; 'constant' and
+    'constant_with_warmup' hold the peak (llark_tpu/train/step.py:29-62)."""
+    lr = args.learning_rate
+    warmup = max(1, int(args.max_steps * args.warmup_ratio))
+    decay = max(args.max_steps - warmup, 1)
+    kind = args.lr_scheduler_type
+    if kind == "cosine":
+        # optax.warmup_cosine_decay_schedule(0, lr, warmup, max(max_steps, warmup + 1))
+        total = max(args.max_steps, warmup + 1)
+        return _join(_linear(0.0, lr, warmup), _cosine(lr, total - warmup), warmup)
+    if kind == "linear":
+        return _join(_linear(0.0, lr, warmup), _linear(lr, 0.0, decay), warmup)
+    if kind in ("constant", "constant_with_warmup"):
+        w = warmup if kind == "constant_with_warmup" else 1
+        return _join(_linear(0.0, lr, w), lambda count: lr, w)
+    raise ValueError(
+        f"unknown lr_scheduler_type {kind!r}; "
+        "use cosine | linear | constant | constant_with_warmup"
+    )
+
+
+def trainable_mask(
+    params: Dict[str, Any],
+    *,
+    freeze_backbone: bool = False,
+    tune_mm_mlp_adapter: bool = False,
+    lora: bool = False,
+    freeze_mm_mlp_adapter: bool = False,
+) -> Dict[str, Any]:
+    """True = trainable, in the params' nested-dict shape
+    (llark_tpu/train/step.py:65-103). Adapter stage (frozen backbone + tune
+    flag): the projector and the embedding table (new-token rows gated in
+    the model by trainable_token_start). freeze_backbone alone: the
+    projector only. Neither: everything. freeze_mm_mlp_adapter pins the
+    projector."""
+    if lora:
+        raise NotImplementedError("LoRA comes with a later slice of the port")
+
+    def mark(value, trainable):
+        if isinstance(value, dict):
+            return {k: mark(v, trainable) for k, v in value.items()}
+        return trainable
+
+    def entry(name):
+        if name == "mm_projector":
+            return not freeze_mm_mlp_adapter
+        if tune_mm_mlp_adapter:
+            return name == "embed"
+        return not freeze_backbone
+
+    return {name: mark(value, entry(name)) for name, value in params.items()}
+
+
+class ParamPartition:
+    """The split of a params tree into the tensors that train and those
+    that stay frozen (llark_tpu/train/step.py:106-131). The port keeps it on
+    the tensors themselves: `requires_grad` is set from the mask, so
+    autograd computes gradients only for the trainable ones, and the train
+    step and optimizer state cover them alone (`state.trainable_leaves`)."""
+
+    def __init__(self, params: Dict[str, Any], mask: Dict[str, Any]):
+        flags = dict(iter_leaves(mask))
+        leaves = dict(iter_leaves(params))
+        if flags.keys() != leaves.keys():
+            raise ValueError("mask structure does not match params")
+        for path, t in leaves.items():
+            t.requires_grad_(bool(flags[path]))
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares, in fp32."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    eps, weight_decay)) on a list of tensors, updated in place:
+
+      g   <- g                  if |g| < max_norm, else g / |g| * max_norm
+      mu  <- b1 mu + (1 - b1) g;   nu <- b2 nu + (1 - b2) g^2;   t <- t + 1
+      u   <- (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p
+      p   <- p - lr(t - 1) u
+
+    |g| is the global norm over all trainable tensors; eps is outside the
+    square root; weight decay is decoupled (not scaled by the moments)."""
+
+    def __init__(self, schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 max_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.max_norm = max_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, leaves: List[torch.Tensor]) -> Dict[str, Any]:
+        return {
+            "count": 0,
+            "mu": [torch.zeros_like(p, requires_grad=False) for p in leaves],
+            "nu": [torch.zeros_like(p, requires_grad=False) for p in leaves],
+        }
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
+               leaves: List[torch.Tensor]) -> torch.Tensor:
+        """Apply one step to `leaves` and `state` in place; returns the
+        global norm of `grads` before clipping."""
+        norm = global_norm(grads)
+        keep = norm < self.max_norm
+        lr = self.schedule(state["count"])
+        t = state["count"] + 1
+        # bias corrections in fp32, as optax computes them (1 - b2^t loses
+        # ~1e-5 of its value there at small t)
+        bc1, bc2 = (float(1 - np.float32(b) ** t) for b in (self.b1, self.b2))
+        for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
+            g = torch.where(keep, g, g / norm.to(g.dtype) * self.max_norm)
+            mu.mul_(self.b1).add_((1 - self.b1) * g)
+            nu.mul_(self.b2).add_((1 - self.b2) * g.square())
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(-lr * u)
+        state["count"] = t
+        return norm
+
+
+def make_optimizer(args: TrainingArguments) -> AdamW:
+    """The JAX package's optimizer (llark_tpu/train/step.py:134-166). It
+    needs no params tree: the trainable set is carried by the tensors'
+    requires_grad flags."""
+    return AdamW(lr_schedule(args), weight_decay=args.weight_decay)
+
+
+def _split(batch: Batch, n: int) -> List[Batch]:
+    """n micro-batches of consecutive rows (the JAX package's reshape to
+    [n, B/n, ...])."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"batch of {rows} rows does not split into {n} micro-batches")
+    m = rows // n
+    return [{k: v[i * m : (i + 1) * m] for k, v in batch.items()} for i in range(n)]
+
+
+def make_loss_fn(
+    cfg: ModelConfig,
+    *,
+    audio_patch_id: int,
+    trainable_token_start: Optional[int] = None,
+    loss_chunk: Optional[int] = None,
+) -> Callable[[Dict[str, Any], Batch], Tuple[torch.Tensor, torch.Tensor]]:
+    """(params, batch) -> (mean token loss, number of valid tokens)."""
+
+    def loss_fn(params, micro):
+        out, _ = llark_forward(
+            cfg, params, micro["input_ids"],
+            audio_encodings=micro.get("audio_encodings"),
+            audio_patch_id=audio_patch_id,
+            audio_frame_counts=micro.get("audio_frame_counts"),
+            seq_lengths=micro.get("seq_lengths"),
+            trainable_token_start=trainable_token_start,
+            return_hidden=loss_chunk is not None,
+        )
+        if loss_chunk is not None:
+            return chunked_causal_lm_loss(
+                cfg, params, out, micro["labels"], loss_chunk,
+                trainable_token_start=trainable_token_start,
+            )
+        return causal_lm_loss(out, micro["labels"])
+
+    return loss_fn
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    optimizer: AdamW,
+    *,
+    audio_patch_id: int,
+    grad_accum_steps: int = 1,
+    trainable_token_start: Optional[int] = None,
+    loss_chunk: Optional[int] = None,
+) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Build the train step (llark_tpu/train/step.py:169-308).
+
+    Batch contract (tensors on the params' device):
+      input_ids          int   [B, S]
+      labels             int   [B, S]
+      seq_lengths        int   [B]
+      audio_encodings    float [B, T, mm_hidden]
+      audio_frame_counts int   [B]
+    with B = grad_accum_steps * micro_batch. Gradients are taken for the
+    params with requires_grad only; the step updates them and the optimizer
+    state in place and returns the state with its step advanced, plus
+    device-side metrics (loss, num_tokens, grad_norm before clipping)."""
+    loss_fn = make_loss_fn(
+        cfg, audio_patch_id=audio_patch_id, trainable_token_start=trainable_token_start,
+        loss_chunk=loss_chunk,
+    )
+    n_micro = max(grad_accum_steps, 1)
+
+    def train_step(state: TrainState, batch: Batch):
+        leaves = trainable_leaves(state.params)
+        grads, loss_sum, tokens = None, 0.0, 0
+        for micro in _split(batch, n_micro):
+            loss, n_tok = loss_fn(state.params, micro)
+            # a leaf the loss does not reach (no audio in the batch) gets zeros
+            g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+            loss_sum = loss_sum + loss.detach()
+            tokens = tokens + n_tok
+        if n_micro > 1:
+            grads = [g / n_micro for g in grads]
+        grad_norm = optimizer.update(grads, state.opt_state, leaves)
+        state.step += 1
+        metrics = {"loss": loss_sum / n_micro, "num_tokens": tokens, "grad_norm": grad_norm}
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(
+    cfg: ModelConfig,
+    *,
+    audio_patch_id: int,
+    loss_chunk: Optional[int] = None,
+) -> Callable[[Dict[str, Any], Batch], Dict[str, torch.Tensor]]:
+    """Loss-only forward over one batch (llark_tpu/train/step.py:326-357):
+    summed loss * tokens and the token count, so a caller averages over
+    batches exactly."""
+    loss_fn = make_loss_fn(cfg, audio_patch_id=audio_patch_id, loss_chunk=loss_chunk)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, n_tok = loss_fn(params, batch)
+        return {"loss_sum": loss * n_tok, "num_tokens": n_tok}
+
+    return eval_step

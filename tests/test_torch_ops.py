@@ -266,3 +266,115 @@ def test_decode_attention_dispatch_paged(sq):
         block_tables=_t(tables),
     )
     assert _rel_err(got, want) < XLA_TOL
+
+
+# ---------------------------------------------------------------------------
+# K1's log-sum-exp and K3/K4 (flash backward): plain versions vs the Pallas
+# kernels (interpret), and the autograd Function vs autograd through the
+# plain path
+# ---------------------------------------------------------------------------
+
+
+def _jax_fwd_lse(q, k, v, causal, kv_lengths, slopes):
+    out, lse = jattn.flash_attention_fwd(
+        _j(q), _j(k), _j(v), causal=causal, kv_lengths=_j(kv_lengths), slopes=_j(slopes),
+        block_q=128, block_k=128, interpret=True, return_lse=True,
+    )
+    return out, lse
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("alibi", [False, True], ids=["noalibi", "alibi"])
+def test_flash_fwd_lse_matches_pallas(causal, alibi):
+    # the TPU kernel's 128 lane copies of the log-sum-exp are one value;
+    # a row with no live key gets -DEFAULT_MASK_VALUE in both
+    b, h, hkv, s, d = 2, 4, 2, 128, 64
+    q, k, v = _qkv(20, b, h, hkv, s, s, d)
+    kv_lengths = np.array([0, 77], np.int32)
+    slopes = np.asarray(jattn.alibi_slopes(h)) if alibi else None
+    _, want = _jax_fwd_lse(q, k, v, causal, kv_lengths, slopes)
+    want = np.asarray(want)[..., 0]
+    got_out, got = tattn.flash_attention_fwd(
+        _t(q), _t(k), _t(v), causal=causal, kv_lengths=_t(kv_lengths), slopes=_t(slopes),
+        return_lse=True,
+    )
+    assert got.shape == (b, h, s) and got.dtype == torch.float32
+    assert np.array_equal(got[0].numpy(), want[0])  # the empty row, exactly
+    assert float(got[0, 0, 0]) == float(np.float32(-tattn.DEFAULT_MASK_VALUE))
+    assert _rel_err(got[1], want[1]) < KERNEL_TOL
+    # with return_lse the output is the plain forward's
+    plain = tattn.flash_attention_fwd(
+        _t(q), _t(k), _t(v), causal=causal, kv_lengths=_t(kv_lengths), slopes=_t(slopes)
+    )
+    assert torch.equal(got_out, plain)
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,s,d,causal,alibi",
+    [
+        (2, 4, 4, 128, 128, True, False),
+        (2, 4, 4, 256, 64, False, False),
+        (1, 8, 2, 128, 64, True, True),
+        (2, 2, 1, 256, 128, True, False),
+    ],
+    ids=["causal", "noncausal_s256", "gqa4_alibi", "mqa_s256"],
+)
+def test_flash_bwd_plain_matches_pallas(b, h, hkv, s, d, causal, alibi):
+    q, k, v = _qkv(21, b, h, hkv, s, s, d)
+    g = np.random.RandomState(22).randn(b, h, s, d).astype(np.float32)
+    kv_lengths = np.array([s, s - 51][:b], np.int32)
+    slopes = np.asarray(jattn.alibi_slopes(h)) if alibi else None
+    out, lse = _jax_fwd_lse(q, k, v, causal, kv_lengths, slopes)
+    jdq, jdk, jdv = jattn.flash_attention_bwd(
+        _j(q), jattn._broadcast_kv(_j(k), h), jattn._broadcast_kv(_j(v), h), out, lse, _j(g),
+        causal=causal, kv_lengths=_j(kv_lengths), slopes=_j(slopes),
+        block_q=128, block_k=128, interpret=True,
+    )
+    group = h // hkv
+    jdk = np.asarray(jdk).reshape(b, hkv, group, s, d).sum(axis=2)  # as _flash_mha_bwd does
+    jdv = np.asarray(jdv).reshape(b, hkv, group, s, d).sum(axis=2)
+    dq, dk, dv = tattn.flash_attention_bwd(
+        _t(q), _t(k), _t(v), _t(out), _t(np.asarray(lse)[..., 0]), _t(g),
+        causal=causal, kv_lengths=_t(kv_lengths), slopes=_t(slopes),
+    )
+    assert dk.shape == (b, hkv, s, d)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert _rel_err(got, want) < KERNEL_TOL
+    if b > 1:  # keys at or past kv_len get exact zeros
+        assert float(dk[1, :, s - 51:].abs().max()) == 0.0
+        assert float(dv[1, :, s - 51:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hkv,causal,alibi", [(4, True, False), (2, False, True)],
+                         ids=["causal", "gqa_noncausal_alibi"])
+def test_flash_attention_function_matches_autograd(hkv, causal, alibi):
+    # the counterpart of _flash_mha: forward with its log-sum-exp, backward
+    # by the flash backward; held against autograd through xla_attention
+    b, h, s, d = 2, 4, 40, 16
+    q, k, v = _qkv(23, b, h, hkv, s, s, d)
+    g = torch.from_numpy(np.random.RandomState(24).randn(b, h, s, d).astype(np.float32))
+    kv_lengths = torch.tensor([40, 29])
+    slopes = tattn.alibi_slopes(h) if alibi else None
+    grads = []
+    for route in ("function", "plain"):
+        tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+        if route == "function":
+            out = tattn._FlashAttention.apply(tq, tk, tv, causal, kv_lengths, slopes)
+        else:
+            out = tattn.xla_attention(tq, tk, tv, causal=causal, kv_lengths=kv_lengths,
+                                      slopes=slopes)
+        grads.append(torch.autograd.grad(out, (tq, tk, tv), g))
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) < XLA_TOL
+
+
+def test_multihead_attention_routes_training_through_the_function():
+    # with autograd recording, the flash route is the autograd Function
+    # (gradients reach q, k and v); without, it is the forward alone
+    q, k, v = (_t(x) for x in _qkv(25, 1, 4, 4, 8, 8, 16))
+    q.requires_grad_()
+    out = tattn.multihead_attention(q, k, v, kv_lengths=torch.tensor([8]), use_pallas=True)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    with torch.no_grad():
+        out = tattn.multihead_attention(q, k, v, kv_lengths=torch.tensor([8]), use_pallas=True)
+    assert out.grad_fn is None
