@@ -613,15 +613,17 @@ def time_flash_bwd(gen):
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = sdpa(ql, kl, vl, mask)
     # visible (query, key) pairs; the forward does 2 products of 2*D FLOPs
-    # per pair, dq 3, dk/dv 4; bytes: inputs read once (bf16 q, k, v, dO;
-    # fp32 lse, delta), outputs written once
+    # per pair, dq 3, dk/dv 4; bytes: inputs read once (bf16 q and dO whole,
+    # k and v up to each row's kv_len only; fp32 lse, delta), outputs
+    # written once (dk, dv whole: dead keys get zeros)
     qi, ki = np.arange(s)[:, None], np.arange(s)[None, :]
     pairs = sum(int(((ki <= qi) & (ki < n)).sum()) for n in TRAIN_LENGTHS) * h
     tensor = 2 * b * h * s * d  # one bf16 [B, H, S, D]
+    live_kv = 2 * h * d * sum(TRAIN_LENGTHS)  # one bf16 k or v, live rows
     fwd_ms = median_ms(lambda: attn_ops.flash_attention_fwd(q, k, v, return_lse=True, **kw))
     fwd_plain = median_ms(lambda: attn_ops._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw))
     fwd_lib = median_ms(lambda: sdpa(q, k, v, mask))
-    fwd_bound, fwd_by = bound(4 * tensor + 4 * b * h * s, 4.0 * d * pairs)
+    fwd_bound, fwd_by = bound(2 * tensor + 2 * live_kv + 4 * b * h * s, 4.0 * d * pairs)
     print(f"flash_fwd with log-sum-exp at [{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}: "
           f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA {fwd_lib:.4f} ms, "
           f"bound {fwd_bound:.4f} ms ({fwd_by}), {fwd_bound / fwd_ms:.1%} of bound")
@@ -629,7 +631,7 @@ def time_flash_bwd(gen):
     dkv_ms = median_ms(lambda: attn_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
     plain_ms = median_ms(lambda: attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw))
     lib_ms = median_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
-    io_in = 4 * tensor + 2 * 4 * b * h * s
+    io_in = 2 * tensor + 2 * live_kv + 2 * 4 * b * h * s
     dq_bound = bound(io_in + tensor, 6.0 * d * pairs)
     dkv_bound = bound(io_in + 2 * tensor, 8.0 * d * pairs)
     shape = f"[{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}"

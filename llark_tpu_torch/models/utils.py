@@ -11,25 +11,21 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Tuple
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 
 
 def save_model_metadata(output_dir: str, cfg: ModelConfig, bundle: TokenizerBundle) -> None:
-    """Write model_config.json next to the checkpoints."""
+    """Write model_config.json next to the checkpoints. The port's only
+    tokenizer is the word-level one (HF tokenizers come with checkpoint
+    import), written in the JAX package's "word" format."""
     os.makedirs(output_dir, exist_ok=True)
-    tok = bundle.tokenizer
-    if isinstance(tok, WordTokenizer):
-        tok_meta: Dict[str, Any] = {"type": "word", **tok.to_dict()}
-    else:
-        tok_meta = {
-            "type": "hf",
-            "path": getattr(tok, "name_or_path", None),
-            "model_max_length": bundle.model_max_length,
-        }
-    payload = {"model_config": dataclasses.asdict(cfg), "tokenizer": tok_meta}
+    payload = {
+        "model_config": dataclasses.asdict(cfg),
+        "tokenizer": {"type": "word", **bundle.tokenizer.to_dict()},
+    }
     with open(os.path.join(output_dir, "model_config.json"), "w") as f:
         json.dump(payload, f, indent=2)
 

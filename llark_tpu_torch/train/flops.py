@@ -19,12 +19,9 @@ from typing import Optional
 
 from llark_tpu_torch.config import ModelConfig
 
-# dense bf16 tensor-core FLOP/s by device-name substring (NVIDIA data sheets,
-# SXM parts, at their full power limit)
-_PEAK_BF16 = (
-    ("H100", 989e12),
-    ("H200", 989e12),
-)
+# dense bf16 tensor-core FLOP/s by device-name substring (NVIDIA's data
+# sheet, SXM part, at its full power limit of 700 W)
+_PEAK_BF16 = (("H100", 989e12),)
 
 
 def device_peak_flops(device_index: int = 0) -> Optional[float]:

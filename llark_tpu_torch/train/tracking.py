@@ -3,8 +3,8 @@ llark_tpu/train/tracking.py).
 
 `<output_dir>/metrics.jsonl` gets one JSON object per logged step, append
 mode and line-flushed, so a long run survives crashes and a resumed run
-continues the same file (each record carries its step). Only rank 0 of a
-torch.distributed group writes. The reference logs to wandb (reference:
+continues the same file (each record carries its step). The reference
+logs to wandb (reference:
 scripts/training/train_llark.sh:33,43); this stream is the local
 equivalent.
 """
@@ -29,10 +29,7 @@ class MetricsWriter:
             )
         if report_to not in ("jsonl", "none"):
             raise ValueError(f"unknown report_to {report_to!r}")
-        import torch.distributed as dist
-
-        rank0 = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
-        self.enabled = rank0 and report_to != "none"
+        self.enabled = report_to != "none"
         self._fh = None
         self._t0 = time.time()
         if self.enabled:
@@ -56,10 +53,3 @@ class MetricsWriter:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
-        return False

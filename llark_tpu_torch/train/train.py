@@ -22,6 +22,7 @@ import dataclasses
 import logging
 import math
 import os
+import signal
 import time
 from typing import Any, Dict, Optional, Union
 
@@ -114,8 +115,6 @@ class PreemptionGuard:
     checked once per step."""
 
     def __init__(self, enabled: bool = True):
-        import signal
-
         self.triggered = False
         self._prev = {}
         if not enabled:
@@ -131,8 +130,6 @@ class PreemptionGuard:
         self.triggered = True
 
     def restore(self):
-        import signal
-
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
 
