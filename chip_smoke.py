@@ -22,22 +22,42 @@ Phases, in order; any failure exits non-zero before the final line:
      times, L2 flushed before each launch) beside the plain version, PyTorch's
      scaled_dot_product_attention as the library yardstick, and the bound
      from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16);
-  6. the training kernels against their plain versions at the training
+  6. (A) the flash-decode kernel's int8 and paged modes against their plain
+     version at 7B serving shapes: q [8,32,1,128], 2048-position caches,
+     live lengths 300-340; dense int8, paged bf16 with 16- and 128-token
+     blocks, paged int8 with 128-token blocks, Sq=5 with GQA Hkv=8 and
+     ALiBi; paged tables scattered over the pool; held per query row;
+  7. (B) the serving engine (`BatchedServer`) at full Llama-2-7B width (32
+     layers, random bf16 weights from the seed): 16 requests (the four
+     prompts of requests() four times, random [256, 4800] encodings),
+     greedy, 32 new tokens, 8 slots, cache 2048, decode_chunk 8, in four
+     modes: (a) the run of record, paged 128-token blocks + int8 KV +
+     prefill_chunk 256; (b) dense bf16, one-shot admission; (c) paged bf16,
+     16-token blocks, prefill_chunk 256, prefix caching; (d) dense int8,
+     one-shot admission. Each mode: wall time, tokens/s, mean TTFT, the
+     flash-decode launches by cache mode (all in its own), peak memory, and
+     a decode round's device idle share (torch.profiler); in (a) and (c)
+     one decode step from an admitted state through the kernel route and
+     the plain route, logits within LOGITS_TOL;
+  8. the training kernels against their plain versions at the training
      path's shape ([2, 32, 1024, 128] bf16, causal, kv_lengths [1024, 700])
      and with GQA + ALiBi and head_dim 64: the forward's log-sum-exp, the
      dq kernel and the dk/dv kernel;
-  7. one training step's loss and projector gradient at 7B width, 2 layers,
+  9. one training step's loss and projector gradient at 7B width, 2 layers,
      through the flash kernels and through the plain attention path;
-  8. the adapter stage at full Llama-2-7B (32 layers, fp32 parameters,
+ 10. the adapter stage at full Llama-2-7B (32 layers, fp32 parameters,
      frozen backbone, remat) through `train()` on shards written to a temp
      dir: batch 2 x 2 accumulation steps, 1024 tokens, 256 x 4800 audio
      frames; the loss must fall;
-  9. the run-of-record flags (the whole model trains) at 7B width, 4
+ 11. the run-of-record flags (the whole model trains) at 7B width, 4
      layers, likewise; for both: median step ms, tokens/s, MFU, peak
      memory, launches of the three flash kernels per step and the card's
      idle share in a torch.profiler trace of one step;
- 10. the training kernels' timings at the phase-6 shape beside their plain
-     versions and PyTorch's scaled_dot_product_attention backward.
+ 12. the training kernels' timings at the phase-8 shape beside their plain
+     versions and PyTorch's scaled_dot_product_attention backward; and the
+     flash-decode kernel's int8 and paged modes at the phase-6 shape beside
+     their plain version (no single PyTorch call reads an int8 or paged
+     cache: SDPA over a dense bf16 view is printed beside them).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or llark_tpu.
@@ -61,8 +81,9 @@ import torch
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardWriter
-from llark_tpu_torch.generate import GenerationConfig, Generator
-from llark_tpu_torch.infer import batch_infer, build_prompt_ids
+from llark_tpu_torch.generate import GenerationConfig, Generator, decode_step
+from llark_tpu_torch.infer import _common_prompt_prefix, batch_infer, build_prompt_ids
+from llark_tpu_torch.inference.server import BatchedServer, Request
 from llark_tpu_torch.models.fusion import init_llark_params
 from llark_tpu_torch.ops import _build
 from llark_tpu_torch.ops import attention as attn_ops
@@ -412,7 +433,252 @@ def time_flash_decode(gen, kv_len, b):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: training kernels against their plain versions
+# phase 6 (A): the flash-decode kernel's int8 and paged modes (K2')
+# ---------------------------------------------------------------------------
+
+SERVE_LENGTHS = [300, 305, 311, 318, 322, 329, 334, 340]  # ragged live lengths, batch 8
+
+
+def quantize(x: torch.Tensor):
+    """[..., D] -> (int8, fp32 per-position scales), as the decoder does."""
+    xf = x.float()
+    sc = xf.abs().amax(dim=-1) / 127.0
+    return torch.round(xf / sc.clamp_min(1e-8)[..., None]).to(torch.int8), sc
+
+
+def k2_inputs(gen, mode: str, hkv: int = 32, sq: int = 1, bs: int = 128, s: int = 2048):
+    """q [8, 32, sq, 128] bf16 and a cache of `s` positions per row in one
+    of the modes "int8" (dense), "paged" or "paged_int8". Paged tables are
+    random permutations of the pool's blocks (scattered, not consecutive),
+    with the 8 parking blocks first as the server lays the pool out."""
+    b, h, d = len(SERVE_LENGTHS), 32, 128
+    q = bf16_randn(gen, b, h, sq, d)
+    kw = dict(kv_lengths=torch.tensor(SERVE_LENGTHS, device="cuda"))
+    kw["q_positions"] = kw["kv_lengths"] - sq
+    if mode.startswith("paged"):
+        max_blocks = s // bs
+        n_blocks = b + b * max_blocks
+        k, v = bf16_randn(gen, n_blocks, hkv, bs, d), bf16_randn(gen, n_blocks, hkv, bs, d)
+        perm = torch.randperm(n_blocks - b, generator=gen, device="cuda") + b
+        kw["block_tables"] = perm.reshape(b, max_blocks).to(torch.int32)
+    else:
+        k, v = bf16_randn(gen, b, hkv, s, d), bf16_randn(gen, b, hkv, s, d)
+    if mode.endswith("int8"):
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize(k), quantize(v)
+    return q, k, v, kw
+
+
+def k2_plain(q, k, v, kw):
+    return dec_ops._flash_decode_plain(
+        q, k, v, kv_lengths=kw["kv_lengths"], q_positions=kw["q_positions"],
+        k_scale=kw.get("k_scale"), v_scale=kw.get("v_scale"), slopes=kw.get("slopes"),
+        block_tables=kw.get("block_tables"))
+
+
+# K2' rows of the kernels line: (name, input mode of k2_inputs, block size,
+# the serving mode of phase 7 whose run gives its launches, that run's
+# cache mode); paged int8 is the run-of-record mode (a)
+K2_ROWS = (("flash_decode_int8", "int8", 0, "d", "dense_int8"),
+           ("flash_decode_paged", "paged", 16, "c", "paged_bf16"),
+           ("flash_decode_paged_int8", "paged_int8", 128, "a", "paged_int8"))
+
+
+def check_flash_decode_modes(gen: torch.Generator):
+    """K2' against its plain version at 7B serving shapes: q [8,32,1,128],
+    2048-position caches, live lengths 300-340. Both sides compute in fp32
+    from the same int8 values and scales. The worst max |diff| per row of
+    the kernels line."""
+    cases = [
+        ("flash_decode_int8", "dense int8", dict(mode="int8")),
+        ("flash_decode_paged", "paged bf16, 16-token blocks", dict(mode="paged", bs=16)),
+        ("flash_decode_paged", "paged bf16, 128-token blocks", dict(mode="paged", bs=128)),
+        ("flash_decode_paged_int8", "paged int8, 128-token blocks",
+         dict(mode="paged_int8", bs=128)),
+        ("flash_decode_paged_int8", "paged int8, 128-token blocks, Sq=5, GQA Hkv=8 + ALiBi",
+         dict(mode="paged_int8", bs=128, sq=5, hkv=8, alibi=True)),
+        ("flash_decode_int8", "dense int8, Sq=5, GQA Hkv=8 + ALiBi",
+         dict(mode="int8", sq=5, hkv=8, alibi=True)),
+    ]
+    worst = {}
+    for row, name, case in cases:
+        alibi = case.pop("alibi", False)
+        q, k, v, kw = k2_inputs(gen, **case)
+        if alibi:
+            kw["slopes"] = attn_ops.alibi_slopes(32, "cuda")
+        got = dec_ops.flash_decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if "paged" in name:
+            name += ", scattered tables"
+        err = check_close("flash_decode", f"{name}, kv_len 300-340", got, k2_plain(q, k, v, kw))
+        worst[row] = max(worst.get(row, 0.0), err)
+    return worst
+
+
+def time_flash_decode_mode(gen, mode: str, bs: int):
+    """(ms, plain_ms, sdpa_ms, (bound_ms, bound_by), shape) of one K2' mode
+    at the phase-6 shape. The bound counts the live bytes: K and V up to
+    each row's length (int8 or bf16), their fp32 scales, the live table
+    entries, q and out."""
+    q, k, v, kw = k2_inputs(gen, mode, bs=bs)
+    ms = median_ms(lambda: dec_ops.flash_decode_attention(q, k, v, **kw))
+    plain_ms = median_ms(lambda: k2_plain(q, k, v, kw))
+    # printed beside it only: SDPA over a dense bf16 view of the same cache
+    # (no single PyTorch call reads an int8 or paged cache)
+    kd, vd = k, v
+    if "block_tables" in kw:
+        kd, vd = dec_ops._dense_view(k, kw["block_tables"]), dec_ops._dense_view(v, kw["block_tables"])
+    if "k_scale" in kw:
+        ks, vs = kw["k_scale"], kw["v_scale"]
+        if "block_tables" in kw:
+            ks, vs = dec_ops._dense_view(ks, kw["block_tables"]), dec_ops._dense_view(vs, kw["block_tables"])
+        kd = (kd.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (vd.float() * vs[..., None]).to(torch.bfloat16)
+    s = kd.shape[2]
+    mask = (torch.arange(s, device="cuda")[None, :] < kw["kv_lengths"][:, None])[:, None, None, :]
+    sdpa_ms = median_ms(lambda: sdpa(q, kd, vd, mask))
+    b, h, sq, d = q.shape
+    hkv, live = k.shape[1], sum(SERVE_LENGTHS)
+    elem = 1 if mode.endswith("int8") else 2
+    nbytes = 2 * hkv * live * d * elem + 2 * 2 * b * h * sq * d + 8 * b
+    if mode.endswith("int8"):
+        nbytes += 2 * hkv * live * 4
+    if mode.startswith("paged"):
+        nbytes += 4 * sum(-(-n // bs) for n in SERVE_LENGTHS)
+    flops = 4.0 * d * h * sq * live
+    return ms, plain_ms, sdpa_ms, bound(nbytes, flops), (
+        f"{mode}{f' bs {bs}' if bs else ''}, q [{b},{h},{sq},{d}], 2048-position caches, "
+        f"kv_len 300-340")
+
+
+# ---------------------------------------------------------------------------
+# phase 7 (B): the serving engine at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+# server modes: (label, kernel row of its cache mode, kv_cache_quant,
+# server keywords)
+SERVER_MODES = (
+    ("a", "run-of-record: paged 128-token blocks, int8 KV, prefill_chunk 256", "paged_int8",
+     True, dict(kv_block_size=128, prefill_chunk=256)),
+    ("b", "dense bf16 cache, one-shot admission", "dense_bf16", False, {}),
+    ("c", "paged bf16, 16-token blocks, prefill_chunk 256, prefix caching", "paged_bf16",
+     False, dict(kv_block_size=16, prefill_chunk=256, prefix=True)),
+    ("d", "dense int8 cache, one-shot admission", "dense_int8", True, {}),
+)
+# the modes whose decode logits are held against the plain route
+GATED_MODES = ("a", "c")
+
+
+def serving_requests(cfg: ModelConfig, bundle: TokenizerBundle, n: int, seed: int):
+    """n requests: the four prompts of requests() in turn, each with a
+    random [256, 4800] encoding made from `seed`."""
+    rng = np.random.RandomState(seed)
+    prompts = ["Describe the audio.", "What is the tempo?", "Which instruments play?",
+               "What is the key of this piece?"]
+    out = []
+    for i in range(n):
+        ids = np.asarray(build_prompt_ids(prompts[i % 4], 256, bundle), np.int32)
+        out.append(Request(ids, rng.randn(256, cfg.mm_hidden_size).astype(np.float32)))
+    return out
+
+
+def profile_round(server: BatchedServer):
+    """Wall time of one decode round over the live slots, unprofiled, and
+    the device kernel time of the next one from torch.profiler: the card's
+    idle share in a round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server._decode_round()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server._decode_round()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        return wall_ms, None, "not measured (the profiler saw no device time)"
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    return wall_ms, busy_ms, "; ".join(
+        f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top)
+
+
+@torch.inference_mode()
+def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
+    """Drive BatchedServer at full 7B width in each cache mode; check and
+    print what each did. Returns the K2' launches by cache mode of each
+    mode's serve() run."""
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    gen_cfg = GenerationConfig(max_new_tokens=32, stop_text="")
+    base = dict(max_batch=8, max_cache_len=2048, prompt_buckets=(512,), max_audio_frames=256,
+                decode_chunk=8, tokenizer=bundle.tokenizer)
+    launches = {}
+    for label, name, own_mode, quant, extra in SERVER_MODES:
+        mcfg = dataclasses.replace(cfg, kv_cache_quant=quant)
+        kw = dict(base, **extra)
+        reqs = serving_requests(cfg, bundle, 16, SEED)
+        if kw.pop("prefix", False):
+            kw["shared_prefix_ids"] = _common_prompt_prefix(
+                [r.input_ids for r in reqs], bundle.audio_patch_id,
+                min_len=max(8, kw["kv_block_size"]))
+        server = BatchedServer(mcfg, params, bundle.audio_patch_id, gen_cfg, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dec_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_mode = dict(dec_ops.flash_decode_attention.launches_by_mode)
+        launches[label] = by_mode
+        stats = server.stats(reqs)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serving ({label}) {name}: 16 requests x 32 tokens in {wall:.2f} s, "
+              f"{stats['tokens_per_sec']:.1f} tokens/s, mean TTFT {stats['mean_ttft_s']:.3f} s, "
+              f"peak memory {peak_gb:.2f} GiB; K2 launches by cache mode {by_mode}")
+        check(all(r.done and r.error is None and len(r.tokens) == 32 for r in reqs),
+              f"serving ({label}): a request did not finish with 32 tokens")
+        check(by_mode[own_mode] > 0, f"serving ({label}): no flash-decode launch in {own_mode}")
+        check(sum(by_mode.values()) == by_mode[own_mode],
+              f"serving ({label}): flash-decode launched in another cache mode: {by_mode}")
+
+        # one cache state after admission: 8 live slots
+        server._queue = serving_requests(cfg, bundle, 8, SEED + 1)
+        for r in server._queue:
+            r.submitted_at = time.time()
+        server._admit()
+        server._refresh_tables()
+        if label in GATED_MODES:
+            # one decode step from that state through the kernel route and
+            # through the plain route (it rewrites the same K/V at the same
+            # positions, so the second step sees the first one's cache)
+            token = torch.as_tensor(server._tokens_in_flight, dtype=torch.int64, device="cuda")
+            pos = torch.as_tensor(server._write_pos, dtype=torch.int64, device="cuda")
+            plain_cfg = dataclasses.replace(server.cfg, use_flash_decode=False)
+            lk, _ = decode_step(server.cfg, params, token, server._cache, pos)
+            lp, _ = decode_step(plain_cfg, params, token, server._cache, pos)
+            check(bool(torch.isfinite(lk).all()), f"serving ({label}): non-finite decode logits")
+            rel, diff = rel_err(lk, lp)
+            print(f"  one decode step from the admitted state, kernel vs plain route: "
+                  f"max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+            check(rel <= LOGITS_TOL, f"serving ({label}): decode logits rel err {rel:.3e}")
+        wall_ms, busy_ms, top = profile_round(server)
+        if busy_ms is None:
+            print(f"  one decode round (8 slots x 8 tokens): wall {wall_ms:.1f} ms; device {top}")
+        else:
+            print(f"  one decode round (8 slots x 8 tokens): wall {wall_ms:.1f} ms unprofiled, "
+                  f"device kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}; {top}")
+        del server
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 TRAIN_SHAPE = (2, 32, 1024, 128)  # the training path's q/k/v: batch 2, 1024 tokens
@@ -456,7 +722,7 @@ def check_flash_bwd(gen: torch.Generator):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-9: the training path
+# phases 9-11: the training path
 # ---------------------------------------------------------------------------
 
 # one step at 7B width, kernel path vs plain attention path (both bf16): the
@@ -592,7 +858,7 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
 
 
 # ---------------------------------------------------------------------------
-# phase 10: training kernels' timings
+# phase 12: training kernels' timings
 # ---------------------------------------------------------------------------
 
 
@@ -669,6 +935,8 @@ def main() -> int:
     fwd_err = check_flash_fwd(gen, plen)
     dec_err = check_flash_decode(gen, plen)
     launches = run_main_path(cfg, bundle, rows)
+    k2_err = check_flash_decode_modes(gen)
+    serving = run_serving_engine(cfg, bundle)
 
     bwd_err = check_flash_bwd(gen)
     train_cfg = ModelConfig.llama2_7b()  # fp32 parameters, bf16 compute, remat
@@ -705,6 +973,20 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
+        })
+    # K2': each cache mode at the phase-6 shape, launches from the serving
+    # mode that runs it
+    for name, mode, bs, label, cache_mode in K2_ROWS:
+        ms, plain_ms, sdpa_ms, (bound_ms, bound_by), shape = time_flash_decode_mode(gen, mode, bs)
+        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over a "
+              f"dense bf16 view {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of bound")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "llark_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "llark_tpu/ops/decode_attention.py:495",
+            "launches": serving[label][cache_mode], "max_abs_err": k2_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
         })
     # the training kernels, at the training path's shape; their launches are
     # the adapter stage's (32 layers x 2 micro-batches x 6 steps)

@@ -97,6 +97,110 @@ def prefill(
     return logits[torch.arange(b, device=logits.device), last], cache
 
 
+def prefill_chunk(
+    cfg: ModelConfig,
+    params: Params,
+    embeds: torch.Tensor,  # [B, C, H] fused prompt embeddings of one chunk
+    prompt_lengths: torch.Tensor,  # [B]
+    cache: Params,
+) -> Params:
+    """Extend a dense cache at its index by one chunk of fused prompt
+    embeddings, skipping the LM head (llark_tpu/generate.py:99-117): the
+    server's chunked admission, which interleaves decode rounds with
+    long-prompt prefills."""
+    _, cache = decoder_lib.decoder_forward(
+        cfg, params, inputs_embeds=embeds, seq_lengths=prompt_lengths, kv_cache=cache,
+        return_hidden=True,
+    )
+    return cache
+
+
+def paged_prefill_chunk(
+    cfg: ModelConfig,
+    params: Params,
+    embeds: torch.Tensor,  # [B, C, H], C a multiple of the KV block size
+    prompt_lengths: torch.Tensor,  # [B] absolute live lengths
+    cache: Params,  # paged, tables cropped to each row's admission span
+    chunk_start: int,  # a multiple of the KV block size
+) -> Params:
+    """One block-aligned chunk written straight into the pool blocks the
+    cache's block tables name (llark_tpu/generate.py:120-146): no dense
+    admission cache and no block insert afterwards."""
+    b = embeds.shape[0]
+    cpos = torch.full((b,), chunk_start, dtype=torch.int32, device=embeds.device)
+    _, cache = decoder_lib.decoder_forward(
+        cfg, params, inputs_embeds=embeds, seq_lengths=prompt_lengths, kv_cache=cache,
+        cache_positions=cpos, return_hidden=True, paged_chunk=True,
+    )
+    return cache
+
+
+def prefill_last(
+    cfg: ModelConfig,
+    params: Params,
+    embeds: torch.Tensor,  # [B, S, H] the whole fused prompts (or suffixes)
+    prompt_lengths: torch.Tensor,  # [B]
+    cache: Params,
+    pos_offset: int = 0,
+) -> Tuple[torch.Tensor, Params]:
+    """The tail of a chunked prefill (llark_tpu/generate.py:149-170): re-run
+    each row's last prompt embedding, an idempotent cache rewrite at
+    plen - 1, for the next-token logits the chunks skipped. `pos_offset`
+    is the absolute cache position of embeds[:, 0]: 0, or the block-aligned
+    shared-prefix length when the embeds hold only suffixes."""
+    idx = (prompt_lengths.long() - 1).clamp(0, embeds.shape[1] - 1)
+    last_embeds = embeds[torch.arange(embeds.shape[0], device=embeds.device), idx][:, None]
+    logits, cache = decoder_lib.decoder_forward(
+        cfg, params, inputs_embeds=last_embeds, kv_cache=cache,
+        cache_positions=(idx + pos_offset).to(torch.int32),
+    )
+    return logits[:, 0, :], cache
+
+
+def prefix_cache(cfg: ModelConfig, params: Params, prefix_ids: torch.Tensor) -> Params:
+    """A dense cache holding exactly a shared prompt prefix [B, P], with
+    index P (llark_tpu/generate.py:173-200): every LLark prompt opens with
+    the same conversation header, so its KV is computed once and admission
+    prefills only the per-request suffix (`suffix_prefill`)."""
+    b, p = prefix_ids.shape
+    dev = prefix_ids.device
+    embeds = decoder_lib.embed_tokens(cfg, params, prefix_ids)
+    cache = init_kv_cache(cfg, b, p, device=dev)
+    _, cache = decoder_lib.decoder_forward(
+        cfg, params, inputs_embeds=embeds,
+        seq_lengths=torch.full((b,), p, dtype=torch.int32, device=dev), kv_cache=cache,
+        prefill_from_empty=True, return_hidden=True,
+    )
+    return cache
+
+
+def suffix_prefill(
+    cfg: ModelConfig,
+    params: Params,
+    suffix_ids: torch.Tensor,  # [B, Ss] right-padded
+    suffix_lengths: torch.Tensor,  # [B]
+    audio_encodings: torch.Tensor,
+    audio_frame_counts: torch.Tensor,
+    audio_patch_id: int,
+    cache: Params,  # its first cache["index"] positions hold the prefix
+) -> Tuple[torch.Tensor, Params]:
+    """Prefill per-request suffixes over a cache seeded with a shared prefix
+    (llark_tpu/generate.py:203-240) -> (next-token logits [B, V], cache).
+    Positions and attention windows are absolute, so with a full-precision
+    cache the result is that of one-shot prefill of prefix + suffix; with an
+    int8 cache the suffix attends the quantized prefix."""
+    s = suffix_ids.shape[1]
+    embeds = build_inputs_embeds(
+        cfg, params, suffix_ids, audio_encodings, audio_patch_id, audio_frame_counts
+    )
+    logits, cache = decoder_lib.decoder_forward(
+        cfg, params, inputs_embeds=embeds, seq_lengths=suffix_lengths + cache["index"],
+        kv_cache=cache,
+    )
+    last = (suffix_lengths.long() - 1).clamp(0, s - 1)
+    return logits[torch.arange(logits.shape[0], device=logits.device), last], cache
+
+
 def decode_step(
     cfg: ModelConfig,
     params: Params,

@@ -1,0 +1,105 @@
+"""Batch inference over a directory of .npy audio encodings -> CSV
+(counterpart of llark_tpu/inference/from_encodings.py; parity:
+scripts/inference/infer_from_encodings.py). Usage:
+
+  python -m llark_tpu_torch.inference.from_encodings \
+      --checkpoint-dir run --encodings-dir /path/to/npys \
+      --prompt "Describe the audio." --output results.csv \
+      [--continuous-batching 8 --kv-block-size 128 --kv-cache-int8 \
+       --prefill-chunk 256] [--device cpu]
+
+`--checkpoint-dir` is a run directory written by the port's `train()`.
+The model runs on the GPU unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import os
+
+import numpy as np
+
+from llark_tpu_torch import storage
+from llark_tpu_torch.infer import batch_infer, batch_infer_continuous
+from llark_tpu_torch.inference.common import (
+    add_generation_args,
+    apply_serving_overrides,
+    check_serving_args,
+    load_generator,
+    make_gen_cfg,
+    write_results_csv,
+)
+from llark_tpu_torch.models.utils import load_pretrained_model
+
+
+def _load_npy(path):
+    with storage.fopen(path, "rb") as f:
+        return np.load(io.BytesIO(f.read()))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--ckpt-num", type=int, default=None)
+    p.add_argument("--encodings-dir", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--prompt", default="Describe the audio.")
+    p.add_argument("--max-samples", type=int, default=None)
+    add_generation_args(p)
+    p.add_argument("--max-audio-frames", type=int, default=None)
+    p.add_argument("--continuous-batching", type=int, default=0, metavar="SLOTS",
+                   help="serve through the continuous-batching engine with SLOTS "
+                        "decode slots (0 = one-at-a-time Generator)")
+    p.add_argument("--device", default="cuda",
+                   help="device to run on (default: the GPU; 'cpu' runs the plain "
+                        "PyTorch path)")
+    args = p.parse_args(argv)
+    check_serving_args(args)
+    if args.speculative != "off":
+        raise NotImplementedError("speculative decoding comes with a later slice of the port")
+
+    cfg, params, bundle = load_pretrained_model(args.checkpoint_dir, args.ckpt_num, args.device)
+    cfg = apply_serving_overrides(args, cfg)
+
+    files = sorted(n for n in storage.listdir(args.encodings_dir) if n.endswith(".npy"))
+    if args.max_samples:
+        files = files[: args.max_samples]
+    rows = [
+        {
+            "example_id": os.path.splitext(name)[0],
+            "prompt": args.prompt,
+            "audio_encoding": _load_npy(storage.join(args.encodings_dir, name)),
+        }
+        for name in files
+    ]
+    if args.continuous_batching:
+        results = batch_infer_continuous(
+            rows, cfg, params, bundle,
+            gen_cfg=make_gen_cfg(args),
+            max_batch=args.continuous_batching,
+            max_cache_len=args.max_cache_len,
+            max_audio_frames=args.max_audio_frames or 256,
+            prefill_chunk=args.prefill_chunk,
+            prefix_cache=args.prefix_cache,
+            kv_block_size=args.kv_block_size,
+            kv_pool_blocks=args.kv_pool_blocks,
+            admit_batch=args.admit_batch,
+            admit_min_fill=args.admit_min_fill,
+            admit_max_wait_s=args.admit_max_wait_ms / 1000.0,
+            admit_reorder=args.admit_reorder,
+            admit_reorder_age_s=args.admit_reorder_age_ms / 1000.0,
+            decode_chunk=args.decode_chunk,
+            decode_chunk_drain=args.decode_chunk_drain,
+            drain_max_active=args.drain_max_active,
+            device=args.device,
+        )
+    else:
+        gen = load_generator(args, bundle, cfg, params, device=args.device)
+        results = batch_infer(rows, gen, bundle, max_audio_frames=args.max_audio_frames)
+    write_results_csv(args.output, results)
+    print(f"wrote {len(results)} rows to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

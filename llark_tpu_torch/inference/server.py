@@ -1,0 +1,814 @@
+"""Continuous-batching serving engine (counterpart of
+llark_tpu/inference/server.py).
+
+The reference serves batch=1, one request at a time
+(scripts/inference/infer_from_webdataset.py:84-151). This engine keeps ONE
+persistent batched KV cache of `max_batch` slots on the card and:
+
+  * prefills each admission group together in one bucket-sized forward and
+    copies its rows into free slots of the batched cache (or, paged, into
+    the rows' pool blocks);
+  * decodes all slots together in chunks of `decode_chunk` steps (per-row
+    write positions, so rows at different depths coexist in one batch),
+    sampling on the card from one seeded torch.Generator;
+  * retires rows on max_new_tokens / stop-text / EOS and immediately
+    reuses their slots for queued requests.
+
+Cache modes: dense or paged (`kv_block_size`), bf16 or int8
+(`cfg.kv_cache_quant`); chunked admission (`prefill_chunk`, direct to the
+pool when paged) and prefix caching (`shared_prefix_ids`). Every decode
+step runs the flash-decode kernel in the cache's mode.
+
+The caches are written in place, so where the JAX engine hands donated
+buffers between its programs, this one shares tensors: the persistent
+cache, a paged admission's cache dict and the decode rounds interleaved
+with chunked admission all see the same pool tensors, and each write lands
+before the next forward reads it.
+
+Not in this slice of the port: speculative decoding (`draft_cfg`,
+`spec_mode`) and mesh serving (`mesh`) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from llark_tpu_torch.config import ModelConfig
+from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.generate import (
+    GenerationConfig,
+    Generator,
+    _sample,
+    decode_n,
+    paged_prefill_chunk,
+    prefill,
+    prefill_chunk,
+    prefill_last,
+    prefix_cache,
+    suffix_prefill,
+)
+from llark_tpu_torch.inference.paged import BlockAllocator, insert_blocks
+from llark_tpu_torch.models.decoder import (
+    CACHE_TENSORS,
+    Params,
+    embed_tokens,
+    init_kv_cache,
+    init_paged_kv_cache,
+    torch_dtype,
+)
+from llark_tpu_torch.models.fusion import build_inputs_embeds
+from llark_tpu_torch.ops.decode_attention import max_paged_block_size
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class Request:
+    input_ids: np.ndarray  # [S] int32 (unpadded)
+    audio_encoding: Optional[np.ndarray] = None  # [T, mm] f32
+    # per-request token budget; clamped to the server-level
+    # gen_cfg.max_new_tokens so serve()'s capacity math stays valid
+    max_new_tokens: Optional[int] = None
+    # filled by the engine:
+    tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    error: Optional[str] = None  # set by an online engine on failure
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+
+
+class BatchedServer:
+    """Continuous-batching engine over a fixed slot count."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Params,
+        audio_patch_id: int,
+        gen_cfg: Optional[GenerationConfig] = None,
+        *,
+        max_batch: int = 4,
+        max_cache_len: int = 1024,
+        prompt_buckets: tuple = (128, 512),
+        max_audio_frames: int = 60,
+        decode_chunk: int = 8,
+        decode_chunk_drain: Optional[int] = None,
+        drain_max_active: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        tokenizer=None,
+        draft_cfg: Optional[ModelConfig] = None,
+        draft_params=None,
+        shared_prefix_ids: Optional[np.ndarray] = None,
+        spec_mode: Optional[str] = None,
+        kv_block_size: Optional[int] = None,
+        kv_pool_blocks: Optional[int] = None,
+        admit_batch: Optional[int] = None,
+        admit_min_fill: int = 1,
+        admit_max_wait_s: float = 0.05,
+        admit_reorder: bool = False,
+        admit_reorder_age_s: float = 0.5,
+        mesh=None,
+        device: Union[str, torch.device] = "cuda",
+        seed: int = 0,
+    ):
+        if draft_cfg is not None or draft_params is not None or spec_mode is not None:
+            raise NotImplementedError(
+                "speculative serving (draft_cfg, spec_mode) comes with the "
+                "speculative-decoding slice of the port"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving comes with the multi-card serving slice of the port"
+            )
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed'].device}, the server on {self.device}"
+            )
+        if cfg.use_flash_decode is None:
+            # serving regime: the cache is provisioned for max context and
+            # live length is usually well below it -- the flash-decode
+            # kernel's live-only reads win here
+            cfg = dataclasses.replace(cfg, use_flash_decode=True)
+        self.cfg = cfg
+        self.params = params
+        self.audio_patch_id = audio_patch_id
+        self.gen_cfg = gen_cfg or GenerationConfig()
+        self.max_batch = max_batch
+        # admission prefill batch: the transient-memory knob. The bucket-
+        # sized admission cache ([L, admit_batch, Hkv, bucket, D]) coexists
+        # with weights + the persistent cache/pool while requests splice
+        # in; a smaller admit_batch trades burst-admission latency
+        # (ceil(burst / admit_batch) prefills) for peak memory.
+        self.admit_batch = min(admit_batch or max_batch, max_batch)
+        # admission hysteresis (open-loop scheduling): every admission
+        # prefill is padded to admit_batch rows and stalls decode for all
+        # live slots, so with admit_min_fill > 1 the server waits until that
+        # many requests are queued (or the oldest has waited
+        # admit_max_wait_s, or no rows are active) before prefilling
+        self.admit_min_fill = max(1, int(admit_min_fill))
+        self.admit_max_wait_s = float(admit_max_wait_s)
+        # bounded admission reordering (mixed-length traffic): each wave is
+        # ONE bucket; with admit_reorder the largest queued same-bucket
+        # group wins the wave, unless the head request has waited
+        # admit_reorder_age_s, which forces its bucket (no starvation)
+        self.admit_reorder = bool(admit_reorder)
+        self.admit_reorder_age_s = float(admit_reorder_age_s)
+        self.max_cache_len = max_cache_len
+        self.prompt_buckets = tuple(sorted(prompt_buckets))
+        self.max_audio_frames = max_audio_frames
+        self.decode_chunk = decode_chunk
+        self.tokenizer = tokenizer
+
+        # prefix caching: every LLark request opens with the same
+        # conversation header (conv_v1_2, reference
+        # m2t/llava/conversation.py:237-271), so its KV is computed once
+        # and admission prefills only the per-request suffix. Dense: a b=1
+        # prefix cache copied into every admission cache. Paged: the block-
+        # aligned head of the prefix fills shared pool blocks every slot's
+        # table points at (the sub-block remainder folds into each
+        # request's suffix), on the direct-to-pool chunked-prefill path.
+        self._prefix_ids: Optional[np.ndarray] = None
+        self._prefix_cache: Optional[Params] = None
+        if shared_prefix_ids is not None:
+            if prefill_chunk is not None and kv_block_size is None:
+                raise ValueError(
+                    "prefix caching and chunked prefill are mutually exclusive "
+                    "(the suffix IS the short part)"
+                )
+            pids = np.asarray(shared_prefix_ids, np.int32).reshape(-1)
+            if pids.size < 1:
+                raise ValueError("shared_prefix_ids must be non-empty")
+            if np.any(pids == audio_patch_id):
+                raise ValueError(
+                    "the shared prefix must be text-only (audio patch tokens "
+                    "belong to the per-request suffix)"
+                )
+            if kv_block_size is not None:
+                if prefill_chunk is None:
+                    raise ValueError(
+                        "paged prefix caching rides the direct-to-pool chunked "
+                        "admission path: set prefill_chunk (a suffix-bucket-"
+                        "sized chunk gives one-shot behavior)"
+                    )
+                if pids.size < kv_block_size:
+                    raise ValueError(
+                        f"shared prefix ({pids.size} tokens) is shorter than one "
+                        f"KV block ({kv_block_size}): no full block to share -- "
+                        "drop prefix caching or shrink kv_block_size"
+                    )
+            self._prefix_ids = pids
+        # full length for prompt matching; the CACHED length (everything
+        # admission may skip) is block-aligned in paged mode
+        self._prefix_match_len = 0 if self._prefix_ids is None else int(self._prefix_ids.size)
+        if self._prefix_ids is not None and kv_block_size is not None:
+            self._prefix_len = (self._prefix_match_len // kv_block_size) * kv_block_size
+        else:
+            self._prefix_len = self._prefix_match_len
+        # drop impossible bucket geometry up front: every admission table /
+        # cache is sized bucket (+ chunk padding) past the cached prefix.
+        # Oversized buckets are filtered, not fatal; only a geometry where
+        # no bucket fits raises.
+        feasible = []
+        for b in self.prompt_buckets:
+            pad = (-b) % prefill_chunk if prefill_chunk else 0
+            if self._prefix_len + b + pad > max_cache_len:
+                log.warning(
+                    "dropping prompt bucket %d%s: cannot fit max_cache_len %d%s -- "
+                    "prompts longer than the largest remaining bucket will be "
+                    "rejected at submission",
+                    b, f" (padded to {b + pad} by prefill_chunk)" if pad else "",
+                    max_cache_len,
+                    f" after the {self._prefix_len}-token cached prefix" if self._prefix_len else "",
+                )
+                continue
+            if kv_block_size is not None and prefill_chunk is not None and b % prefill_chunk:
+                raise ValueError(
+                    f"paged chunked prefill needs every prompt bucket to be a "
+                    f"multiple of prefill_chunk ({prefill_chunk}); got {b}"
+                )
+            feasible.append(b)
+        if not feasible:
+            raise ValueError(
+                f"no prompt bucket in {self.prompt_buckets} fits max_cache_len "
+                f"{max_cache_len}"
+                + (f" after the {self._prefix_len}-token cached prefix" if self._prefix_len else "")
+                + (f" with prefill_chunk {prefill_chunk} padding" if prefill_chunk else "")
+                + ": shrink the buckets or enlarge the cache"
+            )
+        self.prompt_buckets = tuple(feasible)
+
+        # chunked admission: interleave prompt-chunk forwards with decode
+        # rounds so live slots keep emitting during long-prompt prefills
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        # adaptive decode rounds: with decode_chunk_drain set, rounds
+        # dispatched while at most drain_max_active slots (default: half)
+        # are live run this shorter chunk, keeping the unpreemptible window
+        # that a new arrival waits out short at low load. The per-token math
+        # is the same, so tokens are unchanged.
+        self.decode_chunk_drain = decode_chunk_drain
+        if decode_chunk_drain is not None:
+            self.drain_max_active = (
+                max_batch // 2 if drain_max_active is None else int(drain_max_active)
+            )
+            if not 1 <= decode_chunk_drain <= decode_chunk:
+                raise ValueError(
+                    f"decode_chunk_drain {decode_chunk_drain} must be in "
+                    f"[1, decode_chunk={decode_chunk}] (capacity headroom is "
+                    "provisioned for the full chunk)"
+                )
+
+        # paged KV (kv_block_size set): the persistent cache is a physical
+        # block POOL + per-slot block tables instead of max_batch dense
+        # max_cache_len rows. Tables are host-owned; a dirty flag refreshes
+        # the device copy (int32 [B, max_blocks]) before the next decode.
+        self.kv_block_size = kv_block_size
+        self.paged = kv_block_size is not None
+        if self.paged:
+            if max_cache_len % kv_block_size:
+                raise ValueError(
+                    f"max_cache_len {max_cache_len} must be a multiple of "
+                    f"kv_block_size {kv_block_size}"
+                )
+            if kv_block_size % 8:
+                raise ValueError(
+                    "kv_block_size must be a multiple of 8 (the JAX package's "
+                    "tiling rule for pool blocks, kept so both serve the same "
+                    "configurations)"
+                )
+            itemsize = 1 if cfg.kv_cache_quant else torch_dtype(cfg.dtype).itemsize
+            cap = max_paged_block_size(cfg.num_kv_heads, cfg.head_dim, itemsize)
+            if kv_block_size > cap:
+                raise ValueError(
+                    f"kv_block_size {kv_block_size} exceeds the flash-decode "
+                    f"kernel's maximum {cap} for {cfg.num_kv_heads} KV heads x "
+                    f"head_dim {cfg.head_dim}"
+                )
+            self._max_blocks = max_cache_len // kv_block_size
+            if kv_pool_blocks is None:
+                # conservative default: full dense capacity (callers size the
+                # pool down to their live-token budget)
+                kv_pool_blocks = max_batch + max_batch * self._max_blocks
+            self.kv_pool_blocks = kv_pool_blocks
+            self._allocator = BlockAllocator(kv_pool_blocks, max_batch)
+            self._host_tables = np.broadcast_to(
+                np.arange(max_batch, dtype=np.int32)[:, None], (max_batch, self._max_blocks)
+            ).copy()
+            self._tables_dirty = True
+            self._slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+            # paged prefix caching: pool blocks holding the block-aligned
+            # shared-prefix KV, read by every slot's table, never freed
+            self._shared_block_ids: Optional[List[int]] = None
+
+        # persistent batched cache, built at the first admission
+        self._cache: Optional[Params] = None
+        # host-side slot state
+        self._slot_req: List[Optional[Request]] = [None] * max_batch
+        self._write_pos = np.zeros((max_batch,), np.int32)
+        self._tokens_in_flight = np.zeros((max_batch,), np.int32)  # pending device col
+        self._queue: List[Request] = []
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(seed)
+        # exclusive-driver guard: an online engine claims the server; serve()
+        # refuses to run concurrently (two drivers would race the cache)
+        self.driver = None
+
+    # ------------------------------------------------------------------
+    def _tensor(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    @staticmethod
+    def _insert_row(batch_cache: Params, new_cache: Params, src_row: int, dst_slot: int) -> None:
+        """Copy row `src_row` of a freshly prefilled cache into slot
+        `dst_slot` of the persistent batched cache, in place (leaves
+        [L, B, ...]; the admission cache may be shorter than the slot)."""
+        for key in CACHE_TENSORS:
+            if key in batch_cache:
+                row = new_cache[key][:, src_row]
+                batch_cache[key][:, dst_slot, :, : row.shape[2]] = row.to(batch_cache[key].dtype)
+
+    def _suffix_len(self, req: Request) -> int:
+        """Tokens the admission prefill must compute (the whole prompt
+        without prefix caching; the per-request suffix with it, which in
+        paged mode includes the prefix's sub-block remainder)."""
+        return len(req.input_ids) - self._prefix_len
+
+    def _check_prefix(self, req: Request) -> Optional[str]:
+        """None if the request is admissible under prefix caching, else a
+        rejection message."""
+        if self._prefix_ids is None:
+            return None
+        ids = np.asarray(req.input_ids)
+        p = self._prefix_match_len
+        if len(ids) <= p or not np.array_equal(ids[:p], self._prefix_ids):
+            return (
+                f"prompt must start with the {p}-token shared prefix and carry "
+                "at least one suffix token (prefix-caching server)"
+            )
+        return None
+
+    def _prefix_tensor(self) -> torch.Tensor:
+        return self._tensor(self._prefix_ids[None, : self._prefix_len], torch.int64)
+
+    def _ensure_prefix_cache(self) -> None:
+        """Run the one-time b=1 dense prefix prefill (dense prefix caching;
+        the paged prefix lives in shared pool blocks instead)."""
+        if self._prefix_ids is not None and not self.paged and self._prefix_cache is None:
+            self._prefix_cache = prefix_cache(self.cfg, self.params, self._prefix_tensor())
+
+    def _seeded_admission_cache(self, total: int) -> Params:
+        """Admission cache of length `total` with the prefix KV copied into
+        every row (cache index = prefix length)."""
+        if total > self.max_cache_len:
+            raise ValueError(
+                f"prefix ({self._prefix_len}) + bucket ({total - self._prefix_len}) "
+                f"exceeds max_cache_len {self.max_cache_len}"
+            )
+        cache = init_kv_cache(self.cfg, self.admit_batch, total, device=self.device)
+        for key in CACHE_TENSORS:
+            if key in cache:
+                p = self._prefix_cache[key]  # [L, 1, Hkv, P(, D)]
+                cache[key][:, :, :, : p.shape[3]] = p
+        cache["index"] = self._prefix_len
+        return cache
+
+    def _ensure_pool_cache(self) -> None:
+        """Build the paged persistent cache (block pool + tables) once."""
+        if self._cache is None:
+            self._cache = init_paged_kv_cache(
+                self.cfg, self.max_batch, self.kv_pool_blocks, self.kv_block_size,
+                self._max_blocks, device=self.device,
+            )
+
+    def _pool_view(self, tables: np.ndarray) -> Params:
+        """A cache dict over the persistent pool tensors with the given
+        (admission-span) block tables: chunks written through it land in
+        the pool that decode rounds read."""
+        view = {key: self._cache[key] for key in CACHE_TENSORS if key in self._cache}
+        view["index"] = 0
+        view["block_tables"] = self._tensor(tables, torch.int32)
+        return view
+
+    def _ensure_paged_prefix(self) -> None:
+        """Fill the shared-prefix pool blocks once (paged prefix caching):
+        allocate blocks for the block-aligned prefix head, run ONE
+        direct-to-pool chunk forward over its embeddings and pin the block
+        ids for every admission table."""
+        if not self.paged or self._prefix_ids is None or self._shared_block_ids is not None:
+            return
+        self._ensure_pool_cache()
+        n_shared = self._prefix_len // self.kv_block_size
+        blocks = self._allocator.alloc(n_shared)
+        if blocks is None:
+            raise RuntimeError(
+                f"pool of {self.kv_pool_blocks} blocks cannot hold the "
+                f"{n_shared}-block shared prefix"
+            )
+        # if the forward raises after the alloc, return the blocks, so a
+        # retrying driver does not leak n_shared blocks per attempt
+        try:
+            embeds = embed_tokens(self.cfg, self.params, self._prefix_tensor())
+            paged_prefill_chunk(
+                self.cfg, self.params, embeds,
+                torch.full((1,), self._prefix_len, dtype=torch.int32, device=self.device),
+                self._pool_view(np.asarray(blocks, np.int32)[None, :]), 0,
+            )
+        except Exception:
+            self._allocator.free(blocks)
+            raise
+        self._shared_block_ids = blocks
+
+    def _headroom(self) -> int:
+        """Cache positions a live row may write past its stop point before
+        the host truncates it (serve()'s capacity check and the paged block
+        budget)."""
+        return self.decode_chunk
+
+    def _block_budget(self, suffix_len: int, bucket: int) -> int:
+        """PRIVATE physical blocks a request needs for its whole lifetime:
+        the admission covers the full bucket span; decode then writes up to
+        max_new + headroom past the prompt. With paged prefix caching the
+        span starts at the block-aligned shared-prefix boundary."""
+        span = max(bucket, suffix_len + self.gen_cfg.max_new_tokens + self._headroom())
+        cap = self.max_cache_len - self._prefix_len
+        return -(-min(span, cap) // self.kv_block_size)
+
+    def _refresh_tables(self) -> None:
+        if self.paged and self._tables_dirty and self._cache is not None:
+            self._cache["block_tables"] = self._tensor(self._host_tables, torch.int32)
+            self._tables_dirty = False
+
+    def _bucket(self, n: int) -> int:
+        for b in self.prompt_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"prompt length {n} exceeds the largest bucket {self.prompt_buckets[-1]}"
+        )
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self._slot_req) if r is None]
+
+    def _active(self) -> List[int]:
+        return [i for i, r in enumerate(self._slot_req) if r is not None]
+
+    def _admit_ready(self) -> bool:
+        """Admission hysteresis: True when an admission wave should fire
+        now. Always when nothing is decoding (waiting would idle the card)
+        or when enough requests queued to fill the wave; otherwise once the
+        oldest queued request has waited admit_max_wait_s."""
+        if self.admit_min_fill <= 1 or not self._active():
+            return True
+        want = min(self.admit_min_fill, self.admit_batch, len(self._free_slots()))
+        if len(self._queue) >= want:
+            return True
+        oldest = min(r.submitted_at for r in self._queue)
+        return (time.time() - oldest) >= self.admit_max_wait_s
+
+    def _select_admit_group(self, width: int):
+        """(bucket, members) for this admission wave, members FIFO-ordered.
+
+        Default (strict FIFO): the head request's bucket, consecutive
+        same-bucket head-of-queue members only. admit_reorder: the LARGEST
+        queued same-bucket group wins (ties: the group whose first member is
+        oldest), unless the head request has waited admit_reorder_age_s,
+        which forces its bucket. Requests that fail the prefix check or fit
+        no bucket are skipped here and fail when they reach the head."""
+        q = self._queue
+        if (self.admit_reorder and len(q) > 1
+                and (time.time() - q[0].submitted_at) < self.admit_reorder_age_s):
+            groups: Dict[int, List[Request]] = {}
+            for r in q:
+                if self._check_prefix(r) is not None:
+                    continue
+                try:
+                    groups.setdefault(self._bucket(self._suffix_len(r)), []).append(r)
+                except ValueError:
+                    continue  # oversize: fails at the head, not here
+            if groups:
+                bucket, members = max(
+                    groups.items(),
+                    key=lambda kv: (min(len(kv[1]), width), -kv[1][0].submitted_at),
+                )
+                return bucket, members[:width]
+        bucket = self._bucket(self._suffix_len(q[0]))
+        members: List[Request] = []
+        for r in q:
+            if (len(members) >= width or self._check_prefix(r) is not None
+                    or self._bucket(self._suffix_len(r)) != bucket):
+                break
+            members.append(r)
+        return bucket, members
+
+    def _admit(self) -> None:
+        """Prefill queued requests into free slots. Same-bucket requests are
+        prefilled together in ONE batched forward (a burst of k arrivals
+        costs one prefill, not k); see _select_admit_group for the order."""
+        self._ensure_prefix_cache()
+        self._ensure_paged_prefix()
+        while self._queue and self._free_slots() and self._admit_ready():
+            # prefix-caching servers reject prompts that don't open with the
+            # shared prefix (fail the request, not the batch)
+            while self._queue:
+                err = self._check_prefix(self._queue[0])
+                if err is None:
+                    break
+                req = self._queue.pop(0)
+                req.error = err
+                req.done = True
+                req.finished_at = time.time()
+            if not self._queue:
+                break
+            slots = self._free_slots()
+            head_bucket, candidates = self._select_admit_group(
+                min(len(slots), self.admit_batch)
+            )
+            group: List[Request] = []
+            pending_blocks: List[List[int]] = []
+            for req in candidates:
+                if self.paged:
+                    # admission is gated by pool capacity, not just free
+                    # slots: a request that can't get its blocks waits in
+                    # the queue until retirements free some
+                    blocks = self._allocator.alloc(
+                        self._block_budget(self._suffix_len(req), head_bucket)
+                    )
+                    if blocks is None:
+                        break
+                    pending_blocks.append(blocks)
+                group.append(req)
+            if not group:
+                break  # pool exhausted: decode on, admit after retirements
+            admitted = set(map(id, group))
+            self._queue = [r for r in self._queue if id(r) not in admitted]
+            # everything that can raise runs before any block is committed
+            # to a slot: on failure the allocated blocks go back to the pool
+            try:
+                # fixed admission batch (pad with plen=1 dummies)
+                k = self.admit_batch
+                ids = np.zeros((k, head_bucket), np.int32)
+                plens = np.ones((k,), np.int32)
+                audio = np.zeros((k, self.max_audio_frames, self.cfg.mm_hidden_size), np.float32)
+                fcnt = np.zeros((k,), np.int32)
+                for j, req in enumerate(group):
+                    row = np.asarray(req.input_ids, np.int32)[self._prefix_len:]
+                    ids[j, : len(row)] = row
+                    plens[j] = len(row)
+                    if req.audio_encoding is not None:
+                        t = min(req.audio_encoding.shape[0], self.max_audio_frames)
+                        audio[j, :t] = req.audio_encoding[:t]
+                        fcnt[j] = t
+                t_ids, t_plens = self._tensor(ids, torch.int64), self._tensor(plens, torch.int32)
+                t_audio, t_fcnt = self._tensor(audio, torch.float32), self._tensor(fcnt, torch.int32)
+                if self._prefix_ids is not None and not self.paged:
+                    logits, new_cache = suffix_prefill(
+                        self.cfg, self.params, t_ids, t_plens, t_audio, t_fcnt,
+                        self.audio_patch_id,
+                        self._seeded_admission_cache(self._prefix_len + head_bucket),
+                    )
+                elif self.prefill_chunk is not None:
+                    admit_tables = None
+                    if self.paged:
+                        # direct-to-pool prefill: each admitted row's block
+                        # span (pad rows -> their own parking block); with
+                        # paged prefix caching every row's table leads with
+                        # the shared-prefix blocks
+                        self._ensure_pool_cache()
+                        n_shared = self._prefix_len // self.kv_block_size
+                        span = n_shared + head_bucket // self.kv_block_size
+                        admit_tables = np.empty((k, span), np.int32)
+                        for j in range(k):
+                            if j < len(group):
+                                if n_shared:
+                                    admit_tables[j, :n_shared] = self._shared_block_ids
+                                admit_tables[j, n_shared:] = pending_blocks[j][: span - n_shared]
+                            else:
+                                admit_tables[j, :] = j  # parking block
+                    logits, new_cache = self._chunked_prefill(
+                        t_ids, t_plens, t_audio, t_fcnt, admit_tables
+                    )
+                else:
+                    logits, new_cache = prefill(
+                        self.cfg, self.params, t_ids, t_plens, t_audio, t_fcnt,
+                        self.audio_patch_id, head_bucket,
+                    )
+                firsts = _sample(logits, self.gen_cfg, self._rng).cpu().numpy()
+                if self._cache is None:
+                    if self.paged:
+                        self._ensure_pool_cache()
+                    else:
+                        # the persistent batched cache is FULL max_cache_len
+                        # even though admission caches are bucket-sized
+                        self._cache = init_kv_cache(
+                            self.cfg, self.max_batch, self.max_cache_len, device=self.device
+                        )
+            except Exception:
+                for blocks in pending_blocks:
+                    self._allocator.free(blocks)
+                raise
+            now = time.time()
+            bucket_blocks = -(-head_bucket // self.kv_block_size) if self.paged else 0
+            for j, req in enumerate(group):
+                slot = slots[j]
+                if self.paged:
+                    blocks = pending_blocks[j]
+                    self._slot_blocks[slot] = blocks  # private only: shared-
+                    # prefix blocks are pool-wide and never freed
+                    ns = self._prefix_len // self.kv_block_size
+                    self._host_tables[slot, :] = slot  # parking default
+                    if ns:
+                        self._host_tables[slot, :ns] = self._shared_block_ids
+                    self._host_tables[slot, ns : ns + len(blocks)] = blocks
+                    self._tables_dirty = True
+                    if new_cache is not None:
+                        # direct-to-pool admission leaves new_cache None: the
+                        # K/V already sit in this row's blocks
+                        insert_blocks(self._cache, new_cache, j, blocks[:bucket_blocks])
+                else:
+                    self._insert_row(self._cache, new_cache, j, slot)
+                req.first_token_at = now
+                self._slot_req[slot] = req
+                self._write_pos[slot] = self._prefix_len + plens[j]
+                self._tokens_in_flight[slot] = int(firsts[j])
+                if self._absorb(slot, int(firsts[j])):  # may already be EOS
+                    self._finish(slot)
+
+    def _chunked_prefill(self, ids, plens, audio, fcnt, admit_tables=None):
+        """Prefill one admission group in `prefill_chunk`-token chunks,
+        running a decode round for the live slots between chunks. With a
+        bf16 cache this is token-identical to one-shot prefill (attention
+        windows depend only on positions); with an int8 cache, chunks after
+        the first attend the quantized history while one-shot prefill
+        attends full-precision in-flight K/V, so outputs agree only within
+        quantization noise.
+
+        The bucket is padded up to a chunk multiple; the pad region writes
+        masked-then-overwritten cache slots, the same invariant padded
+        one-shot prefill relies on."""
+        k, bucket = ids.shape
+        embeds = build_inputs_embeds(self.cfg, self.params, ids, audio, self.audio_patch_id, fcnt)
+        pad = (-bucket) % self.prefill_chunk
+        if self._prefix_len + bucket + pad > self.max_cache_len:
+            raise ValueError(
+                f"bucket {bucket} padded to {bucket + pad} (after a {self._prefix_len}-"
+                f"token cached prefix) exceeds max_cache_len {self.max_cache_len}; pick "
+                "a prefill_chunk that divides the bucket or enlarge the cache"
+            )
+        padded = torch.nn.functional.pad(embeds, (0, 0, 0, pad)) if pad else embeds
+        chunks = range(0, bucket + pad, self.prefill_chunk)
+        if admit_tables is not None:
+            # paged direct-to-pool prefill: each chunk writes its K/V
+            # straight into the admitted rows' pool blocks -- no bucket-
+            # sized admission cache and no block insert. With paged prefix
+            # caching the embeds hold only suffixes, whose absolute
+            # positions start at the block-aligned cached-prefix length.
+            if self.prefill_chunk % self.kv_block_size:
+                raise ValueError(
+                    f"paged chunked prefill needs prefill_chunk ({self.prefill_chunk}) "
+                    f"to be a multiple of kv_block_size ({self.kv_block_size})"
+                )
+            view = self._pool_view(admit_tables)
+            base = self._prefix_len
+            for c in chunks:
+                paged_prefill_chunk(
+                    self.cfg, self.params, padded[:, c : c + self.prefill_chunk],
+                    plens + base, view, base + c,
+                )
+                if c + self.prefill_chunk < bucket + pad:
+                    self._decode_round()  # live slots keep emitting mid-prefill
+            logits, _ = prefill_last(self.cfg, self.params, embeds, plens, view, base)
+            return logits, None
+        # bucket-sized admission cache: the row copy into the persistent
+        # cache only reads the prompt positions
+        cache = init_kv_cache(self.cfg, k, bucket + pad, device=self.device)
+        for c in chunks:
+            cache = prefill_chunk(
+                self.cfg, self.params, padded[:, c : c + self.prefill_chunk], plens, cache
+            )
+            if c + self.prefill_chunk < bucket + pad:
+                self._decode_round()
+        return prefill_last(self.cfg, self.params, embeds, plens, cache, self._prefix_len)
+
+    def _absorb(self, slot: int, t: int) -> bool:
+        """Mirror of Generator.generate's per-token absorb: EOS tokens are
+        dropped and stop the row; appended tokens check stop_text against
+        an 8-token decoded tail only. True when the row is finished."""
+        req = self._slot_req[slot]
+        gen = self.gen_cfg
+        if gen.eos_token_id is not None and t == gen.eos_token_id:
+            return True
+        req.tokens.append(t)
+        if gen.stop_text and self.tokenizer is not None:
+            if gen.stop_text in self.tokenizer.decode(req.tokens[-8:]):
+                return True
+        limit = gen.max_new_tokens
+        if req.max_new_tokens is not None:
+            limit = min(max(1, req.max_new_tokens), limit)
+        return len(req.tokens) >= limit
+
+    def _finish(self, slot: int) -> None:
+        req = self._slot_req[slot]
+        if self.gen_cfg.stop_text and self.tokenizer is not None:
+            req.tokens = Generator._trim_stop(req.tokens, self.tokenizer, self.gen_cfg.stop_text)
+        req.done = True
+        req.finished_at = time.time()
+        self._slot_req[slot] = None
+        self._release_blocks(slot)
+
+    def _release_blocks(self, slot: int) -> None:
+        """Return a retired or aborted row's PRIVATE pool blocks and repoint
+        its whole table at its parking block, so parked writes can never
+        land in a block a future request owns. Shared-prefix blocks are
+        pool-wide and never freed."""
+        if self.paged and self._slot_blocks[slot]:
+            self._allocator.free(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+            self._host_tables[slot, :] = slot
+            self._tables_dirty = True
+
+    def _decode_round(self) -> None:
+        """One chunked decode over all slots (inactive rows write to the
+        last `decode_chunk` cache positions, which live rows never attend:
+        serve() caps prompt + max_new at max_cache_len - decode_chunk)."""
+        active = self._active()
+        if not active:
+            return
+        self._refresh_tables()
+        chunk = self.decode_chunk
+        if self.decode_chunk_drain is not None and len(active) <= self.drain_max_active:
+            chunk = self.decode_chunk_drain
+        token = np.zeros((self.max_batch,), np.int64)
+        pos = np.full((self.max_batch,), self.max_cache_len - self.decode_chunk, np.int32)
+        for i in active:
+            token[i] = self._tokens_in_flight[i]
+            pos[i] = self._write_pos[i]
+        toks, _, self._cache = decode_n(
+            self.cfg, self.gen_cfg, self.params, self._tensor(token, torch.int64),
+            self._cache, self._tensor(pos, torch.int64), chunk, self._rng,
+        )
+        toks = toks.cpu().numpy()  # [B, chunk]: the round's only host read
+        for i in active:
+            for j in range(chunk):
+                if self._absorb(i, int(toks[i, j])):
+                    self._finish(i)
+                    break
+            else:
+                # row still live: the cache holds all chunk tokens
+                self._write_pos[i] += chunk
+                self._tokens_in_flight[i] = int(toks[i, -1])
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def serve(self, requests: List[Request]) -> List[Request]:
+        """Run all requests to completion with continuous batching; returns
+        the same list with tokens and timestamps filled."""
+        if self.driver is not None:
+            raise RuntimeError(
+                "server is driven by an online engine; submit through it instead "
+                "of serve() (concurrent drivers race over the KV cache)"
+            )
+        now = time.time()
+        cap = min(
+            self.max_cache_len - self.gen_cfg.max_new_tokens - self._headroom(),
+            self._prefix_len + self.prompt_buckets[-1],
+        )
+        for r in requests:
+            r.submitted_at = now
+            if len(r.input_ids) > cap:
+                raise ValueError(
+                    f"prompt {len(r.input_ids)} exceeds capacity {cap} (cache "
+                    f"{self.max_cache_len}, largest bucket {self.prompt_buckets[-1]})"
+                )
+            err = self._check_prefix(r)
+            if err is not None:
+                raise ValueError(err)
+        self._queue.extend(requests)
+        while self._queue or self._active():
+            self._admit()
+            self._decode_round()
+        return requests
+
+    def stats(self, requests: List[Request]) -> Dict[str, Any]:
+        lat = [r.finished_at - r.submitted_at for r in requests if r.finished_at]
+        ttft = [r.first_token_at - r.submitted_at for r in requests if r.first_token_at]
+        toks = sum(len(r.tokens) for r in requests)
+        wall = max((r.finished_at or 0.0) for r in requests) - min(
+            r.submitted_at for r in requests
+        )
+        return {
+            "requests": len(requests),
+            "tokens": toks,
+            "tokens_per_sec": toks / wall if wall > 0 else float("nan"),
+            "mean_latency_s": float(np.mean(lat)) if lat else float("nan"),
+            "mean_ttft_s": float(np.mean(ttft)) if ttft else float("nan"),
+        }

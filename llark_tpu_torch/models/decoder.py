@@ -11,7 +11,12 @@ The KV cache is a dict {"k", "v": [L, B, Hkv, S_max, D], "index": int}
 and is UPDATED IN PLACE: `decoder_forward` writes the new keys/values into
 the cache tensors it is given (slice assignment for prefill, a per-row
 index write for ragged decode) and returns a dict that shares them with
-an advanced "index".
+an advanced "index". With `cfg.kv_cache_quant` the cache holds int8 values
+and fp32 per-position scales "k_scale", "v_scale" [L, B, Hkv, S_max]. A
+paged cache (`init_paged_kv_cache`) holds block POOLS [L, N, Hkv, bs, D]
+(scales [L, N, Hkv, bs]) shared by all rows and per-row "block_tables"
+[B, max_blocks]: logical position p of row b lives at
+pool[tables[b, p // bs], :, p % bs].
 
 Training runs the no-cache branch with autograd: attention goes through the
 flash forward and backward kernels (`ops/attention.py` `_FlashAttention`),
@@ -19,8 +24,8 @@ and with `cfg.remat` each layer is a `torch.utils.checkpoint` segment whose
 activations are recomputed in the backward (the JAX package's "full"
 policy).
 
-Not in this slice of the port, each raising a clear error: paged caches,
-the int8 KV cache, LoRA factors, MoE layers and quantized weights.
+Not in this slice of the port, each raising a clear error: LoRA factors,
+MoE layers and quantized weights.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch.utils.checkpoint
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
-from llark_tpu_torch.ops.decode_attention import decode_attention
+from llark_tpu_torch.ops.decode_attention import _dense_view, decode_attention
 
 Params = Dict[str, Any]
 
@@ -178,18 +183,70 @@ def init_decoder_params(
 def init_kv_cache(
     cfg: ModelConfig, batch_size: int, max_len: int, dtype=None, device=None
 ) -> Params:
-    """Dense KV cache {"k", "v": [L, B, Hkv, max_len, D], "index": 0}."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError(
-            "the int8 KV cache comes with a later slice of the port"
-        )
+    """Dense KV cache {"k", "v": [L, B, Hkv, max_len, D], "index": 0}; with
+    `cfg.kv_cache_quant` int8 values plus fp32 per-(layer, row, head,
+    position) scales "k_scale", "v_scale" (llark_tpu/models/decoder.py:167-186)."""
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "index": 0,
+        }
     dtype = dtype or torch_dtype(cfg.dtype)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "index": 0,
     }
+
+
+def init_paged_kv_cache(
+    cfg: ModelConfig,
+    batch_size: int,
+    num_blocks: int,
+    block_size: int,
+    max_blocks_per_row: int,
+    dtype=None,
+    device=None,
+) -> Params:
+    """Block-pool KV cache (llark_tpu/models/decoder.py:189-231): pools
+    [L, num_blocks, Hkv, block_size, D] (int8 + fp32 scales with
+    `cfg.kv_cache_quant`) shared by all rows, and int32 block tables
+    [batch_size, max_blocks_per_row]. Physical blocks 0..batch_size-1 are
+    per-slot parking blocks: every table entry of row b starts at b, so
+    parked writes of a row land in its own block and never in a block
+    another row owns. Real blocks are allocated from batch_size upward."""
+    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size, cfg.head_dim)
+    tables = torch.arange(batch_size, dtype=torch.int32, device=device)[:, None]
+    out: Params = {
+        "block_tables": tables.expand(batch_size, max_blocks_per_row).contiguous(),
+        "index": 0,
+    }
+    if cfg.kv_cache_quant:
+        out.update(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
+    else:
+        dtype = dtype or torch_dtype(cfg.dtype)
+        out.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+    return out
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, H, S, D] -> (int8 values, fp32 per-(B, H, S) scales), absmax over
+    D (llark_tpu/models/decoder.py:234-240). torch.round, like jnp.round,
+    rounds half to even."""
+    xf = x.float()
+    sc = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / sc.clamp_min(1e-8)[..., None]).to(torch.int8)
+    return q, sc
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +271,18 @@ class _CacheStep:
     attend there. The same for every layer, so decoder_forward computes it
     once."""
 
-    start: Optional[int]  # prefill: slice start of the write
-    rows: Optional[torch.Tensor]  # ragged decode: [B, 1] row index
-    pos: Optional[torch.Tensor]  # ragged decode: [B, s] write positions
     kv_lengths: torch.Tensor  # [B] int32 live length after the write
     q_offset: Union[int, torch.Tensor]  # absolute position of query 0
-    q_positions: Optional[torch.Tensor]  # ragged decode: [B] int32
+    q_positions: Optional[torch.Tensor] = None  # ragged/paged writes: [B] int32
+    start: Optional[int] = None  # dense prefill: slice start of the write
+    rows: Optional[torch.Tensor] = None  # dense ragged decode: [B, 1] row index
+    pos: Optional[torch.Tensor] = None  # dense ragged decode: [B, s] positions
+    # paged: the tables; per-token physical blocks and offsets [B, s] of a
+    # decode write, or the [B, s // bs] whole blocks of a paged_chunk write
+    block_tables: Optional[torch.Tensor] = None
+    blocks: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
+    paged_chunk: bool = False
 
 
 def _cache_step(
@@ -229,35 +292,84 @@ def _cache_step(
     cache_positions: Optional[torch.Tensor],
     seq_lengths: Optional[torch.Tensor],
     device: torch.device,
+    paged_chunk: bool = False,
 ) -> _CacheStep:
     # write windows are clamped inside the cache like the JAX package's
     # dynamic_update_slice
-    s_max = kv_cache["k"].shape[3]
-    if cache_positions is not None:
+    tables = kv_cache.get("block_tables")
+    if paged_chunk and tables is None:
+        raise ValueError("paged_chunk writes need a paged cache (init_paged_kv_cache)")
+    if tables is not None:
+        if cache_positions is None:
+            raise ValueError(
+                "paged caches support ragged decode writes and block-aligned "
+                "paged_chunk prefill (both keyed by cache_positions); scalar-"
+                "index prefill goes through dense bucket caches and the "
+                "server's block insert"
+            )
+        bk = kv_cache["k"].shape[3]
+        tables = tables.to(device=device, dtype=torch.int64)
+        last = tables.shape[1] - 1
+        cp = cache_positions.to(device=device, dtype=torch.int32)
+        step = _CacheStep(kv_lengths=cp + s, q_offset=cp, q_positions=cp,
+                          block_tables=tables, paged_chunk=paged_chunk)
+        if paged_chunk:
+            # prefill-chunk bulk write: positions and s are block-aligned
+            # (the server's contract), so each row writes s // bs whole
+            # blocks
+            if s % bk:
+                raise ValueError(
+                    f"paged_chunk requires the chunk ({s}) to be a multiple of "
+                    f"the KV block size ({bk})"
+                )
+            idx = (cp.long() // bk)[:, None] + torch.arange(s // bk, device=device)
+            step.blocks = tables.gather(1, idx.clamp(max=last))
+        else:
+            # token t of row b lands at pool[table[b, pos // bs], :, pos % bs]
+            pos = cp.long()[:, None] + torch.arange(s, device=device)
+            step.blocks = tables.gather(1, (pos // bk).clamp(0, last))
+            step.offsets = pos % bk
+    elif cache_positions is not None:
         # ragged decode: each row writes at its own position
+        s_max = kv_cache["k"].shape[3]
         cp = cache_positions.to(device=device, dtype=torch.int32)
         start = cp.long().clamp(0, s_max - s)
         step = _CacheStep(
-            start=None,
+            kv_lengths=cp + s, q_offset=cp, q_positions=cp,
             rows=torch.arange(b, device=device)[:, None],
             pos=start[:, None] + torch.arange(s, device=device),
-            kv_lengths=cp + s,
-            q_offset=cp,
-            q_positions=cp,
         )
     else:
         # prefill: insert at the shared scalar index
+        s_max = kv_cache["k"].shape[3]
         index = kv_cache["index"]
         step = _CacheStep(
-            start=min(max(index, 0), s_max - s), rows=None, pos=None,
             kv_lengths=torch.full((b,), index + s, dtype=torch.int32, device=device),
-            q_offset=index, q_positions=None,
+            q_offset=index, start=min(max(index, 0), s_max - s),
         )
     if seq_lengths is not None:
         step.kv_lengths = torch.minimum(
             step.kv_lengths, seq_lengths.to(device=device, dtype=torch.int32)
         )
     return step
+
+
+def _cache_write(step: _CacheStep, cache: torch.Tensor, x: torch.Tensor) -> None:
+    """Write x [B, Hkv, s(, D)] -- keys or values, or their int8 scales --
+    into one layer's cache tensor, in place."""
+    x = x.to(cache.dtype)
+    if step.paged_chunk:
+        b, hkv, s = x.shape[:3]
+        m = step.blocks.shape[1]
+        blocks = x.reshape((b, hkv, m, s // m) + x.shape[3:]).transpose(1, 2)
+        cache[step.blocks.reshape(-1)] = blocks.reshape((b * m, hkv, s // m) + x.shape[3:])
+    elif step.blocks is not None:
+        # advanced indices around a slice: the indexed view is [B, s, Hkv(, D)]
+        cache[step.blocks, :, step.offsets] = x.transpose(1, 2)
+    elif step.pos is not None:
+        cache[step.rows, :, step.pos] = x.transpose(1, 2)
+    else:
+        cache[:, :, step.start : step.start + x.shape[2]] = x
 
 
 def _layer_forward(
@@ -267,8 +379,9 @@ def _layer_forward(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (cos, sin) tables
     kv_lengths: Optional[torch.Tensor],
     slopes: Optional[torch.Tensor],
-    k_cache: Optional[torch.Tensor],  # [B, nkv, S_max, hd], written in place
-    v_cache: Optional[torch.Tensor],
+    layer_cache: Optional[Params],  # this layer's views, written in place:
+    # "k", "v" [B, nkv, S_max, hd] (paged: pools [N, nkv, bs, hd]) and, for
+    # an int8 cache, "k_scale", "v_scale"
     step: Optional[_CacheStep],
     prefix_lengths: Optional[torch.Tensor] = None,
     prefill_from_empty: bool = False,
@@ -286,14 +399,19 @@ def _layer_forward(
         q = _rotate(q, *rope)
         k = _rotate(k, *rope)
 
-    if k_cache is not None:
-        if step.pos is not None:
-            # [B, s] advanced index pairs -> values as [B, s, Hkv, D]
-            k_cache[step.rows, :, step.pos] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[step.rows, :, step.pos] = v.transpose(1, 2).to(v_cache.dtype)
+    if layer_cache is not None:
+        k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+        ks_cache, vs_cache = layer_cache.get("k_scale"), layer_cache.get("v_scale")
+        if ks_cache is not None:
+            k_store, k_sc = _quantize_kv(k)
+            v_store, v_sc = _quantize_kv(v)
+            _cache_write(step, ks_cache, k_sc)
+            _cache_write(step, vs_cache, v_sc)
         else:
-            k_cache[:, :, step.start : step.start + s] = k.to(k_cache.dtype)
-            v_cache[:, :, step.start : step.start + s] = v.to(v_cache.dtype)
+            k_store, v_store = k, v
+        _cache_write(step, k_cache, k_store)
+        _cache_write(step, v_cache, v_store)
+        tables = step.block_tables
         if prefill_from_empty:
             # the cache held nothing before this call, so attention only
             # needs the in-flight K/V: S x S on the flash-prefill kernel
@@ -301,17 +419,35 @@ def _layer_forward(
                 q, k, v, causal=True, kv_lengths=kv_lengths, slopes=slopes,
                 use_pallas=cfg.use_pallas_attention,
             )
-        elif step.q_positions is not None and s <= 16 and cfg.use_flash_decode is True:
+        elif tables is not None and not step.paged_chunk:
+            # paged decode: the flash-decode kernel resolves the tables
+            # itself; the dispatcher's other route gathers a dense view
+            attn = decode_attention(
+                q, k_cache, v_cache, kv_lengths=step.kv_lengths,
+                q_positions=step.q_positions, k_scale=ks_cache, v_scale=vs_cache,
+                slopes=slopes, use_pallas=cfg.use_flash_decode is not False,
+                block_tables=tables,
+            )
+        elif (step.pos is not None and s <= 16 and cfg.use_flash_decode is True):
             # short-query decode: the flash-decode kernel reads only the
             # live cache positions
             attn = decode_attention(
                 q, k_cache, v_cache, kv_lengths=step.kv_lengths,
-                q_positions=step.q_positions, slopes=slopes,
+                q_positions=step.q_positions, k_scale=ks_cache, v_scale=vs_cache,
+                slopes=slopes,
             )
         else:
+            if step.paged_chunk:
+                # chunk queries attend their rows' whole admission span (the
+                # tables passed for admission are cropped to it): a dense
+                # per-layer view of the pool
+                k_cache, v_cache = _dense_view(k_cache, tables), _dense_view(v_cache, tables)
+                if ks_cache is not None:
+                    ks_cache = _dense_view(ks_cache, tables)
+                    vs_cache = _dense_view(vs_cache, tables)
             attn = xla_attention(
                 q, k_cache, v_cache, causal=True, kv_lengths=step.kv_lengths,
-                slopes=slopes, q_offset=step.q_offset,
+                slopes=slopes, q_offset=step.q_offset, k_scale=ks_cache, v_scale=vs_cache,
             )
     else:
         attn = multihead_attention(
@@ -336,16 +472,15 @@ def _layer_forward(
 # Full decoder forward
 # ---------------------------------------------------------------------------
 
+# the tensors of a KV cache dict, per layer [L, ...]
+CACHE_TENSORS = ("k", "v", "k_scale", "v_scale")
 
-def _check_slice(cfg: ModelConfig, params: Params, kv_cache: Optional[Params]) -> None:
+
+def _check_slice(cfg: ModelConfig, params: Params) -> None:
     if cfg.moe_num_experts > 0:
         raise NotImplementedError("MoE layers come with a later slice of the port")
     if any(name.endswith(("_lora_a", "_lora_b")) for name in params["layers"]):
         raise NotImplementedError("LoRA factors come with a later slice of the port")
-    if kv_cache is not None and "block_tables" in kv_cache:
-        raise NotImplementedError("paged KV caches come with the serving-engine slice of the port")
-    if kv_cache is not None and "k_scale" in kv_cache:
-        raise NotImplementedError("the int8 KV cache comes with a later slice of the port")
 
 
 def decoder_forward(
@@ -362,16 +497,20 @@ def decoder_forward(
     prefix_lengths: Optional[torch.Tensor] = None,  # [B] prefix-LM boundaries
     prefill_from_empty: bool = False,  # this call fills an EMPTY cache
     trainable_token_start: Optional[int] = None,  # tied-LM-head freeze boundary
+    paged_chunk: bool = False,  # block-aligned prefill chunk straight into a
+    # paged pool (cache_positions and S multiples of the block size)
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder (llark_tpu/models/decoder.py:579-778). Returns
     (logits_or_hidden, kv_cache|None); logits are fp32.
 
     Without a cache: pass input_ids/inputs_embeds + seq_lengths (right-
-    padded mask). Prefill/decode: also pass kv_cache, which is written in
-    place; positions default to cache_index + arange(S), or to
-    cache_positions + arange(S) for ragged decode.
+    padded mask). Prefill/decode: also pass kv_cache (dense, int8 or
+    paged), which is written in place; positions default to
+    cache_index + arange(S), or to cache_positions + arange(S) for ragged
+    decode and paged writes. The returned cache shares the given tensors
+    (block tables and scales included) with "index" advanced by S.
     """
-    _check_slice(cfg, params, kv_cache)
+    _check_slice(cfg, params)
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(cfg, params, input_ids)
@@ -381,7 +520,7 @@ def decoder_forward(
 
     step = None
     if kv_cache is not None:
-        step = _cache_step(kv_cache, b, s, cache_positions, seq_lengths, dev)
+        step = _cache_step(kv_cache, b, s, cache_positions, seq_lengths, dev, paged_chunk)
     if positions is None:
         pos = torch.arange(s, device=dev)[None, :]
         if cache_positions is not None:
@@ -399,19 +538,20 @@ def decoder_forward(
         lp = {name: w[l] for name, w in params["layers"].items()}
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None, None,
+                _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None,
                 prefix_lengths, use_reentrant=False,
             )
             continue
+        layer_cache = None
+        if kv_cache is not None:
+            layer_cache = {n: kv_cache[n][l] for n in CACHE_TENSORS if n in kv_cache}
         x = _layer_forward(
-            cfg, lp, x, rope, seq_lengths, slopes,
-            None if kv_cache is None else kv_cache["k"][l],
-            None if kv_cache is None else kv_cache["v"][l],
-            step, prefix_lengths, prefill_from_empty,
+            cfg, lp, x, rope, seq_lengths, slopes, layer_cache, step, prefix_lengths,
+            prefill_from_empty,
         )
     new_cache = None
     if kv_cache is not None:
-        new_cache = {"k": kv_cache["k"], "v": kv_cache["v"], "index": kv_cache["index"] + s}
+        new_cache = dict(kv_cache, index=kv_cache["index"] + s)
 
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     if return_hidden:

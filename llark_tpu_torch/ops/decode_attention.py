@@ -6,13 +6,12 @@ both TPU kernels (`_decode_kernel_all_heads`, the default, and
 `_decode_kernel`, `all_heads=False`): they compute one function and differ
 only in TPU grid layout. The kernel reads only each row's live cache
 positions, so the bytes a step moves scale with the context, not with the
-padded cache.
+padded cache. It takes every cache mode of the JAX function: dense or
+paged (block tables over a pool), bf16 or int8 with per-position scales.
 
 For CPU tensors the wrapper runs the plain PyTorch version, which covers
-every mode of the JAX function: dense caches, int8 caches with
-per-position scales, paged block-table pools, and Sq <= 32 query windows
-with per-row first-query positions. The CUDA kernel covers the dense bf16
-mode; on CUDA tensors the int8 and paged modes raise NotImplementedError.
+the same modes with Sq <= 32 query windows and per-row first-query
+positions; on CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,12 +23,7 @@ from typing import Optional
 import torch
 
 from llark_tpu_torch.ops import _build
-from llark_tpu_torch.ops.attention import (
-    _broadcast_kv,
-    _check_kernel_inputs,
-    _kernel_operand,
-    xla_attention,
-)
+from llark_tpu_torch.ops.attention import _broadcast_kv, _ptr, xla_attention
 
 
 def _dense_view(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -88,23 +82,111 @@ def _flash_decode_plain(
     return out.to(q.dtype)
 
 
+# The kernel addresses a position inside one pool block with a 32-bit
+# byte offset; that is its only limit on the block size (it resolves the
+# table per staged row, so a split may cross blocks or cover part of one).
+_BLOCK_OFFSET_LIMIT = 2**31 - 1
+
+
+def max_paged_block_size(num_kv_heads: int, head_dim: int, itemsize: int) -> int:
+    """Largest paged KV block size the flash-decode kernel takes: a block
+    [Hkv, bs, D] of `itemsize`-byte values must be addressable with 32-bit
+    byte offsets; rounded down to the server's multiple of 8. The
+    counterpart of llark_tpu/ops/decode_attention.py:281-286, whose limit
+    is the TPU's VMEM budget instead."""
+    cap = _BLOCK_OFFSET_LIMIT // (num_kv_heads * head_dim * itemsize)
+    return max(8, (cap // 8) * 8)
+
+
+def _cache_operand(t: torch.Tensor) -> torch.Tensor:
+    """K/V as the kernel reads them: unit stride in D and rows at 16-byte
+    aligned addresses (it loads each row as 16-byte vectors)."""
+    nbytes = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any((s * nbytes) % 16 for s in t.stride()[:3]):
+        t = t.contiguous()
+    return t
+
+
+def _byte_strides(t: torch.Tensor):
+    return [s * t.element_size() for s in t.stride()[:3]]
+
+
+def _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables):
+    name = "flash_decode_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {q.device}")
+    if q.dtype != torch.bfloat16 or q.dim() != 4:
+        raise ValueError(f"{name}: the CUDA kernel takes a 4-D bfloat16 q, got {q.dtype}")
+    quant = k_scale is not None
+    if (v_scale is not None) != quant:
+        raise ValueError(f"{name}: an int8 cache needs both k_scale and v_scale")
+    want = torch.int8 if quant else torch.bfloat16
+    for t in (k_cache, v_cache):
+        if t.dtype != want or t.dim() != 4 or t.device != q.device:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes a 4-D {want} cache on q's device "
+                f"({'int8 with scales' if quant else 'bfloat16'}), got {t.dtype}"
+            )
+    d = q.shape[3]
+    if d not in (64, 128):
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim 64 or 128, got {d}")
+    if k_cache.shape != v_cache.shape or k_cache.shape[3] != d:
+        raise ValueError(f"{name}: k/v shape {tuple(k_cache.shape)} does not fit q {tuple(q.shape)}")
+    if q.shape[1] % k_cache.shape[1]:
+        raise ValueError(f"{name}: {q.shape[1]} q heads not a multiple of {k_cache.shape[1]} kv heads")
+    if block_tables is None and k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: a dense cache holds {k_cache.shape[0]} rows, q {q.shape[0]}")
+    if quant:
+        for t in (k_scale, v_scale):
+            if (tuple(t.shape) != tuple(k_cache.shape[:3]) or t.device != q.device
+                    or t.dtype != torch.float32):
+                raise ValueError(
+                    f"{name}: scales must be float32 {tuple(k_cache.shape[:3])} on q's "
+                    f"device, got {t.dtype} {tuple(t.shape)}"
+                )
+    if block_tables is not None:
+        cap = max_paged_block_size(k_cache.shape[1], d, k_cache.element_size())
+        if k_cache.shape[2] > cap:
+            raise ValueError(
+                f"{name}: paged block size {k_cache.shape[2]} exceeds the kernel's "
+                f"limit {cap} for {k_cache.shape[1]} kv heads x head_dim {d}"
+            )
+        if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
+            raise ValueError(f"{name}: block tables {tuple(block_tables.shape)} do not fit q")
+
+
 _DECODE_ARGTYPES = (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
 )
 
 
-def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, slopes):
-    _check_kernel_inputs("flash_decode_attention", q, k_cache, v_cache)
+def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale, v_scale,
+                       slopes, block_tables):
+    _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables)
     b, h, sq, d = q.shape
-    hkv, s_len = k_cache.shape[1], k_cache.shape[2]
-    q, k_cache, v_cache = (_kernel_operand(t) for t in (q, k_cache, v_cache))
+    hkv = k_cache.shape[1]
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    k_cache, v_cache = _cache_operand(k_cache), _cache_operand(v_cache)
     dev = q.device
     kvl = kv_lengths.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
     if q_positions is None:
         q_positions = kvl - 1
     qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32).reshape(-1).expand(b).contiguous()
     sl = None if slopes is None else slopes.to(device=dev, dtype=torch.float32).reshape(h).contiguous()
+    tables = None
+    bs, max_blocks = 0, 0
+    s_len = k_cache.shape[2]
+    if block_tables is not None:
+        tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+        bs, max_blocks = k_cache.shape[2], tables.shape[1]
+        s_len = bs * max_blocks  # the logical cache length the splits cover
+    strides = _byte_strides(k_cache) + _byte_strides(v_cache)
+    if k_scale is not None:
+        strides += _byte_strides(k_scale) + _byte_strides(v_scale)
+    else:
+        strides += [0] * 6
     out = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0 or s_len == 0:
         return out.zero_()
@@ -115,17 +197,19 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, slopes):
     part_acc = torch.empty((b, h, sq, n_splits, d), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, h, sq, n_splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3])
     fn = lib.llark_flash_decode
     fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
     err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kvl.data_ptr(),
-        qpos.data_ptr(), None if sl is None else sl.data_ptr(), part_acc.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, hkv, sq, s_len, d,
-        strides, 1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        _ptr(tables), kvl.data_ptr(), qpos.data_ptr(), _ptr(sl), part_acc.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, hkv, sq, s_len, d, bs,
+        max_blocks, (ctypes.c_longlong * 15)(*q.stride()[:3], *strides),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_decode")
     flash_decode_attention.launches += 1
+    mode = ("paged_" if tables is not None else "dense_") + ("int8" if k_scale is not None else "bf16")
+    flash_decode_attention.launches_by_mode[mode] += 1
     return out
 
 
@@ -148,31 +232,33 @@ def flash_decode_attention(
     except that `q_positions` defaults to `kv_lengths - 1` and a row that
     sees no key gives zeros. Queries of a row sit at consecutive positions
     from its `q_positions` entry; for Sq > 1 each sees keys up to its own
-    position. CUDA tensors launch `csrc/flash_decode.cu` (dense bf16 cache,
-    head_dim 64 or 128); CPU tensors run the plain version.
-    `flash_decode_attention.launches` counts kernel launches."""
+    position. CUDA tensors launch `csrc/flash_decode.cu` (bf16 q, head_dim
+    64 or 128; a bf16 cache, or an int8 one with scales; dense, or a pool
+    with block tables); CPU tensors run the plain version.
+    `flash_decode_attention.launches` counts kernel launches and
+    `.launches_by_mode` splits them by cache mode ("dense_bf16",
+    "dense_int8", "paged_bf16", "paged_int8")."""
     if q.device.type == "cpu":
         return _flash_decode_plain(
             q, k_cache, v_cache, kv_lengths=kv_lengths, q_positions=q_positions,
             k_scale=k_scale, v_scale=v_scale, slopes=slopes, block_tables=block_tables,
         )
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV caches on the GPU come with the serving-engine slice of "
-            "the port; this kernel reads a dense bf16 cache"
-        )
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged KV caches on the GPU come with the serving-engine slice of "
-            "the port; this kernel reads a dense bf16 cache"
-        )
     return _flash_decode_cuda(
         q, k_cache, v_cache, kv_lengths=kv_lengths, q_positions=q_positions,
-        slopes=slopes,
+        k_scale=k_scale, v_scale=v_scale, slopes=slopes, block_tables=block_tables,
     )
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_by_mode = dict.fromkeys(
+    ("dense_bf16", "dense_int8", "paged_bf16", "paged_int8"), 0)
+
+
+def reset_launch_counts() -> None:
+    """Set the flash-decode kernel's launch counts (total and by mode) to 0."""
+    flash_decode_attention.launches = 0
+    for mode in flash_decode_attention.launches_by_mode:
+        flash_decode_attention.launches_by_mode[mode] = 0
 
 
 def decode_attention(

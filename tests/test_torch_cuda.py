@@ -132,17 +132,78 @@ def test_flash_decode_kernel_many_rows(dev):
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
+def _quantize(x):
+    """[..., D] -> (int8 values, fp32 per-position scales), as the decoder
+    quantizes its cache (models/decoder.py `_quantize_kv`)."""
+    xf = x.float()
+    sc = xf.abs().amax(dim=-1) / 127.0
+    return torch.round(xf / sc.clamp_min(1e-8)[..., None]).to(torch.int8), sc
+
+
+@pytest.mark.parametrize("sq", [1, 5])
+@pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
+def test_flash_decode_kernel_int8_matches_plain(dev, sq, hkv, alibi):
+    # the dense int8 cache: both sides dequantize the same int8 values and
+    # scales in fp32
+    b, h, s, d = 3, 8, 512, 128
+    q, k, v = _qkv(dev, 18, b, h, hkv, sq, s, d)
+    (k8, ks), (v8, vs) = _quantize(k), _quantize(v)
+    kv_lengths = torch.tensor([1, 300, 512], device=dev)
+    q_positions = kv_lengths - sq
+    slopes = tattn.alibi_slopes(h, dev) if alibi else None
+    before = dict(tdec.flash_decode_attention.launches_by_mode)
+    got = tdec.flash_decode_attention(
+        q, k8, v8, kv_lengths=kv_lengths, q_positions=q_positions, k_scale=ks, v_scale=vs,
+        slopes=slopes)
+    torch.cuda.synchronize()
+    assert tdec.flash_decode_attention.launches_by_mode["dense_int8"] == before["dense_int8"] + 1
+    want = tdec._flash_decode_plain(
+        q, k8, v8, kv_lengths=kv_lengths, q_positions=q_positions, k_scale=ks, v_scale=vs,
+        slopes=slopes, block_tables=None)
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+
+
+@pytest.mark.parametrize("bs", [16, 64, 128])
+@pytest.mark.parametrize("sq", [1, 5])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_flash_decode_kernel_paged_matches_plain(dev, bs, sq, quant):
+    # GQA 4 + ALiBi over a pool whose blocks are scattered: each row's
+    # table is a random permutation of pool blocks, so a 64-position split
+    # spans several blocks (bs 16), one (bs 64) or half of one (bs 128)
+    b, h, hkv, d, span = 3, 8, 2, 128, 512
+    max_blocks = span // bs
+    n_blocks = b + b * max_blocks  # parking blocks first, as the server lays them out
+    rng = np.random.RandomState(19 + bs)
+    q = torch.from_numpy(rng.randn(b, h, sq, d).astype(np.float32)).to(dev, torch.bfloat16)
+    k = torch.from_numpy(rng.randn(n_blocks, hkv, bs, d).astype(np.float32)).to(dev, torch.bfloat16)
+    v = torch.from_numpy(rng.randn(n_blocks, hkv, bs, d).astype(np.float32)).to(dev, torch.bfloat16)
+    perm = rng.permutation(np.arange(b, n_blocks)).reshape(b, max_blocks).astype(np.int32)
+    tables = torch.from_numpy(perm).to(dev)
+    kv_lengths = torch.tensor([1, 300, 512], device=dev)
+    q_positions = kv_lengths - sq
+    kw = dict(kv_lengths=kv_lengths, q_positions=q_positions,
+              slopes=tattn.alibi_slopes(h, dev), block_tables=tables)
+    if quant:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = _quantize(k), _quantize(v)
+    mode = "paged_int8" if quant else "paged_bf16"
+    before = tdec.flash_decode_attention.launches_by_mode[mode]
+    got = tdec.flash_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tdec.flash_decode_attention.launches_by_mode[mode] == before + 1
+    want = tdec._flash_decode_plain(q, k, v, k_scale=kw.pop("k_scale", None),
+                                    v_scale=kw.pop("v_scale", None), **kw)
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((1, 4, 1, 128), dtype=torch.bfloat16, device=dev)
     k8 = torch.zeros((1, 4, 64, 128), dtype=torch.int8, device=dev)
     sc = torch.ones((1, 4, 64), device=dev)
     lengths = torch.tensor([10], device=dev)
-    with pytest.raises(NotImplementedError, match="serving-engine slice"):
-        tdec.flash_decode_attention(q, k8, k8, kv_lengths=lengths, k_scale=sc, v_scale=sc)
-    pool = torch.zeros((4, 4, 16, 128), dtype=torch.bfloat16, device=dev)
-    tables = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="serving-engine slice"):
-        tdec.flash_decode_attention(q, pool, pool, kv_lengths=lengths, block_tables=tables)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        tdec.flash_decode_attention(q, k8, k8, kv_lengths=lengths, k_scale=sc)
+    with pytest.raises(ValueError, match="int8"):
+        tdec.flash_decode_attention(q, k8, k8, kv_lengths=lengths)
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((1, 4, 8, 16), dtype=torch.bfloat16, device=dev)
         tattn.flash_attention_fwd(x, x, x)

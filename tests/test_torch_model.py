@@ -227,9 +227,9 @@ def test_params_from_numpy_checks_layout():
 
 
 def test_out_of_slice_features_raise():
+    from llark_tpu_torch.inference.server import BatchedServer
+
     _, _, tcfg, tparams = _models("llama_gqa")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tdecoder.init_kv_cache(ModelConfig.tiny(kv_cache_quant=True), 1, 8)
     moe = ModelConfig.tiny(moe_num_experts=2)
     with pytest.raises(NotImplementedError, match="MoE"):
         tdecoder.init_decoder_params(moe, torch.Generator().manual_seed(0), "cpu")
@@ -238,8 +238,148 @@ def test_out_of_slice_features_raise():
     lora = dict(tparams, layers=dict(tparams["layers"], wq_lora_a=tparams["layers"]["wq"]))
     with pytest.raises(NotImplementedError, match="LoRA"):
         tdecoder.decoder_forward(tcfg, lora, input_ids=torch.tensor([[1, 2]]))
-    cache = dict(tdecoder.init_kv_cache(tcfg, 1, 8), block_tables=torch.zeros((1, 2)))
-    with pytest.raises(NotImplementedError, match="paged"):
-        tdecoder.decoder_forward(tcfg, tparams, input_ids=torch.tensor([[1]]), kv_cache=cache)
     with pytest.raises(NotImplementedError, match="quantized"):
         tdecoder._dense(torch.zeros(1, 1, 4), {"q": None}, None, torch.float32)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        tdecoder.compute_logits(tcfg, {"lm_head": {"q": None}}, torch.zeros(1, 1, 64))
+    # the serving engine's speculation and mesh arguments
+    for kw in (dict(draft_cfg=tcfg, draft_params=tparams), dict(spec_mode="ngram"),
+               dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="slice of the port"):
+            BatchedServer(tcfg, tparams, audio_patch_id=PATCH_ID, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# int8 and paged KV caches
+# ---------------------------------------------------------------------------
+
+
+def _jforward_paged(jcfg):
+    return jax.jit(functools.partial(jdecoder.decoder_forward, jcfg),
+                   static_argnames=("prefill_from_empty", "paged_chunk", "return_hidden"))
+
+
+def _check_int8(got, want):
+    """int8 cache values equal except +-1 where a rounding tie (x / scale
+    at .5) falls differently in the two packages' fp32 sums."""
+    diff = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3
+
+
+def _check_cache(tcache, jcache, quant):
+    for key in ("k", "v"):
+        if quant:
+            _check_int8(tcache[key], jcache[key])
+        else:
+            assert _rel_err(tcache[key], jcache[key]) < TOL
+    if quant:
+        for key in ("k_scale", "v_scale"):
+            assert _rel_err(tcache[key], jcache[key]) < 1e-6
+
+
+def test_quantize_kv_matches_jax():
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 3, 7, 16).astype(np.float32)
+    # exact ties: with absmax 127 the scale is 1, and half-integers round
+    # to even in both packages
+    x[0, 0, 0, :5] = [127.0, 0.5, 1.5, 2.5, -0.5]
+    x[0, 0, 0, 5:] = 0.0
+    q, sc = tdecoder._quantize_kv(torch.from_numpy(x))
+    jq, jsc = jdecoder._quantize_kv(jnp.asarray(x))
+    assert q.dtype == torch.int8 and sc.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+    assert q[0, 0, 0, :5].tolist() == [127, 0, 2, 2, 0]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf", "int8"])
+def test_cache_layouts_match_jax(quant):
+    jcfg, _, tcfg, _ = _models("llama_gqa", kv_cache_quant=quant)
+    for jc, tc in ((jdecoder.init_kv_cache(jcfg, 3, 16), tdecoder.init_kv_cache(tcfg, 3, 16)),
+                   (jdecoder.init_paged_kv_cache(jcfg, 3, 9, 8, 4),
+                    tdecoder.init_paged_kv_cache(tcfg, 3, 9, 8, 4))):
+        assert set(tc) == set(jc)
+        for key, t in tc.items():
+            if key == "index":
+                assert t == int(jc[key]) == 0
+                continue
+            want = np.asarray(jc[key])
+            assert tuple(t.shape) == want.shape and str(t.dtype).split(".")[-1] == str(want.dtype)
+            np.testing.assert_array_equal(t.numpy(), want)  # zeros; parking tables
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_int8_cache_prefill_then_decode_matches_jax(name):
+    # prefill into an empty int8 cache, then 3 ragged decode steps through
+    # the flash-decode route (its plain version here; JAX's XLA path)
+    jcfg, jparams, tcfg, tparams = _models(name, kv_cache_quant=True, use_flash_decode=True)
+    b, s, max_len = 2, 10, 24
+    rng = np.random.RandomState(11)
+    embeds = rng.randn(b, s, jcfg.hidden_size).astype(np.float32)
+    lengths = np.array([10, 6], np.int32)
+    jcache = jdecoder.init_kv_cache(jcfg, b, max_len)
+    tcache = tdecoder.init_kv_cache(tcfg, b, max_len)
+    jforward = _jforward(jcfg)
+    jl, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds),
+                          seq_lengths=jnp.asarray(lengths), kv_cache=jcache,
+                          prefill_from_empty=True)
+    tl, tcache = tdecoder.decoder_forward(
+        tcfg, tparams, inputs_embeds=torch.from_numpy(embeds),
+        seq_lengths=torch.from_numpy(lengths), kv_cache=tcache, prefill_from_empty=True)
+    assert _rel_err(tl[0], np.asarray(jl)[0]) < TOL
+    pos = lengths.copy()
+    for step in range(3):
+        tok = rng.randint(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
+        jl, jcache = jforward(jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
+                              cache_positions=jnp.asarray(pos))
+        tl, tcache = tdecoder.decoder_forward(
+            tcfg, tparams, input_ids=torch.from_numpy(tok), kv_cache=tcache,
+            cache_positions=torch.from_numpy(pos))
+        assert _rel_err(tl, jl) < TOL, f"decode step {step}"
+        pos = pos + 1
+    assert tcache["k"].dtype == torch.int8 and tcache["index"] == s + 3
+    _check_cache(tcache, jcache, quant=True)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("quant", [False, True], ids=["bf", "int8"])
+def test_paged_cache_chunks_and_decode_match_jax(name, quant):
+    # two block-aligned paged_chunk writes straight into scattered pool
+    # blocks, then 3 paged decode steps that read through the tables
+    jcfg, jparams, tcfg, tparams = _models(name, kv_cache_quant=quant, use_flash_decode=True)
+    b, bs = 2, 8
+    tables = np.array([[3, 7, 2, 9], [5, 4, 8, 6]], np.int32)
+    jcache = jdecoder.init_paged_kv_cache(jcfg, b, 10, bs, 4)
+    tcache = tdecoder.init_paged_kv_cache(tcfg, b, 10, bs, 4)
+    jcache["block_tables"] = jnp.asarray(tables)
+    tcache["block_tables"] = torch.from_numpy(tables)
+    rng = np.random.RandomState(12)
+    embeds = rng.randn(b, 16, jcfg.hidden_size).astype(np.float32)
+    plens = np.array([16, 11], np.int32)
+    jforward = _jforward_paged(jcfg)
+    for c in (0, 8):
+        cpos = np.full((b,), c, np.int32)
+        jh, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds[:, c:c + 8]),
+                              seq_lengths=jnp.asarray(plens), kv_cache=jcache,
+                              cache_positions=jnp.asarray(cpos), return_hidden=True,
+                              paged_chunk=True)
+        th, tcache = tdecoder.decoder_forward(
+            tcfg, tparams, inputs_embeds=torch.from_numpy(embeds[:, c:c + 8]),
+            seq_lengths=torch.from_numpy(plens), kv_cache=tcache,
+            cache_positions=torch.from_numpy(cpos), return_hidden=True, paged_chunk=True)
+        assert _rel_err(th, jh) < TOL, f"chunk at {c}"
+    pos = plens.copy()
+    for step in range(3):
+        tok = rng.randint(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
+        jl, jcache = jforward(jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
+                              cache_positions=jnp.asarray(pos))
+        tl, tcache = tdecoder.decoder_forward(
+            tcfg, tparams, input_ids=torch.from_numpy(tok), kv_cache=tcache,
+            cache_positions=torch.from_numpy(pos))
+        assert _rel_err(tl, jl) < TOL, f"decode step {step}"
+        pos = pos + 1
+    assert tcache["index"] == 16 + 3 and tcache["block_tables"] is not None
+    _check_cache(tcache, jcache, quant)
+    # parking blocks 0 and 1 were never written
+    assert float(tcache["k"][:, :2].abs().sum()) == 0.0

@@ -378,3 +378,15 @@ def test_multihead_attention_routes_training_through_the_function():
     with torch.no_grad():
         out = tattn.multihead_attention(q, k, v, kv_lengths=torch.tensor([8]), use_pallas=True)
     assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("hkv,d", [(32, 128), (8, 128), (16, 64)], ids=["7b", "gqa8", "d64"])
+def test_paged_block_size_limit_takes_every_jax_block_size(hkv, d):
+    # the kernel resolves the table per cache position, so its only limit
+    # is 32-bit addressing inside a pool block; every block size the JAX
+    # server accepts (a multiple of 8 up to its VMEM cap) fits under it
+    for itemsize in (1, 2):
+        cap = tdec.max_paged_block_size(hkv, d, itemsize)
+        assert cap % 8 == 0
+        assert cap >= jdec.max_paged_block_size(hkv, d, itemsize)
+        assert hkv * cap * d * itemsize < 2**31
