@@ -22,11 +22,14 @@ Phases, in order; any failure exits non-zero before the final line:
      times, L2 flushed before each launch) beside the plain version, PyTorch's
      scaled_dot_product_attention as the library yardstick, and the bound
      from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16);
-  6. (A) the flash-decode kernel's int8 and paged modes against their plain
+  6. (A) the flash-decode kernel in every cache mode against its plain
      version at 7B serving shapes: q [8,32,1,128], 2048-position caches,
-     live lengths 300-340; dense int8, paged bf16 with 16- and 128-token
-     blocks, paged int8 with 128-token blocks, Sq=5 with GQA Hkv=8 and
-     ALiBi; paged tables scattered over the pool; held per query row;
+     live lengths 300-340; dense bf16, dense int8, paged bf16 with 16- and
+     128-token blocks, paged int8 with 128-token blocks, Sq=5 with GQA
+     Hkv=8 and ALiBi; paged tables scattered over the pool; and the
+     flash-prefill kernel at the serving engine's one-shot admission shape,
+     q [8,32,512,128] causal with the admitted prompts' lengths (and a wave
+     padded with one-token rows); each held per query row;
   7. (B) the serving engine (`BatchedServer`) at full Llama-2-7B width (32
      layers, random bf16 weights from the seed): 16 requests (the four
      prompts of requests() four times, random [256, 4800] encodings),
@@ -35,8 +38,9 @@ Phases, in order; any failure exits non-zero before the final line:
      prefill_chunk 256; (b) dense bf16, one-shot admission; (c) paged bf16,
      16-token blocks, prefill_chunk 256, prefix caching; (d) dense int8,
      one-shot admission. Each mode: wall time, tokens/s, mean TTFT, the
-     flash-decode launches by cache mode (all in its own), peak memory, and
-     a decode round's device idle share (torch.profiler); in (a) and (c)
+     flash-decode launches by cache mode (all in its own), the
+     flash-prefill launches (one-shot admission runs it: (b) and (d)),
+     peak memory, and a decode round's device idle share (torch.profiler);
      one decode step from an admitted state through the kernel route and
      the plain route, logits within LOGITS_TOL;
   8. the training kernels against their plain versions at the training
@@ -84,6 +88,7 @@ from llark_tpu_torch.data.webdataset import TarShardWriter
 from llark_tpu_torch.generate import GenerationConfig, Generator, decode_step
 from llark_tpu_torch.infer import _common_prompt_prefix, batch_infer, build_prompt_ids
 from llark_tpu_torch.inference.server import BatchedServer, Request
+from llark_tpu_torch.models.decoder import _quantize_kv
 from llark_tpu_torch.models.fusion import init_llark_params
 from llark_tpu_torch.ops import _build
 from llark_tpu_torch.ops import attention as attn_ops
@@ -439,18 +444,12 @@ def time_flash_decode(gen, kv_len, b):
 SERVE_LENGTHS = [300, 305, 311, 318, 322, 329, 334, 340]  # ragged live lengths, batch 8
 
 
-def quantize(x: torch.Tensor):
-    """[..., D] -> (int8, fp32 per-position scales), as the decoder does."""
-    xf = x.float()
-    sc = xf.abs().amax(dim=-1) / 127.0
-    return torch.round(xf / sc.clamp_min(1e-8)[..., None]).to(torch.int8), sc
-
-
 def k2_inputs(gen, mode: str, hkv: int = 32, sq: int = 1, bs: int = 128, s: int = 2048):
     """q [8, 32, sq, 128] bf16 and a cache of `s` positions per row in one
-    of the modes "int8" (dense), "paged" or "paged_int8". Paged tables are
-    random permutations of the pool's blocks (scattered, not consecutive),
-    with the 8 parking blocks first as the server lays the pool out."""
+    of the modes "bf16" or "int8" (dense), "paged" or "paged_int8". Paged
+    tables are random permutations of the pool's blocks (scattered, not
+    consecutive), with the 8 parking blocks first as the server lays the
+    pool out."""
     b, h, d = len(SERVE_LENGTHS), 32, 128
     q = bf16_randn(gen, b, h, sq, d)
     kw = dict(kv_lengths=torch.tensor(SERVE_LENGTHS, device="cuda"))
@@ -464,7 +463,7 @@ def k2_inputs(gen, mode: str, hkv: int = 32, sq: int = 1, bs: int = 128, s: int 
     else:
         k, v = bf16_randn(gen, b, hkv, s, d), bf16_randn(gen, b, hkv, s, d)
     if mode.endswith("int8"):
-        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize(k), quantize(v)
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = _quantize_kv(k), _quantize_kv(v)
     return q, k, v, kw
 
 
@@ -484,11 +483,12 @@ K2_ROWS = (("flash_decode_int8", "int8", 0, "d", "dense_int8"),
 
 
 def check_flash_decode_modes(gen: torch.Generator):
-    """K2' against its plain version at 7B serving shapes: q [8,32,1,128],
-    2048-position caches, live lengths 300-340. Both sides compute in fp32
-    from the same int8 values and scales. The worst max |diff| per row of
-    the kernels line."""
+    """The flash-decode kernel in every cache mode against its plain
+    version at 7B serving shapes: q [8,32,1,128], 2048-position caches,
+    live lengths 300-340. Both sides compute in fp32 from the same int8
+    values and scales. The worst max |diff| per row of the kernels line."""
     cases = [
+        ("flash_decode", "dense bf16", dict(mode="bf16")),
         ("flash_decode_int8", "dense int8", dict(mode="int8")),
         ("flash_decode_paged", "paged bf16, 16-token blocks", dict(mode="paged", bs=16)),
         ("flash_decode_paged", "paged bf16, 128-token blocks", dict(mode="paged", bs=128)),
@@ -511,6 +511,26 @@ def check_flash_decode_modes(gen: torch.Generator):
             name += ", scattered tables"
         err = check_close("flash_decode", f"{name}, kv_len 300-340", got, k2_plain(q, k, v, kw))
         worst[row] = max(worst.get(row, 0.0), err)
+    return worst
+
+
+def check_flash_fwd_admission(gen: torch.Generator, lengths) -> float:
+    """The flash-prefill kernel at the shape one-shot admission gives it in
+    phase 7 (modes (b) and (d)): 8 admitted prompts padded to the 512-token
+    bucket, causal, each row's own length; and a wave of 5 prompts padded
+    with 3 one-token rows, as the server pads a short wave. The worst max
+    |diff|."""
+    worst = 0.0
+    for name, lens in ((f"kv_len {lengths}", lengths),
+                       ("5 prompts + 3 one-token rows", lengths[:5] + [1, 1, 1])):
+        q, k, v = (bf16_randn(gen, 8, 32, 512, 128) for _ in range(3))
+        kv_lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = attn_ops.flash_attention_fwd(q, k, v, kv_lengths=kv_lengths)
+        torch.cuda.synchronize()
+        want = attn_ops._flash_attention_fwd_plain(
+            q, k, v, causal=True, kv_lengths=kv_lengths, slopes=None)
+        worst = max(worst, check_close(
+            "flash_fwd", f"serving admission [8,32,512,128] causal, {name}", got, want))
     return worst
 
 
@@ -554,8 +574,10 @@ def time_flash_decode_mode(gen, mode: str, bs: int):
 # phase 7 (B): the serving engine at Llama-2-7B width
 # ---------------------------------------------------------------------------
 
-# server modes: (label, kernel row of its cache mode, kv_cache_quant,
-# server keywords)
+# server modes: (label, description, its flash-decode cache mode,
+# kv_cache_quant, server keywords); the modes without prefill_chunk admit in
+# one shot, through the flash-prefill kernel (chunked admission attends the
+# cache through the plain route, as on the TPU)
 SERVER_MODES = (
     ("a", "run-of-record: paged 128-token blocks, int8 KV, prefill_chunk 256", "paged_int8",
      True, dict(kv_block_size=128, prefill_chunk=256)),
@@ -564,8 +586,6 @@ SERVER_MODES = (
      False, dict(kv_block_size=16, prefill_chunk=256, prefix=True)),
     ("d", "dense int8 cache, one-shot admission", "dense_int8", True, {}),
 )
-# the modes whose decode logits are held against the plain route
-GATED_MODES = ("a", "c")
 
 
 def serving_requests(cfg: ModelConfig, bundle: TokenizerBundle, n: int, seed: int):
@@ -608,8 +628,8 @@ def profile_round(server: BatchedServer):
 @torch.inference_mode()
 def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
     """Drive BatchedServer at full 7B width in each cache mode; check and
-    print what each did. Returns the K2' launches by cache mode of each
-    mode's serve() run."""
+    print what each did. Returns the flash-decode launches by cache mode of
+    each mode's serve() run."""
     params = init_llark_params(cfg, seed=SEED, device="cuda")
     gen_cfg = GenerationConfig(max_new_tokens=32, stop_text="")
     base = dict(max_batch=8, max_cache_len=2048, prompt_buckets=(512,), max_audio_frames=256,
@@ -627,22 +647,28 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dec_ops.reset_launch_counts()
+        attn_ops.flash_attention_fwd.launches = 0
         t0 = time.perf_counter()
         server.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by_mode = dict(dec_ops.flash_decode_attention.launches_by_mode)
+        fwd_launches = attn_ops.flash_attention_fwd.launches
         launches[label] = by_mode
         stats = server.stats(reqs)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         print(f"serving ({label}) {name}: 16 requests x 32 tokens in {wall:.2f} s, "
               f"{stats['tokens_per_sec']:.1f} tokens/s, mean TTFT {stats['mean_ttft_s']:.3f} s, "
-              f"peak memory {peak_gb:.2f} GiB; K2 launches by cache mode {by_mode}")
+              f"peak memory {peak_gb:.2f} GiB; flash-decode launches by cache mode {by_mode}, "
+              f"flash-prefill launches {fwd_launches}")
         check(all(r.done and r.error is None and len(r.tokens) == 32 for r in reqs),
               f"serving ({label}): a request did not finish with 32 tokens")
         check(by_mode[own_mode] > 0, f"serving ({label}): no flash-decode launch in {own_mode}")
         check(sum(by_mode.values()) == by_mode[own_mode],
               f"serving ({label}): flash-decode launched in another cache mode: {by_mode}")
+        if "prefill_chunk" not in extra:
+            check(fwd_launches > 0, f"serving ({label}): one-shot admission never launched "
+                                    "the flash-prefill kernel")
 
         # one cache state after admission: 8 live slots
         server._queue = serving_requests(cfg, bundle, 8, SEED + 1)
@@ -650,20 +676,21 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
             r.submitted_at = time.time()
         server._admit()
         server._refresh_tables()
-        if label in GATED_MODES:
-            # one decode step from that state through the kernel route and
-            # through the plain route (it rewrites the same K/V at the same
-            # positions, so the second step sees the first one's cache)
-            token = torch.as_tensor(server._tokens_in_flight, dtype=torch.int64, device="cuda")
-            pos = torch.as_tensor(server._write_pos, dtype=torch.int64, device="cuda")
-            plain_cfg = dataclasses.replace(server.cfg, use_flash_decode=False)
-            lk, _ = decode_step(server.cfg, params, token, server._cache, pos)
-            lp, _ = decode_step(plain_cfg, params, token, server._cache, pos)
-            check(bool(torch.isfinite(lk).all()), f"serving ({label}): non-finite decode logits")
-            rel, diff = rel_err(lk, lp)
-            print(f"  one decode step from the admitted state, kernel vs plain route: "
-                  f"max|d| {diff:.3e}, rel-to-max {rel:.3e}")
-            check(rel <= LOGITS_TOL, f"serving ({label}): decode logits rel err {rel:.3e}")
+        # one decode step from that state through the kernel route and
+        # through the plain route (it rewrites the same K/V at the same
+        # positions, so the second step sees the first one's cache)
+        token = torch.as_tensor(server._tokens_in_flight, dtype=torch.int64, device="cuda")
+        pos = torch.as_tensor(server._write_pos, dtype=torch.int64, device="cuda")
+        plain_cfg = dataclasses.replace(server.cfg, use_flash_decode=False)
+        # (the returned cache is the server's own: bind only the logits, so
+        # that the cache goes with the server at the end of the mode)
+        lk = decode_step(server.cfg, params, token, server._cache, pos)[0]
+        lp = decode_step(plain_cfg, params, token, server._cache, pos)[0]
+        check(bool(torch.isfinite(lk).all()), f"serving ({label}): non-finite decode logits")
+        rel, diff = rel_err(lk, lp)
+        print(f"  one decode step from the admitted state, kernel vs plain route: "
+              f"max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+        check(rel <= LOGITS_TOL, f"serving ({label}): decode logits rel err {rel:.3e}")
         wall_ms, busy_ms, top = profile_round(server)
         if busy_ms is None:
             print(f"  one decode round (8 slots x 8 tokens): wall {wall_ms:.1f} ms; device {top}")
@@ -936,6 +963,9 @@ def main() -> int:
     dec_err = check_flash_decode(gen, plen)
     launches = run_main_path(cfg, bundle, rows)
     k2_err = check_flash_decode_modes(gen)
+    dec_err = max(dec_err, k2_err["flash_decode"])
+    admitted = [len(r.input_ids) for r in serving_requests(cfg, bundle, 8, SEED)]
+    fwd_err = max(fwd_err, check_flash_fwd_admission(gen, admitted))
     serving = run_serving_engine(cfg, bundle)
 
     bwd_err = check_flash_bwd(gen)

@@ -39,7 +39,9 @@
 //    resolves its own address, so a split may span several pool blocks
 //    (bs < TK) or part of one (bs > TK), and any block size works. A split
 //    past the live length exits before reading, so table entries past a
-//    row's live blocks are never read.
+//    row's live blocks are never read. A block id outside the pool is
+//    clipped into it, as the JAX gather clips (mode="clip"): bad tables give
+//    wrong values, never a read outside the pool.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,13 +88,14 @@ struct Smem {
 
 // Byte offset of logical cache position `p` of batch row `b`, kv head `hk`,
 // in an operand with strides `st`. Paged: p's block comes from the row's
-// table; the offset inside a pool block is 32-bit (max_paged_block_size).
+// table, clipped to the pool's n_pool blocks; the offset inside a pool block
+// is 32-bit (max_paged_block_size).
 template <bool PAGED>
 __device__ __forceinline__ long long row_offset(const Strides& st, const int* tables,
-                                                int max_blocks, int bs, int b, int hk,
-                                                int p) {
+                                                int max_blocks, int bs, int n_pool, int b,
+                                                int hk, int p) {
   if (PAGED) {
-    const int blk = tables[(long long)b * max_blocks + p / bs];
+    const int blk = min(max(tables[(long long)b * max_blocks + p / bs], 0), n_pool - 1);
     return (long long)blk * st.outer + (hk * (int)st.head + (p % bs) * (int)st.pos);
   }
   return (long long)b * st.outer + hk * st.head + (long long)p * st.pos;
@@ -108,8 +111,8 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
                     const float* __restrict__ slopes, float* __restrict__ part_acc,
                     float* __restrict__ part_m, float* __restrict__ part_l, int H,
                     int Hkv, int Sq, int S, int n_splits, int row_chunks, int bs,
-                    int max_blocks, long long q_sb, long long q_sh, long long q_ss,
-                    Strides k_st, Strides v_st, Strides ks_st, Strides vs_st, float scale) {
+                    int max_blocks, int n_pool, long long q_sb, long long q_sh,
+                    long long q_ss, Strides k_st, Strides v_st, Strides ks_st, Strides vs_st, float scale) {
   typedef typename Smem<D, INT8>::T T;
   constexpr int NW = D / 32;
   constexpr int E = D / 32;  // key elements per lane in the score dot
@@ -160,18 +163,18 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
       const int col = (i % CH) * 16;
       const int p = k0 + r;
       kr[it] = *reinterpret_cast<const uint4*>(
-          k + row_offset<PAGED>(k_st, tables, max_blocks, bs, b, hk, p) + col);
+          k + row_offset<PAGED>(k_st, tables, max_blocks, bs, n_pool, b, hk, p) + col);
       vr[it] = *reinterpret_cast<const uint4*>(
-          v + row_offset<PAGED>(v_st, tables, max_blocks, bs, b, hk, p) + col);
+          v + row_offset<PAGED>(v_st, tables, max_blocks, bs, n_pool, b, hk, p) + col);
     }
   }
   float ksr = 0.f, vsr = 0.f;
   if (INT8 && tid < n) {
     const int p = k0 + tid;
     ksr = *reinterpret_cast<const float*>(
-        k_scale + row_offset<PAGED>(ks_st, tables, max_blocks, bs, b, hk, p));
+        k_scale + row_offset<PAGED>(ks_st, tables, max_blocks, bs, n_pool, b, hk, p));
     vsr = *reinterpret_cast<const float*>(
-        v_scale + row_offset<PAGED>(vs_st, tables, max_blocks, bs, b, hk, p));
+        v_scale + row_offset<PAGED>(vs_st, tables, max_blocks, bs, n_pool, b, hk, p));
   }
   // block row r is query (head hk*group + g, position j) with
   // row0 + r = g * Sq + j; thread d loads element d of every row
@@ -309,7 +312,7 @@ struct Args {
   const float* slopes;
   float *part_acc, *part_m, *part_l;
   void* out;
-  int B, H, Hkv, Sq, S, bs, max_blocks;
+  int B, H, Hkv, Sq, S, bs, max_blocks, n_pool;
   const long long* st;
   float scale;
 };
@@ -331,9 +334,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const char*>(a.v), static_cast<const char*>(a.k_scale),
       static_cast<const char*>(a.v_scale), a.tables, a.kv_lengths, a.q_positions,
       a.slopes, a.part_acc, a.part_m, a.part_l, a.H, a.Hkv, a.Sq, a.S, n_splits,
-      row_chunks, a.bs, a.max_blocks, st[0], st[1], st[2], Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
-      Strides{st[12], st[13], st[14]}, a.scale);
+      row_chunks, a.bs, a.max_blocks, a.n_pool, st[0], st[1], st[2],
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<D><<<dim3(a.Sq, a.H, a.B), D, 0, stream>>>(
@@ -356,9 +359,12 @@ extern "C" int llark_flash_decode_splits(int S) { return (S + TK - 1) / TK; }
 
 // C entry point, bound with ctypes. q [B,H,Sq,D] bf16 (element strides in
 // `strides[0..2]`). k/v: a dense cache [B,Hkv,S,D] or, with `tables`
-// non-null, a pool [N,Hkv,bs,D] read through int32 tables [B,max_blocks]
-// (S = max_blocks * bs); bf16, or int8 with fp32 scales k_scale/v_scale
-// [B,Hkv,S] (paged: [N,Hkv,bs]); unit stride in D, rows 16-byte aligned.
+// non-null, a pool [n_pool,Hkv,bs,D] read through int32 tables
+// [B,max_blocks] (S = max_blocks * bs; block ids are clipped to
+// [0, n_pool)); bf16, or int8 with fp32 scales k_scale/v_scale
+// [B,Hkv,S] (paged: [n_pool,Hkv,bs]); unit stride in D, rows 16-byte
+// aligned. kv_lengths count live positions per row and are clamped to
+// [0, S]; positions past a row's length are never read.
 // `strides[3..14]` hold the (outer, head, position) BYTE strides of k, v,
 // k_scale and v_scale in that order. Partials: part_acc
 // [B,H,Sq,splits,D], part_m/part_l [B,H,Sq,splits] fp32. out is a
@@ -370,12 +376,12 @@ extern "C" int llark_flash_decode(const void* q, const void* k, const void* v,
                                   const int* q_positions, const float* slopes,
                                   float* part_acc, float* part_m, float* part_l, void* out,
                                   int B, int H, int Hkv, int Sq, int S, int D, int bs,
-                                  int max_blocks, const long long* strides, float scale,
-                                  void* stream) {
+                                  int max_blocks, int n_pool, const long long* strides,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, k_scale, v_scale, tables, kv_lengths, q_positions, slopes,
                part_acc, part_m, part_l, out, B, H, Hkv, Sq, S, bs, max_blocks,
-               strides, scale};
+               n_pool, strides, scale};
   const bool int8 = k_scale != nullptr;
   const bool paged = tables != nullptr;
   if (D == 64) return launch_mode<64>(a, int8, paged, s);

@@ -98,15 +98,6 @@ def max_paged_block_size(num_kv_heads: int, head_dim: int, itemsize: int) -> int
     return max(8, (cap // 8) * 8)
 
 
-def _cache_operand(t: torch.Tensor) -> torch.Tensor:
-    """K/V as the kernel reads them: unit stride in D and rows at 16-byte
-    aligned addresses (it loads each row as 16-byte vectors)."""
-    nbytes = t.element_size()
-    if t.stride(-1) != 1 or t.data_ptr() % 16 or any((s * nbytes) % 16 for s in t.stride()[:3]):
-        t = t.contiguous()
-    return t
-
-
 def _byte_strides(t: torch.Tensor):
     return [s * t.element_size() for s in t.stride()[:3]]
 
@@ -132,6 +123,13 @@ def _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables):
         raise ValueError(f"{name}: the CUDA kernel takes head_dim 64 or 128, got {d}")
     if k_cache.shape != v_cache.shape or k_cache.shape[3] != d:
         raise ValueError(f"{name}: k/v shape {tuple(k_cache.shape)} does not fit q {tuple(q.shape)}")
+    for t in (k_cache, v_cache):
+        # the kernel loads each cache row as 16-byte vectors
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(b % 16 for b in _byte_strides(t)):
+            raise ValueError(
+                f"{name}: the CUDA kernel takes k/v with unit stride in head_dim and "
+                f"16-byte aligned rows, got strides {t.stride()}"
+            )
     if q.shape[1] % k_cache.shape[1]:
         raise ValueError(f"{name}: {q.shape[1]} q heads not a multiple of {k_cache.shape[1]} kv heads")
     if block_tables is None and k_cache.shape[0] != q.shape[0]:
@@ -151,12 +149,16 @@ def _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables):
                 f"{name}: paged block size {k_cache.shape[2]} exceeds the kernel's "
                 f"limit {cap} for {k_cache.shape[1]} kv heads x head_dim {d}"
             )
-        if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
-            raise ValueError(f"{name}: block tables {tuple(block_tables.shape)} do not fit q")
+        if (block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]
+                or block_tables.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(
+                f"{name}: block tables must be int32 or int64 [B, max_blocks] for q "
+                f"{tuple(q.shape)}, got {block_tables.dtype} {tuple(block_tables.shape)}"
+            )
 
 
 _DECODE_ARGTYPES = (
-    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -168,7 +170,6 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
     hkv = k_cache.shape[1]
     if q.stride(-1) != 1:
         q = q.contiguous()
-    k_cache, v_cache = _cache_operand(k_cache), _cache_operand(v_cache)
     dev = q.device
     kvl = kv_lengths.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
     if q_positions is None:
@@ -176,11 +177,11 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
     qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32).reshape(-1).expand(b).contiguous()
     sl = None if slopes is None else slopes.to(device=dev, dtype=torch.float32).reshape(h).contiguous()
     tables = None
-    bs, max_blocks = 0, 0
+    bs, max_blocks, n_pool = 0, 0, 0
     s_len = k_cache.shape[2]
     if block_tables is not None:
         tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-        bs, max_blocks = k_cache.shape[2], tables.shape[1]
+        bs, max_blocks, n_pool = k_cache.shape[2], tables.shape[1], k_cache.shape[0]
         s_len = bs * max_blocks  # the logical cache length the splits cover
     strides = _byte_strides(k_cache) + _byte_strides(v_cache)
     if k_scale is not None:
@@ -203,7 +204,7 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         _ptr(tables), kvl.data_ptr(), qpos.data_ptr(), _ptr(sl), part_acc.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, hkv, sq, s_len, d, bs,
-        max_blocks, (ctypes.c_longlong * 15)(*q.stride()[:3], *strides),
+        max_blocks, n_pool, (ctypes.c_longlong * 15)(*q.stride()[:3], *strides),
         1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_decode")
@@ -234,7 +235,10 @@ def flash_decode_attention(
     from its `q_positions` entry; for Sq > 1 each sees keys up to its own
     position. CUDA tensors launch `csrc/flash_decode.cu` (bf16 q, head_dim
     64 or 128; a bf16 cache, or an int8 one with scales; dense, or a pool
-    with block tables); CPU tensors run the plain version.
+    with block tables; unit stride in head_dim and 16-byte aligned cache
+    rows); CPU tensors run the plain version. The kernel clamps live
+    lengths to the cache length and clips block ids into the pool, as the
+    JAX gather clips; the plain version raises on an id outside the pool.
     `flash_decode_attention.launches` counts kernel launches and
     `.launches_by_mode` splits them by cache mode ("dense_bf16",
     "dense_int8", "paged_bf16", "paged_int8")."""

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from llark_tpu_torch.models.decoder import _quantize_kv
 from llark_tpu_torch.ops import attention as tattn
 from llark_tpu_torch.ops import decode_attention as tdec
 
@@ -132,14 +133,6 @@ def test_flash_decode_kernel_many_rows(dev):
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
-def _quantize(x):
-    """[..., D] -> (int8 values, fp32 per-position scales), as the decoder
-    quantizes its cache (models/decoder.py `_quantize_kv`)."""
-    xf = x.float()
-    sc = xf.abs().amax(dim=-1) / 127.0
-    return torch.round(xf / sc.clamp_min(1e-8)[..., None]).to(torch.int8), sc
-
-
 @pytest.mark.parametrize("sq", [1, 5])
 @pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
 def test_flash_decode_kernel_int8_matches_plain(dev, sq, hkv, alibi):
@@ -147,7 +140,7 @@ def test_flash_decode_kernel_int8_matches_plain(dev, sq, hkv, alibi):
     # scales in fp32
     b, h, s, d = 3, 8, 512, 128
     q, k, v = _qkv(dev, 18, b, h, hkv, sq, s, d)
-    (k8, ks), (v8, vs) = _quantize(k), _quantize(v)
+    (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
     kv_lengths = torch.tensor([1, 300, 512], device=dev)
     q_positions = kv_lengths - sq
     slopes = tattn.alibi_slopes(h, dev) if alibi else None
@@ -184,7 +177,7 @@ def test_flash_decode_kernel_paged_matches_plain(dev, bs, sq, quant):
     kw = dict(kv_lengths=kv_lengths, q_positions=q_positions,
               slopes=tattn.alibi_slopes(h, dev), block_tables=tables)
     if quant:
-        (k, kw["k_scale"]), (v, kw["v_scale"]) = _quantize(k), _quantize(v)
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = _quantize_kv(k), _quantize_kv(v)
     mode = "paged_int8" if quant else "paged_bf16"
     before = tdec.flash_decode_attention.launches_by_mode[mode]
     got = tdec.flash_decode_attention(q, k, v, **kw)
@@ -192,6 +185,25 @@ def test_flash_decode_kernel_paged_matches_plain(dev, bs, sq, quant):
     assert tdec.flash_decode_attention.launches_by_mode[mode] == before + 1
     want = tdec._flash_decode_plain(q, k, v, k_scale=kw.pop("k_scale", None),
                                     v_scale=kw.pop("v_scale", None), **kw)
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+
+
+def test_flash_decode_kernel_clips_bad_tables_and_lengths(dev):
+    # block ids outside the pool are clipped into it (as the JAX gather
+    # clips) and a live length past the cache counts as the cache: the
+    # kernel reads nothing outside its operands
+    b, h, d, bs, max_blocks, n_blocks = 2, 4, 128, 16, 4, 6
+    rng = np.random.RandomState(20)
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(dev, torch.bfloat16)
+    k = torch.from_numpy(rng.randn(n_blocks, h, bs, d).astype(np.float32)).to(dev, torch.bfloat16)
+    v = torch.from_numpy(rng.randn(n_blocks, h, bs, d).astype(np.float32)).to(dev, torch.bfloat16)
+    tables = torch.tensor([[2, 10**6, -3, 5], [1, 4, 3, 2]], dtype=torch.int32, device=dev)
+    kv_lengths = torch.tensor([64, 10**6], device=dev)
+    got = tdec.flash_decode_attention(q, k, v, kv_lengths=kv_lengths, block_tables=tables)
+    torch.cuda.synchronize()
+    want = tdec._flash_decode_plain(
+        q, k, v, kv_lengths=kv_lengths.clamp_max(max_blocks * bs), q_positions=None,
+        k_scale=None, v_scale=None, slopes=None, block_tables=tables.clamp(0, n_blocks - 1))
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
@@ -204,6 +216,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         tdec.flash_decode_attention(q, k8, k8, kv_lengths=lengths, k_scale=sc)
     with pytest.raises(ValueError, match="int8"):
         tdec.flash_decode_attention(q, k8, k8, kv_lengths=lengths)
+    # a strided cache is refused, not copied on every step
+    kb = torch.zeros((1, 4, 64, 256), dtype=torch.bfloat16, device=dev)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        tdec.flash_decode_attention(q, kb, kb, kv_lengths=lengths)
+    pool = torch.zeros((3, 4, 16, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="block tables"):
+        tdec.flash_decode_attention(q, pool, pool, kv_lengths=lengths,
+                                    block_tables=torch.zeros((1, 4), device=dev))
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((1, 4, 8, 16), dtype=torch.bfloat16, device=dev)
         tattn.flash_attention_fwd(x, x, x)

@@ -309,77 +309,124 @@ def test_cache_layouts_match_jax(quant):
             np.testing.assert_array_equal(t.numpy(), want)  # zeros; parking tables
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_int8_cache_prefill_then_decode_matches_jax(name):
-    # prefill into an empty int8 cache, then 3 ragged decode steps through
-    # the flash-decode route (its plain version here; JAX's XLA path)
-    jcfg, jparams, tcfg, tparams = _models(name, kv_cache_quant=True, use_flash_decode=True)
-    b, s, max_len = 2, 10, 24
-    rng = np.random.RandomState(11)
-    embeds = rng.randn(b, s, jcfg.hidden_size).astype(np.float32)
-    lengths = np.array([10, 6], np.int32)
-    jcache = jdecoder.init_kv_cache(jcfg, b, max_len)
-    tcache = tdecoder.init_kv_cache(tcfg, b, max_len)
-    jforward = _jforward(jcfg)
-    jl, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds),
-                          seq_lengths=jnp.asarray(lengths), kv_cache=jcache,
-                          prefill_from_empty=True)
-    tl, tcache = tdecoder.decoder_forward(
-        tcfg, tparams, inputs_embeds=torch.from_numpy(embeds),
-        seq_lengths=torch.from_numpy(lengths), kv_cache=tcache, prefill_from_empty=True)
-    assert _rel_err(tl[0], np.asarray(jl)[0]) < TOL
-    pos = lengths.copy()
-    for step in range(3):
-        tok = rng.randint(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
+def _decode_refs(jforward, jparams, jcache, rng, vocab, pos, steps=3):
+    """Token ids, JAX logits and the JAX cache of `steps` single-token
+    decode steps from positions `pos`."""
+    toks, logits = [], []
+    for _ in range(steps):
+        tok = rng.randint(0, vocab, (len(pos), 1)).astype(np.int32)
         jl, jcache = jforward(jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
                               cache_positions=jnp.asarray(pos))
+        toks.append(tok)
+        logits.append(np.asarray(jl))
+        pos = pos + 1
+    return toks, logits, jcache
+
+
+@pytest.fixture(scope="module")
+def int8_refs():
+    """The JAX side of test_int8_cache_prefill_then_decode_matches_jax for
+    every config, run once at module setup: prefill into an empty int8
+    cache, then 3 ragged decode steps."""
+    refs = {}
+    for name in CONFIGS:
+        jcfg, jparams, _, _ = _models(name, kv_cache_quant=True, use_flash_decode=True)
+        rng = np.random.RandomState(11)
+        embeds = rng.randn(2, 10, jcfg.hidden_size).astype(np.float32)
+        lengths = np.array([10, 6], np.int32)
+        jforward = _jforward(jcfg)
+        jl, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds),
+                              seq_lengths=jnp.asarray(lengths),
+                              kv_cache=jdecoder.init_kv_cache(jcfg, 2, 24),
+                              prefill_from_empty=True)
+        toks, logits, jcache = _decode_refs(jforward, jparams, jcache, rng, jcfg.vocab_size,
+                                            lengths.copy())
+        refs[name] = dict(embeds=embeds, lengths=lengths, prefill=np.asarray(jl), toks=toks,
+                          logits=logits, cache=jax.tree.map(np.asarray, jcache))
+    return refs
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_int8_cache_prefill_then_decode_matches_jax(name, int8_refs):
+    # prefill into an empty int8 cache, then 3 ragged decode steps through
+    # the flash-decode route (its plain version here; JAX's XLA path)
+    ref = int8_refs[name]
+    _, _, tcfg, tparams = _models(name, kv_cache_quant=True, use_flash_decode=True)
+    lengths = ref["lengths"]
+    tcache = tdecoder.init_kv_cache(tcfg, 2, 24)
+    tl, tcache = tdecoder.decoder_forward(
+        tcfg, tparams, inputs_embeds=torch.from_numpy(ref["embeds"]),
+        seq_lengths=torch.from_numpy(lengths), kv_cache=tcache, prefill_from_empty=True)
+    assert _rel_err(tl[0], ref["prefill"][0]) < TOL
+    pos = lengths.copy()
+    for step, (tok, jl) in enumerate(zip(ref["toks"], ref["logits"])):
         tl, tcache = tdecoder.decoder_forward(
             tcfg, tparams, input_ids=torch.from_numpy(tok), kv_cache=tcache,
             cache_positions=torch.from_numpy(pos))
         assert _rel_err(tl, jl) < TOL, f"decode step {step}"
         pos = pos + 1
-    assert tcache["k"].dtype == torch.int8 and tcache["index"] == s + 3
-    _check_cache(tcache, jcache, quant=True)
+    assert tcache["k"].dtype == torch.int8 and tcache["index"] == 10 + 3
+    _check_cache(tcache, ref["cache"], quant=True)
+
+
+PAGED_TABLES = np.array([[3, 7, 2, 9], [5, 4, 8, 6]], np.int32)
+
+
+@pytest.fixture(scope="module")
+def paged_refs():
+    """The JAX side of test_paged_cache_chunks_and_decode_match_jax for
+    every (config, cache type), run once at module setup: two block-aligned
+    paged_chunk writes into scattered pool blocks, then 3 paged decode
+    steps."""
+    refs = {}
+    for name in CONFIGS:
+        for quant in (False, True):
+            jcfg, jparams, _, _ = _models(name, kv_cache_quant=quant, use_flash_decode=True)
+            jcache = jdecoder.init_paged_kv_cache(jcfg, 2, 10, 8, 4)
+            jcache["block_tables"] = jnp.asarray(PAGED_TABLES)
+            rng = np.random.RandomState(12)
+            embeds = rng.randn(2, 16, jcfg.hidden_size).astype(np.float32)
+            plens = np.array([16, 11], np.int32)
+            jforward = _jforward_paged(jcfg)
+            hidden = []
+            for c in (0, 8):
+                jh, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds[:, c:c + 8]),
+                                      seq_lengths=jnp.asarray(plens), kv_cache=jcache,
+                                      cache_positions=jnp.full((2,), c, jnp.int32),
+                                      return_hidden=True, paged_chunk=True)
+                hidden.append(np.asarray(jh))
+            toks, logits, jcache = _decode_refs(jforward, jparams, jcache, rng,
+                                                jcfg.vocab_size, plens.copy())
+            refs[name, quant] = dict(embeds=embeds, plens=plens, hidden=hidden, toks=toks,
+                                     logits=logits, cache=jax.tree.map(np.asarray, jcache))
+    return refs
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 @pytest.mark.parametrize("quant", [False, True], ids=["bf", "int8"])
-def test_paged_cache_chunks_and_decode_match_jax(name, quant):
+def test_paged_cache_chunks_and_decode_match_jax(name, quant, paged_refs):
     # two block-aligned paged_chunk writes straight into scattered pool
     # blocks, then 3 paged decode steps that read through the tables
-    jcfg, jparams, tcfg, tparams = _models(name, kv_cache_quant=quant, use_flash_decode=True)
-    b, bs = 2, 8
-    tables = np.array([[3, 7, 2, 9], [5, 4, 8, 6]], np.int32)
-    jcache = jdecoder.init_paged_kv_cache(jcfg, b, 10, bs, 4)
-    tcache = tdecoder.init_paged_kv_cache(tcfg, b, 10, bs, 4)
-    jcache["block_tables"] = jnp.asarray(tables)
-    tcache["block_tables"] = torch.from_numpy(tables)
-    rng = np.random.RandomState(12)
-    embeds = rng.randn(b, 16, jcfg.hidden_size).astype(np.float32)
-    plens = np.array([16, 11], np.int32)
-    jforward = _jforward_paged(jcfg)
-    for c in (0, 8):
-        cpos = np.full((b,), c, np.int32)
-        jh, jcache = jforward(jparams, inputs_embeds=jnp.asarray(embeds[:, c:c + 8]),
-                              seq_lengths=jnp.asarray(plens), kv_cache=jcache,
-                              cache_positions=jnp.asarray(cpos), return_hidden=True,
-                              paged_chunk=True)
+    ref = paged_refs[name, quant]
+    _, _, tcfg, tparams = _models(name, kv_cache_quant=quant, use_flash_decode=True)
+    tcache = tdecoder.init_paged_kv_cache(tcfg, 2, 10, 8, 4)
+    tcache["block_tables"] = torch.from_numpy(PAGED_TABLES)
+    embeds, plens = ref["embeds"], ref["plens"]
+    for c, jh in zip((0, 8), ref["hidden"]):
         th, tcache = tdecoder.decoder_forward(
             tcfg, tparams, inputs_embeds=torch.from_numpy(embeds[:, c:c + 8]),
             seq_lengths=torch.from_numpy(plens), kv_cache=tcache,
-            cache_positions=torch.from_numpy(cpos), return_hidden=True, paged_chunk=True)
+            cache_positions=torch.full((2,), c, dtype=torch.int32), return_hidden=True,
+            paged_chunk=True)
         assert _rel_err(th, jh) < TOL, f"chunk at {c}"
     pos = plens.copy()
-    for step in range(3):
-        tok = rng.randint(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
-        jl, jcache = jforward(jparams, input_ids=jnp.asarray(tok), kv_cache=jcache,
-                              cache_positions=jnp.asarray(pos))
+    for step, (tok, jl) in enumerate(zip(ref["toks"], ref["logits"])):
         tl, tcache = tdecoder.decoder_forward(
             tcfg, tparams, input_ids=torch.from_numpy(tok), kv_cache=tcache,
             cache_positions=torch.from_numpy(pos))
         assert _rel_err(tl, jl) < TOL, f"decode step {step}"
         pos = pos + 1
     assert tcache["index"] == 16 + 3 and tcache["block_tables"] is not None
-    _check_cache(tcache, jcache, quant)
+    _check_cache(tcache, ref["cache"], quant)
     # parking blocks 0 and 1 were never written
     assert float(tcache["k"][:, :2].abs().sum()) == 0.0
