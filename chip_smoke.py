@@ -6,6 +6,8 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
      llark_tpu_torch/csrc/ (nvcc, one process per source, in parallel);
+     how the device time of the two quantized products at the reported
+     shape divides between the product and the combine kernel;
   2. flash-prefill kernel vs its plain PyTorch version (bf16, seeded), at
      the shape batch_infer gives it (batch 1) and at batch 4, held per
      query row: |kernel - plain| / |plain| over the head dim (L2);
@@ -61,7 +63,36 @@ Phases, in order; any failure exits non-zero before the final line:
      versions and PyTorch's scaled_dot_product_attention backward; and the
      flash-decode kernel's int8 and paged modes at the phase-6 shape beside
      their plain version (no single PyTorch call reads an int8 or paged
-     cache: SDPA over a dense bf16 view is printed beside them).
+     cache: SDPA over a dense bf16 view is printed beside them);
+ 13. the two weight-only quantized products (int8, int4 with 128-row groups)
+     against their plain versions, bf16, weights quantized from seeded
+     randn * 0.02: (K, N) in (4096, 4096), (4096, 11008), (11008, 4096) x
+     M in 1, 8, 293, 384, 2048 (chunked admission, 8 x 256), 4096, and a
+     ragged case (M 5, K 256, N 1000);
+     each held per output row, |kernel - plain| / |plain| (L2 over N);
+ 14. serving from quantized weights at full Llama-2-7B width, 32 layers:
+     bf16 params from the seed, quantized on the card
+     (`quantize_params_int8_incremental`), then `batch_infer` (the 4 requests
+     of phase 4) and `BatchedServer` in modes (a) and (b) of phase 7; then
+     the same with `quantize_params_int4_incremental(layout="rows")` for
+     `batch_infer` and mode (a). Gates: 224 launches (7 projections x 32
+     layers) of the format's kernel around one decode step, a positive
+     multiple of 224 over each run and none of the other format's; every
+     request ends with 32 tokens; prefill logits and one decode step's
+     logits, kernel route vs the plain products on the same quantized tree,
+     within LOGITS_TOL; in mode (a) also chunked admission replayed on the
+     admitted state (`paged_prefill_chunk` at [8, 256], M = 2048, 224
+     launches a chunk, then `prefill_last`), its next-token logits held the
+     same way. Per run: wall, tokens/s, mean TTFT, peak memory,
+     parameter bytes and a decode round's device time and idle share, beside
+     the bf16 figures of phases 4 and 7;
+ 15. the int4 cols layout (no kernel) at 7B width, 2 layers: one forward
+     against the same tree dequantized to bf16 weights;
+ 16. timings of the two quantized products at the three (K, N) and M in 1,
+     8, 384, 2048, 4096 beside their plain versions, their bounds, and two
+     yardsticks that are not the same function (no single PyTorch call is):
+     `torch.matmul` on a bf16 copy of the weight, and dequantize-then-matmul;
+     and what one quantized projection costs the host to enqueue.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or llark_tpu.
@@ -69,6 +100,7 @@ Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -85,14 +117,23 @@ import torch
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardWriter
-from llark_tpu_torch.generate import GenerationConfig, Generator, decode_step
+from llark_tpu_torch.generate import (
+    GenerationConfig,
+    Generator,
+    decode_step,
+    paged_prefill_chunk,
+    prefill_last,
+)
 from llark_tpu_torch.infer import _common_prompt_prefix, batch_infer, build_prompt_ids
 from llark_tpu_torch.inference.server import BatchedServer, Request
-from llark_tpu_torch.models.decoder import _quantize_kv
-from llark_tpu_torch.models.fusion import init_llark_params
+from llark_tpu_torch.models import quant
+from llark_tpu_torch.models.decoder import _quantize_kv, decoder_forward
+from llark_tpu_torch.models.fusion import build_inputs_embeds, init_llark_params
 from llark_tpu_torch.ops import _build
 from llark_tpu_torch.ops import attention as attn_ops
 from llark_tpu_torch.ops import decode_attention as dec_ops
+from llark_tpu_torch.ops import int4_matmul as int4_ops
+from llark_tpu_torch.ops import int8_matmul as int8_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 from llark_tpu_torch.train import flops
 from llark_tpu_torch.train.step import make_loss_fn
@@ -106,7 +147,14 @@ SEED = 0
 # 4.8e-4 for the decode kernel, which keeps them in fp32 (PERF.md); each
 # limit is about one bf16 ulp (2**-8 = 3.9e-3 relative) above its reading.
 # KERNEL_TOL bounds max |kernel - plain| / max |plain| over the output.
-ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
+# The quantized products are held per output row (L2 over the output
+# channels). The int8 kernel computes the plain version's exact products in
+# another order and rounds once: at most 2.9e-4 read. The int4 kernel keeps
+# the group scales in fp32 and applies them to fp32 group sums, where the
+# plain version rounds nibble x scale to bf16 before the product: at most
+# 3.7e-3 read. Each limit is about one bf16 ulp above its reading.
+ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
+           "int8_matmul": 4e-3, "int4_matmul": 8e-3}
 KERNEL_TOL = 2e-2
 # The backward kernels are held to the JAX package's bound for its flash
 # backward, 1.6e-2 relative to max (PERFORMANCE.md:130-132). Their per-row
@@ -173,20 +221,25 @@ def bf16_randn(gen: torch.Generator, *shape) -> torch.Tensor:
 _FLUSH = None
 
 
+def flush_l2() -> None:
+    """A 256 MB write: the next kernel finds the 50 MB L2 cache cold."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    _FLUSH.zero_()
+
+
 def median_ms(fn, n: int = N_TIMED) -> float:
     """Median device time of fn over n runs, from CUDA events. Before each
     run a 256 MB write leaves the L2 cache cold (as a layer of the model
     finds it), and a sleep kernel keeps the card busy while the host
     enqueues fn, so the events time the device work and not the Python
     around the launch."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
-        _FLUSH.zero_()
+        flush_l2()
         torch.cuda._sleep(4_000_000)  # ~2 ms at 1.98 GHz
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -287,18 +340,69 @@ def requests(cfg: ModelConfig):
     return bundle, rows, plen
 
 
-def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows):
-    t0 = time.perf_counter()
-    params = init_llark_params(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"7B-width params: {n_params / 1e9:.3f} B in bf16 on the card, "
-          f"init {time.perf_counter() - t0:.2f} s")
+# the launch counters of the two quantized products, by weight format
+WQ_KERNELS = {"int8": int8_ops.int8_matmul, "int4": int4_ops.int4_matmul}
+PRODUCTS_PER_FORWARD = 7 * 32  # 7 projections x 32 layers
+
+
+@contextlib.contextmanager
+def plain_products():
+    """Inside, the quantized products of CUDA tensors run their plain
+    versions: the gates that hold the kernel route against the plain one on
+    the same quantized tree use it. The package itself has no such switch.
+    No kernel may launch inside: a patch that missed the name the package
+    calls would hold the kernel against itself."""
+    saved = int8_ops.int8_matmul, quant.int4_matmul
+    before = {name: fn.launches for name, fn in WQ_KERNELS.items()}
+    int8_ops.int8_matmul = lambda x, q, scale: int8_ops._int8_matmul_plain(x, q, scale)
+    quant.int4_matmul = lambda x, q4, scale, group=128: int4_ops._int4_matmul_plain(x, q4, scale)
+    try:
+        yield
+    finally:
+        int8_ops.int8_matmul, quant.int4_matmul = saved
+    after = {name: fn.launches for name, fn in WQ_KERNELS.items()}
+    check(after == before, f"a quantized kernel launched on the plain route: {before} -> {after}")
+
+
+def reset_wq_counts() -> None:
+    for fn in WQ_KERNELS.values():
+        fn.launches = 0
+
+
+def check_wq_counts(where: str, wq: str) -> int:
+    """The format's kernel ran a positive multiple of 224 times (every
+    forward is 7 projections x 32 layers) and the other format's never."""
+    own = WQ_KERNELS[wq].launches
+    others = sum(fn.launches for name, fn in WQ_KERNELS.items() if name != wq)
+    check(own > 0 and own % PRODUCTS_PER_FORWARD == 0,
+          f"{where}: {own} {wq} launches is no positive multiple of {PRODUCTS_PER_FORWARD}")
+    check(others == 0, f"{where}: the other format's kernel launched {others} times")
+    return own
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows, params=None, wq=None):
+    """`batch_infer` over the 4 requests, then per request the kernel route
+    against a plain route: for bf16 weights (`wq` None) the plain attention
+    path; for a quantized tree (`wq` "int8" or "int4") the plain products.
+    Returns the launch counts of the batch_infer run and the run's figures."""
+    label = "bf16 weights" if wq is None else f"{wq} weights"
+    if params is None:
+        t0 = time.perf_counter()
+        params = init_llark_params(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"7B-width params: {n_params / 1e9:.3f} B in bf16 on the card, "
+              f"init {time.perf_counter() - t0:.2f} s")
     gen_cfg = GenerationConfig(max_new_tokens=32)
     generator = Generator(cfg, params, bundle.audio_patch_id, gen_cfg, max_cache_len=2048)
 
     attn_ops.flash_attention_fwd.launches = 0
     dec_ops.flash_decode_attention.launches = 0
+    reset_wq_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = batch_infer(rows, generator, bundle)
@@ -307,19 +411,31 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows):
     launches = {
         "flash_fwd": attn_ops.flash_attention_fwd.launches,
         "flash_decode": dec_ops.flash_decode_attention.launches,
+        "int8_matmul": int8_ops.int8_matmul.launches,
+        "int4_matmul": int4_ops.int4_matmul.launches,
     }
-    print(f"batch_infer: {len(results)} requests in {wall:.3f} s; launches {launches}")
+    print(f"batch_infer ({label}): {len(results)} requests in {wall:.3f} s; launches {launches}")
     check(len(results) == len(rows), "batch_infer lost a row")
     check(all(isinstance(r["model_completion"], str) for r in results), "no completion")
     check(launches["flash_fwd"] > 0, "the main path never launched the flash-prefill kernel")
     check(launches["flash_decode"] > 0, "the main path never launched the flash-decode kernel")
+    if wq is None:
+        check(launches["int8_matmul"] == 0 and launches["int4_matmul"] == 0,
+              "bf16 weights launched a quantized product")
+    else:
+        check_wq_counts(f"batch_infer ({label})", wq)
     print("completion 0:", repr(results[0]["model_completion"][:120]))
 
-    # the same requests through the plain attention path
-    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False, use_flash_decode=False)
+    # the same requests through the plain route
     exact = GenerationConfig(max_new_tokens=32, stop_text="")
     gen_k = Generator(cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048)
-    gen_p = Generator(plain_cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048)
+    if wq is None:
+        plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False, use_flash_decode=False)
+        gen_p, plain, plain_name = (
+            Generator(plain_cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048),
+            contextlib.nullcontext, "plain attention path")
+    else:
+        gen_p, plain, plain_name, rows = gen_k, plain_products, "plain products", rows[:2]
     agree, total, prefill_ms, decode_ms = 0, 0, [], []
     for row in rows:
         ids = build_prompt_ids(row["prompt"], 256, bundle)
@@ -331,37 +447,61 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows):
                 np.array([256], np.int32))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits_k, _ = gen_k.prefill(*args)
+        logits_k, cache = gen_k.prefill(*args)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        if wq is not None:
+            # one decode step from the prefilled cache: 224 launches, and its
+            # logits against the plain products (the second step rewrites the
+            # same K/V at the same position)
+            token = logits_k.argmax(-1)
+            pos = torch.tensor([plen], device="cuda")
+            reset_wq_counts()
+            with torch.inference_mode():
+                step_k = decode_step(cfg, params, token, cache, pos)[0]
+            own = check_wq_counts(f"one decode step ({label})", wq)
+            check(own == PRODUCTS_PER_FORWARD, f"one decode step launched {own} {wq} products")
+            with torch.inference_mode(), plain_products():
+                step_p = decode_step(cfg, params, token, cache, pos)[0]
+            rel, diff = rel_err(step_k, step_p)
+            print(f"prompt {plen} tokens: one decode step, {own} {wq} launches; logits vs "
+                  f"{plain_name} max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+            check(rel <= LOGITS_TOL, f"decode logits rel err {rel:.3e} > {LOGITS_TOL}")
+        del cache
+        torch.cuda.synchronize()
+        t1b = time.perf_counter()
         toks_k = gen_k.generate(*args)[0]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        logits_p, _ = gen_p.prefill(*args)
-        toks_p = gen_p.generate(*args)[0]
+        with plain():
+            logits_p, _ = gen_p.prefill(*args)
+            toks_p = gen_p.generate(*args)[0]
         check(tuple(logits_k.shape) == (1, cfg.vocab_size), f"logits shape {logits_k.shape}")
         check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
         rel, diff = rel_err(logits_k, logits_p)
-        print(f"prompt {plen} tokens (padded {s}): prefill logits vs plain path "
+        print(f"prompt {plen} tokens (padded {s}): prefill logits vs {plain_name} "
               f"max|d| {diff:.3e}, rel-to-max {rel:.3e}")
         check(rel <= LOGITS_TOL, f"prefill logits rel err {rel:.3e} > {LOGITS_TOL}")
         agree += sum(a == b for a, b in zip(toks_k, toks_p))
         total += len(toks_p)
         prefill_ms.append((t1 - t0) * 1e3)
-        decode_ms.append(((t2 - t1) - (t1 - t0)) * 1e3 / (len(toks_k) - 1))
-    print(f"greedy tokens equal to the plain path: {agree}/{total}")
+        decode_ms.append(((t2 - t1b) - (t1 - t0)) * 1e3 / (len(toks_k) - 1))
+    print(f"greedy tokens equal to the {plain_name}: {agree}/{total}")
     p_ms, d_ms = statistics.median(prefill_ms), statistics.median(decode_ms)
-    print(f"7B serving, batch 1, prompt {plen} (padded to {s}): prefill {p_ms:.2f} ms, "
-          f"decode {d_ms:.2f} ms/token, {1e3 / d_ms:.1f} tok/s (medians of 4 requests)")
-    profile_device(lambda: gen_k.generate(*args), (t2 - t1) * 1e3)
+    print(f"7B serving ({label}), batch 1, prompt {plen} (padded to {s}): prefill {p_ms:.2f} ms, "
+          f"decode {d_ms:.2f} ms/token, {1e3 / d_ms:.1f} tok/s (medians of {len(rows)} requests)")
+    busy_ms = profile_device(lambda: gen_k.generate(*args), (t2 - t1b) * 1e3)
+    figures = dict(batch_wall_s=wall, prefill_ms=p_ms, decode_ms=d_ms, generate_wall_ms=(t2 - t1b) * 1e3,
+                   generate_device_ms=busy_ms, param_gb=param_bytes(params) / 1e9)
     del params, generator, gen_k, gen_p
     torch.cuda.empty_cache()
-    return launches
+    return launches, figures
 
 
-def profile_device(fn, wall_ms: float, top: int = 8) -> None:
+def profile_device(fn, wall_ms: float, top: int = 8):
     """Device kernel time of one fn() run from torch.profiler, beside the
-    same run's unprofiled wall time: the card's idle share."""
+    same run's unprofiled wall time: the card's idle share. Returns the
+    device ms (None if the profiler saw none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,11 +512,12 @@ def profile_device(fn, wall_ms: float, top: int = 8) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         print("device busy time: not measured (the profiler saw no device time)")
-        return
+        return None
     print(f"one generate (prefill + 31 decode steps): wall {wall_ms:.1f} ms unprofiled, "
           f"device kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    return busy_ms
 
 
 def _leaves(tree):
@@ -625,18 +766,71 @@ def profile_round(server: BatchedServer):
         f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top)
 
 
+def check_chunked_admission(server: BatchedServer, wq: str, label: str) -> None:
+    """Chunked admission of the 8 live requests once more, as the server's
+    `_admit` drives it: `paged_prefill_chunk` over each [8, 256] chunk of
+    the fused prompt embeddings (M = 8 x 256 = 2048 in every product) into
+    the slots' own pool blocks, then `prefill_last`; first through the
+    kernels, which rewrites what admission wrote, then through the plain
+    products. Each chunk must launch 224 products, and the next-token
+    logits of the two routes are held within LOGITS_TOL."""
+    k, bucket, chunk = server.max_batch, server.prompt_buckets[-1], server.prefill_chunk
+    reqs = list(server._slot_req)
+    check(all(r is not None for r in reqs) and server._prefix_len == 0 and bucket % chunk == 0,
+          f"serving ({label}): no full admitted state to replay")
+    ids = np.zeros((k, bucket), np.int32)
+    for j, r in enumerate(reqs):
+        ids[j, : len(r.input_ids)] = r.input_ids
+    plens = server._tensor(np.array([len(r.input_ids) for r in reqs], np.int32), torch.int32)
+    audio = server._tensor(np.stack([r.audio_encoding for r in reqs]), torch.float32)
+    fcnt = server._tensor(np.full((k,), audio.shape[1], np.int32), torch.int32)
+    embeds = build_inputs_embeds(server.cfg, server.params, server._tensor(ids, torch.int64),
+                                 audio, server.audio_patch_id, fcnt)
+    view = server._pool_view(server._host_tables[:, : bucket // server.kv_block_size])
+    logits = {}
+    for route, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_products)):
+        with ctx():
+            for c in range(0, bucket, chunk):
+                done = WQ_KERNELS[wq].launches
+                paged_prefill_chunk(server.cfg, server.params, embeds[:, c : c + chunk], plens,
+                                    view, c)
+                own = WQ_KERNELS[wq].launches - done
+                check(own == (PRODUCTS_PER_FORWARD if route == "kernel" else 0),
+                      f"serving ({label}): one admission chunk on the {route} route launched "
+                      f"{own} {wq} products")
+            logits[route] = prefill_last(server.cfg, server.params, embeds, plens, view, 0)[0]
+    check(bool(torch.isfinite(logits["kernel"]).all()),
+          f"serving ({label}): non-finite admission logits")
+    firsts = logits["kernel"].argmax(-1).tolist()
+    same = sum(a == int(b) for a, b in zip(firsts, server._tokens_in_flight))
+    rel, diff = rel_err(logits["kernel"], logits["plain"])
+    print(f"  chunked admission replayed, {bucket // chunk} chunks of [{k}, {chunk}] (M = {k * chunk}, "
+          f"{PRODUCTS_PER_FORWARD} {wq} launches each): next-token logits vs the plain products "
+          f"max|d| {diff:.3e}, rel-to-max {rel:.3e}; first tokens equal to the admitted ones "
+          f"{same}/{k}")
+    check(rel <= LOGITS_TOL, f"serving ({label}): {wq} admission logits rel err {rel:.3e}")
+
+
 @torch.inference_mode()
-def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
-    """Drive BatchedServer at full 7B width in each cache mode; check and
-    print what each did. Returns the flash-decode launches by cache mode of
-    each mode's serve() run."""
-    params = init_llark_params(cfg, seed=SEED, device="cuda")
+def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle, params=None, modes="abcd",
+                       wq=None):
+    """Drive BatchedServer at full 7B width in each cache mode of `modes`;
+    check and print what each did. `params` may be a quantized tree of
+    format `wq` ("int8" or "int4"; default: bf16 weights made here).
+    Returns the flash-decode launches by cache mode of each mode's serve()
+    run (plus that run's launches of the format's product under its name),
+    and each mode's figures."""
+    weights = "bf16 weights" if wq is None else f"{wq} weights"
+    if params is None:
+        params = init_llark_params(cfg, seed=SEED, device="cuda")
     gen_cfg = GenerationConfig(max_new_tokens=32, stop_text="")
     base = dict(max_batch=8, max_cache_len=2048, prompt_buckets=(512,), max_audio_frames=256,
                 decode_chunk=8, tokenizer=bundle.tokenizer)
-    launches = {}
-    for label, name, own_mode, quant, extra in SERVER_MODES:
-        mcfg = dataclasses.replace(cfg, kv_cache_quant=quant)
+    launches, figures = {}, {}
+    for label, name, own_mode, quant_kv, extra in SERVER_MODES:
+        if label not in modes:
+            continue
+        mcfg = dataclasses.replace(cfg, kv_cache_quant=quant_kv)
         kw = dict(base, **extra)
         reqs = serving_requests(cfg, bundle, 16, SEED)
         if kw.pop("prefix", False):
@@ -648,6 +842,7 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
         torch.cuda.reset_peak_memory_stats()
         dec_ops.reset_launch_counts()
         attn_ops.flash_attention_fwd.launches = 0
+        reset_wq_counts()
         t0 = time.perf_counter()
         server.serve(reqs)
         torch.cuda.synchronize()
@@ -657,7 +852,7 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
         launches[label] = by_mode
         stats = server.stats(reqs)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        print(f"serving ({label}) {name}: 16 requests x 32 tokens in {wall:.2f} s, "
+        print(f"serving ({label}, {weights}) {name}: 16 requests x 32 tokens in {wall:.2f} s, "
               f"{stats['tokens_per_sec']:.1f} tokens/s, mean TTFT {stats['mean_ttft_s']:.3f} s, "
               f"peak memory {peak_gb:.2f} GiB; flash-decode launches by cache mode {by_mode}, "
               f"flash-prefill launches {fwd_launches}")
@@ -669,6 +864,14 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
         if "prefill_chunk" not in extra:
             check(fwd_launches > 0, f"serving ({label}): one-shot admission never launched "
                                     "the flash-prefill kernel")
+        if wq is None:
+            check(all(fn.launches == 0 for fn in WQ_KERNELS.values()),
+                  f"serving ({label}): bf16 weights launched a quantized product")
+        else:
+            by_mode[f"{wq}_matmul"] = check_wq_counts(f"serving ({label}, {weights})", wq)
+            print(f"  {wq} product launches in the run: {by_mode[f'{wq}_matmul']} "
+                  f"({by_mode[f'{wq}_matmul'] // PRODUCTS_PER_FORWARD} forwards x "
+                  f"{PRODUCTS_PER_FORWARD})")
 
         # one cache state after admission: 8 live slots
         server._queue = serving_requests(cfg, bundle, 8, SEED + 1)
@@ -684,24 +887,240 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle):
         plain_cfg = dataclasses.replace(server.cfg, use_flash_decode=False)
         # (the returned cache is the server's own: bind only the logits, so
         # that the cache goes with the server at the end of the mode)
+        reset_wq_counts()
         lk = decode_step(server.cfg, params, token, server._cache, pos)[0]
+        if wq is not None:
+            own = check_wq_counts(f"serving ({label}): one decode step", wq)
+            check(own == PRODUCTS_PER_FORWARD,
+                  f"serving ({label}): one decode step launched {own} {wq} products")
         lp = decode_step(plain_cfg, params, token, server._cache, pos)[0]
         check(bool(torch.isfinite(lk).all()), f"serving ({label}): non-finite decode logits")
         rel, diff = rel_err(lk, lp)
         print(f"  one decode step from the admitted state, kernel vs plain route: "
               f"max|d| {diff:.3e}, rel-to-max {rel:.3e}")
         check(rel <= LOGITS_TOL, f"serving ({label}): decode logits rel err {rel:.3e}")
+        if wq is not None:
+            with plain_products():
+                lq = decode_step(server.cfg, params, token, server._cache, pos)[0]
+            rel, diff = rel_err(lk, lq)
+            print(f"  the same step, {PRODUCTS_PER_FORWARD} {wq} kernel launches vs the plain "
+                  f"products: max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+            check(rel <= LOGITS_TOL, f"serving ({label}): {wq} decode logits rel err {rel:.3e}")
+            if "prefill_chunk" in extra:
+                check_chunked_admission(server, wq, label)
         wall_ms, busy_ms, top = profile_round(server)
         if busy_ms is None:
             print(f"  one decode round (8 slots x 8 tokens): wall {wall_ms:.1f} ms; device {top}")
         else:
             print(f"  one decode round (8 slots x 8 tokens): wall {wall_ms:.1f} ms unprofiled, "
                   f"device kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}; {top}")
+        figures[label] = dict(wall_s=wall, tokens_per_sec=stats["tokens_per_sec"],
+                              mean_ttft_s=stats["mean_ttft_s"], peak_gib=peak_gb,
+                              round_wall_ms=wall_ms, round_device_ms=busy_ms)
         del server
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
+# phases 13-16: the weight-only quantized products and serving from them
+# ---------------------------------------------------------------------------
+
+WQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # Llama-2-7B projections (K, N)
+WQ_GROUP = 128
+WQ_REPORT = (8, 4096, 11008)  # the serving engine's decode shape (M, K, N) of the kernels line
+
+
+def wq_case(gen: torch.Generator, k: int, n: int):
+    """A seeded randn * 0.02 weight [k, n] as its int8 and int4 (rows, group
+    128) quantized forms and its bf16 copy."""
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    return quant.quantize_weight(w), quant.quantize_weight_int4(w, WQ_GROUP), w.to(torch.bfloat16)
+
+
+def wq_run(fmt: str, x, wq, plain: bool = False):
+    if fmt == "int8":
+        fn = int8_ops._int8_matmul_plain if plain else int8_ops.int8_matmul
+        return fn(x, wq["q"], wq["scale"])
+    if plain:
+        return int4_ops._int4_matmul_plain(x, wq["q4"], wq["scale"])
+    return int4_ops.int4_matmul(x, wq["q4"], wq["scale"], group=WQ_GROUP)
+
+
+def check_wq_matmul(gen: torch.Generator):
+    """Both quantized products against their plain versions at the shapes
+    the quantized serving path gives them (decode of one request and of 8
+    slots, prefill of one request ragged and padded, chunked admission of
+    8 x 256, one-shot admission of 8 x 512) and at a ragged shape. The worst max |diff| per kernel."""
+    worst = {"int8_matmul": 0.0, "int4_matmul": 0.0}
+    cases = [(k, n, (1, 8, 293, 384, 2048, 4096)) for k, n in WQ_SHAPES] + [(256, 1000, (5,))]
+    for k, n, ms in cases:
+        w8, w4, _ = wq_case(gen, k, n)
+        for m in ms:
+            x = bf16_randn(gen, m, k)
+            for fmt, wq in (("int8", w8), ("int4", w4)):
+                got = wq_run(fmt, x, wq)
+                torch.cuda.synchronize()
+                err = check_close(f"{fmt}_matmul", f"M={m} (K,N)=({k},{n})", got,
+                                  wq_run(fmt, x, wq, plain=True))
+                worst[f"{fmt}_matmul"] = max(worst[f"{fmt}_matmul"], err)
+    return worst
+
+
+def wq_bound(fmt: str, m: int, k: int, n: int):
+    """The bound of one quantized product: x, the stored weight bytes and
+    their scales read once, the output written once; 2 M K N operations."""
+    stored = k * n + 4 * n if fmt == "int8" else k * n // 2 + 4 * (k // WQ_GROUP) * n
+    return bound(2 * m * k + stored + 2 * m * n, 2.0 * m * k * n)
+
+
+def host_us(fn, n: int = 500) -> float:
+    """Host time to enqueue one fn() call: n calls back to back (fewer than
+    the launch queue holds), the clock read before the card has drained."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_wq_matmul(gen: torch.Generator):
+    """Timings of both products at the three (K, N) and M in 1, 8, 384,
+    2048, 4096. Returns {format: (ms, plain_ms, (bound_ms, bound_by))} at
+    WQ_REPORT."""
+    report = {}
+    for k, n in WQ_SHAPES:
+        w8, w4, wb = wq_case(gen, k, n)
+        if (k, n) == WQ_SHAPES[0]:
+            # what one projection of a decode step costs the host, which sets
+            # the step's wall time: the dispatcher the decoder calls, beside
+            # the one call an unquantized projection makes
+            x = bf16_randn(gen, 8, 1, k)
+            with torch.inference_mode():
+                print(f"host enqueue per projection at M=8 (K,N)=({k},{n}): "
+                      f"int8 {host_us(lambda: quant.quantized_dense(x, w8, None, x.dtype)):.1f} us, "
+                      f"int4 {host_us(lambda: quant.quantized_dense_int4(x, w4, None, x.dtype)):.1f} us, "
+                      f"torch.matmul on bf16 weights {host_us(lambda: torch.matmul(x, wb)):.1f} us")
+        for m in (1, 8, 384, 2048, 4096):
+            x = bf16_randn(gen, m, k)
+            # printed beside them, neither computes the same function: the
+            # product an unquantized model pays, and a dequantized copy
+            # written to memory before the product
+            bf16_ms = median_ms(lambda: torch.matmul(x, wb))
+            deq_ms = median_ms(lambda: torch.matmul(x, quant.dequantize_weight(w8, torch.bfloat16)))
+            for fmt, wq in (("int8", w8), ("int4", w4)):
+                ms = median_ms(lambda: wq_run(fmt, x, wq))
+                plain_ms = median_ms(lambda: wq_run(fmt, x, wq, plain=True))
+                bound_ms, bound_by = wq_bound(fmt, m, k, n)
+                print(f"{fmt}_matmul at M={m} (K,N)=({k},{n}): kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                      f"{bound_ms / ms:.1%} of bound; not the same function: torch.matmul on a "
+                      f"bf16 copy of the weight {bf16_ms:.4f} ms, int8 dequantize-then-matmul "
+                      f"{deq_ms:.4f} ms")
+                if (m, k, n) == WQ_REPORT:
+                    report[fmt] = (ms, plain_ms, (bound_ms, bound_by))
+    return report
+
+
+def print_wq_kernel_split(n: int = 10) -> None:
+    """How each quantized product's device time at WQ_REPORT divides between
+    its launches (the product and the combine of a split contraction): the
+    mean device time of each kernel over n runs, L2 flushed, by name, from
+    torch.profiler. Runs first, on inputs from a seed of its own: late in
+    the script the profiler returned no device events for a window this
+    short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    m, k, n_out = WQ_REPORT
+    w8, w4, _ = wq_case(gen, k, n_out)
+    x = bf16_randn(gen, m, k)
+    for fmt, wq in (("int8", w8), ("int4", w4)):
+        wq_run(fmt, x, wq)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush_l2()
+                wq_run(fmt, x, wq)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "wq::" in e.key]
+        split = "; ".join(
+            f"{e.key.split('(')[0].removeprefix('void ')} "
+            f"{e.self_device_time_total / e.count:.1f} us x{e.count}" for e in kernels)
+        print(f"{fmt}_matmul at M={m} (K,N)=({k},{n_out}), device time by kernel: "
+              f"{split or 'not measured (the profiler saw no device time)'}")
+
+
+def beside(name: str, got: dict, ref: dict) -> None:
+    """One run's figures beside the bf16-weight run's of this script."""
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4g}"
+    print(f"  {name} | " + "; ".join(f"{k} {fmt(got[k])} (bf16: {fmt(ref[k])})" for k in got))
+
+
+def run_quantized_serving(cfg: ModelConfig, bundle: TokenizerBundle, rows, wq: str, modes: str,
+                          bf16_main: dict, bf16_serving: dict):
+    """Serve from a tree quantized on the card at full 7B width, 32 layers:
+    `batch_infer`, then `BatchedServer` in `modes`. Returns the serving
+    runs' launch counts."""
+    t0 = time.perf_counter()
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    before = param_bytes(params)
+    if wq == "int8":
+        params = quant.quantize_params_int8_incremental(cfg, params)
+    else:
+        params = quant.quantize_params_int4_incremental(cfg, params, group=WQ_GROUP, layout="rows")
+    torch.cuda.synchronize()
+    head = params["lm_head"]
+    print(f"{wq} weights: {before / 1e9:.3f} GB of bf16 params quantized on the card to "
+          f"{param_bytes(params) / 1e9:.3f} GB in {time.perf_counter() - t0:.2f} s (init included); "
+          f"lm_head leaves {sorted(head)}")
+    check(all(isinstance(params["layers"][name], dict) for name in
+              ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")), "a projection is not quantized")
+    _, main = run_main_path(cfg, bundle, rows, params=params, wq=wq)
+    beside(f"batch_infer and one request, {wq} weights", main, bf16_main)
+    launches, figures = run_serving_engine(cfg, bundle, params=params, modes=modes, wq=wq)
+    for label, got in figures.items():
+        beside(f"serving ({label}), {wq} weights", got, bf16_serving[label])
     return launches
+
+
+@torch.inference_mode()
+def check_int4_cols(cfg: ModelConfig) -> None:
+    """The default layout of `quantize_params_int4_incremental` (cols: no
+    kernel, plain PyTorch) on the card at 7B width, 2 layers: one forward
+    against the same tree dequantized to bf16 weights."""
+    small = dataclasses.replace(cfg, num_layers=2)
+    params = quant.quantize_params_int4_incremental(
+        small, init_llark_params(small, seed=SEED, device="cuda"))
+    check("q4c" in params["layers"]["w_down"] and "q4c" in params["lm_head"],
+          "the default int4 layout is not cols")
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(4, 2000, (2, 64))).cuda()
+    reset_wq_counts()
+    got, _ = decoder_forward(small, params, input_ids=ids)
+    torch.cuda.synchronize()
+    check(all(fn.launches == 0 for fn in WQ_KERNELS.values()), "the cols layout launched a kernel")
+    dense = dict(params, lm_head=quant.dequantize_weight_int4_cols(params["lm_head"], torch.bfloat16))
+    dense["layers"] = {
+        name: quant.dequantize_weight_int4_cols(w, torch.bfloat16) if isinstance(w, dict) else w
+        for name, w in params["layers"].items()}
+    want, _ = decoder_forward(small, dense, input_ids=ids)
+    check(bool(torch.isfinite(got).all()), "int4 cols: non-finite logits")
+    rel, diff = rel_err(got, want)
+    print(f"int4 cols layout, 7B width, 2 layers, [2, 64] tokens: logits vs the dequantized "
+          f"tree max|d| {diff:.3e}, rel-to-max {rel:.3e}")
+    check(rel <= LOGITS_TOL, f"int4 cols logits rel err {rel:.3e} > {LOGITS_TOL}")
+    del params, dense
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -954,6 +1373,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print_wq_kernel_split()
 
     cfg = ModelConfig.llama2_7b(use_flash_decode=True, param_dtype="bfloat16")
     bundle, rows, plen = requests(cfg)
@@ -961,12 +1381,19 @@ def main() -> int:
     gen.manual_seed(SEED)
     fwd_err = check_flash_fwd(gen, plen)
     dec_err = check_flash_decode(gen, plen)
-    launches = run_main_path(cfg, bundle, rows)
+    launches, bf16_main = run_main_path(cfg, bundle, rows)
     k2_err = check_flash_decode_modes(gen)
     dec_err = max(dec_err, k2_err["flash_decode"])
     admitted = [len(r.input_ids) for r in serving_requests(cfg, bundle, 8, SEED)]
     fwd_err = max(fwd_err, check_flash_fwd_admission(gen, admitted))
-    serving = run_serving_engine(cfg, bundle)
+    serving, bf16_serving = run_serving_engine(cfg, bundle)
+
+    wq_err = check_wq_matmul(gen)
+    wq_serving = {
+        "int8": run_quantized_serving(cfg, bundle, rows, "int8", "ab", bf16_main, bf16_serving),
+        "int4": run_quantized_serving(cfg, bundle, rows, "int4", "a", bf16_main, bf16_serving),
+    }
+    check_int4_cols(cfg)
 
     bwd_err = check_flash_bwd(gen)
     train_cfg = ModelConfig.llama2_7b()  # fp32 parameters, bf16 compute, remat
@@ -1035,6 +1462,17 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     print(f"flash_fwd log-sum-exp, worst |d| {bwd_err['flash_fwd_lse']:.3e}")
+    # the quantized products at the serving engine's decode shape; their
+    # launches are those of the run-of-record mode (a) served from each format
+    for fmt, (ms, plain_ms, (bound_ms, bound_by)) in time_wq_matmul(gen).items():
+        kernels.append({
+            "name": f"{fmt}_matmul", "route": "cuda",
+            "source": f"llark_tpu_torch/csrc/{fmt}_matmul.cu",
+            "replaces": f"llark_tpu/ops/{fmt}_matmul.py:{88 if fmt == 'int8' else 106}",
+            "launches": wq_serving[fmt]["a"][f"{fmt}_matmul"],
+            "max_abs_err": wq_err[f"{fmt}_matmul"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

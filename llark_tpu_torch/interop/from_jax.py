@@ -3,8 +3,10 @@
 `params_from_numpy` takes the JAX package's parameter tree with its leaves
 as numpy arrays -- for example `jax.tree.map(np.asarray,
 init_llark_params(cfg, key))`, layer weights stacked [L, ...] -- and
-returns the port's parameters: the same nested dicts of torch tensors.
-The tree is plain dicts of numpy arrays, so nothing of the JAX package is
+returns the port's parameters: the same nested dicts of torch tensors. A
+weight-only quantized tree (`quantize_params_int8`, `..._int4_incremental`
+of either package) carries over as it is: integer payloads keep int8 and
+their scales fp32. The tree is plain dicts of numpy arrays, so nothing of the JAX package is
 imported here.
 """
 
@@ -18,21 +20,28 @@ import torch
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.models.decoder import Params, torch_dtype
+from llark_tpu_torch.models.quant import is_quantized, is_quantized_int4
 
 
 def _to_tensor(x: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)  # torch cannot read ml_dtypes' bfloat16
+    if arr.dtype.kind in "iu":
+        dtype = None  # a quantized payload keeps its integer dtype
     # a copy: arrays that come from JAX are read-only
     return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
 
 
 def _convert(tree: Mapping, device, dtype) -> Params:
+    # the scale of a quantized leaf ({'q' | 'q4' | 'q4c', 'scale'}) stays fp32
+    quantized = is_quantized(tree) or is_quantized_int4(tree)
     out: Params = {}
     for name, leaf in tree.items():
         if isinstance(leaf, Mapping):
             out[name] = _convert(leaf, device, dtype)
+        elif quantized and name == "scale":
+            out[name] = _to_tensor(leaf, device, torch.float32)
         else:
             out[name] = _to_tensor(leaf, device, dtype)
     return out
@@ -52,7 +61,8 @@ def params_from_numpy(
     if embed != (cfg.vocab_size, cfg.hidden_size):
         raise ValueError(f"embed {embed} does not fit the config's vocab x hidden")
     for name, leaf in tree["layers"].items():
-        if isinstance(leaf, Mapping) or np.shape(leaf)[0] != cfg.num_layers:
+        parts = leaf.values() if isinstance(leaf, Mapping) else (leaf,)
+        if any(np.shape(part)[:1] != (cfg.num_layers,) for part in parts):
             raise ValueError(
                 f"layers/{name} is not a [num_layers={cfg.num_layers}, ...] stacked array"
             )

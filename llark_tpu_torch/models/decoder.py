@@ -24,8 +24,14 @@ and with `cfg.remat` each layer is a `torch.utils.checkpoint` segment whose
 activations are recomputed in the backward (the JAX package's "full"
 policy).
 
-Not in this slice of the port, each raising a clear error: LoRA factors,
-MoE layers and quantized weights.
+Weight-only quantized trees (`models/quant.py`: int8, int4 in the rows or
+cols layout) serve through the same forward: a quantized leaf is a dict
+whose tensors are stacked [L, ...] like any other, `_dense` routes it to
+`quantized_dense` / `quantized_dense_int4`, and the LM head keeps its fp32
+accumulator. The quantized products carry no gradient.
+
+Not in this slice of the port, each raising a clear error: LoRA factors and
+MoE layers.
 """
 
 from __future__ import annotations
@@ -39,6 +45,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from llark_tpu_torch.config import ModelConfig
+from llark_tpu_torch.models.quant import (
+    dequantize_weight_int4,
+    quantized_dense,
+    quantized_dense_int4,
+)
 from llark_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
 from llark_tpu_torch.ops.decode_attention import _dense_view, decode_attention
 
@@ -255,10 +266,10 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dense(x, w, b, dtype):
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized (int8/int4) weights come with a later slice of the port"
-        )
+    if isinstance(w, dict):  # int8/int4 weight-only (models/quant.py)
+        if "q4" in w or "q4c" in w:
+            return quantized_dense_int4(x, w, b, dtype)
+        return quantized_dense(x, w, b, dtype)
     y = torch.matmul(x, w.to(dtype))
     if b is not None:
         y = y + b.to(dtype)
@@ -476,6 +487,14 @@ def _layer_forward(
 CACHE_TENSORS = ("k", "v", "k_scale", "v_scale")
 
 
+def _layer_slice(w, l: int):
+    """Layer l of a stacked leaf; a quantized leaf is sliced inside its dict
+    ({'q': [L, K, N], 'scale': [L, 1, N]} -> {'q': [K, N], 'scale': [1, N]})."""
+    if isinstance(w, dict):
+        return {key: t[l] for key, t in w.items()}
+    return w[l]
+
+
 def _check_slice(cfg: ModelConfig, params: Params) -> None:
     if cfg.moe_num_experts > 0:
         raise NotImplementedError("MoE layers come with a later slice of the port")
@@ -535,7 +554,7 @@ def decoder_forward(
     # remat: only where autograd records a training forward
     remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
     for l in range(cfg.num_layers):
-        lp = {name: w[l] for name, w in params["layers"].items()}
+        lp = {name: _layer_slice(w, l) for name, w in params["layers"].items()}
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None,
@@ -610,9 +629,14 @@ def compute_logits(
         if trainable_token_start is not None:
             w = torch.cat([w[:trainable_token_start].detach(), w[trainable_token_start:]])
         return _logits_matmul(hidden, w.to(dtype).t())
-    w = params["lm_head"]
+    w = params["lm_head"]  # [H, V]
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized (int8/int4) weights come with a later slice of the port"
-        )
+        # a quantized head never reaches a kernel (nor does it in the JAX
+        # package): fp32 logits from an fp32 accumulator
+        if "q4c" in w:  # int4 cols layout
+            return quantized_dense_int4(hidden, w, None, dtype).float()
+        if "q4" in w:  # int4 rows layout: dequantize in the compute dtype
+            return _logits_matmul(hidden, dequantize_weight_int4(w, dtype))
+        # int8: the scale goes onto the fp32 product
+        return _logits_matmul(hidden, w["q"].to(dtype)) * w["scale"].reshape(-1).float()
     return _logits_matmul(hidden, w.to(dtype))

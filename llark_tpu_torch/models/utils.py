@@ -60,10 +60,12 @@ def load_pretrained_model(
     """(cfg, params, tokenizer bundle) for inference from a run directory
     of the port's `train()`: model_config.json and checkpoint-N/state.pt
     (the latest N unless `ckpt_num` is given). Parameters come to `device`
-    in `cfg.param_dtype`; the optimizer state is not read into them.
+    in `cfg.param_dtype`, the leaves of a weight-only quantized tree in their
+    own dtypes; the optimizer state is not read into them.
     Counterpart of llark_tpu/models/utils.py:63-89, which reads Orbax
     directories instead."""
     from llark_tpu_torch.models.decoder import torch_dtype
+    from llark_tpu_torch.models.quant import is_quantized, is_quantized_int4
     from llark_tpu_torch.train.checkpoint import CheckpointManager
 
     if not os.path.exists(os.path.join(checkpoint_dir, "model_config.json")):
@@ -87,11 +89,15 @@ def load_pretrained_model(
     pdt = torch_dtype(cfg.param_dtype)
 
     def put(tree):
-        return {k: put(v) if isinstance(v, dict) else v.to(device=dev, dtype=pdt)
+        # a quantized leaf keeps its own dtypes: an int8 payload, fp32 scales
+        quantized = is_quantized(tree) or is_quantized_int4(tree)
+        return {k: put(v) if isinstance(v, dict)
+                else v.to(device=dev, dtype=None if quantized else pdt)
                 for k, v in tree.items()}
 
     params = put(saved)
     want = (cfg.vocab_size, cfg.hidden_size)
-    if tuple(params["embed"].shape) != want or params["layers"]["wq"].shape[0] != cfg.num_layers:
+    n_layers = params["layers"]["attn_norm_scale"].shape[0]  # never quantized
+    if tuple(params["embed"].shape) != want or n_layers != cfg.num_layers:
         raise ValueError(f"checkpoint-{step} does not hold the model of {checkpoint_dir}'s config")
     return cfg, params, bundle

@@ -1,7 +1,10 @@
 """Build and load the hand-written CUDA kernels of `llark_tpu_torch/csrc/`.
 
-Each `csrc/*.cu` source has a plain C interface and is compiled by `nvcc`
-for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`.
+Each `csrc/*.cu` source (the three flash-attention kernels' and the two
+weight-only quantized products', `int8_matmul.cu` and `int4_matmul.cu`,
+which share `wq_matmul.cuh`) has a plain C interface and is compiled by
+`nvcc` for Hopper (`sm_90a`) into its own shared library, loaded with
+`ctypes`.
 The build happens at first use, never at import: every source is compiled
 at once, one `nvcc` process each, into `llark_tpu_torch/_build/`, with a
 file name keyed by a hash of the source, the shared headers (`csrc/*.cuh`)
@@ -24,7 +27,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "int8_matmul.cu", "int4_matmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -21,6 +21,14 @@ per row within 1e-2 with each row's norm floored at 1e-2 of the tensor's
 RMS row norm (a dq row can be ~0 by cancellation), and within the JAX
 package's 1.6e-2 relative to max (PERFORMANCE.md:130-132). The forward's
 log-sum-exp is fp32 and held to 1e-4 absolute.
+
+The two quantized products (int8, int4) are held per output row,
+|kernel - plain| / |plain| (L2 over the output channels), within WQ_ROW_TOL,
+the limits of chip_smoke.py: the int8 kernel computes the plain version's
+exact products in another order and read at most 2.9e-4 on an H100; the
+int4 kernel keeps the scales in fp32 where the plain version rounds
+nibble x scale to bf16, and read at most 3.7e-3. Each limit is about one
+bf16 ulp above its reading.
 """
 
 import numpy as np
@@ -35,6 +43,7 @@ ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd": 1e-2}
 BWD_ROW_FLOOR = 1e-2
 BWD_TOL = 1.6e-2
 LSE_TOL = 1e-4
+WQ_ROW_TOL = {"int8_matmul": 4e-3, "int4_matmul": 8e-3}
 
 pytestmark = pytest.mark.cuda
 
@@ -307,3 +316,133 @@ def test_logits_keep_the_fp32_accumulator(dev, tied):
     assert bool(torch.isfinite(w.grad).all())
     if tied:  # rows below trainable_token_start get no gradient
         assert float(w.grad[:500].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the weight-only quantized products
+# ---------------------------------------------------------------------------
+
+
+def _wq_inputs(dev, seed, m, k, n):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(k, n) * 0.02).astype(np.float32)).to(dev)
+    return x, w
+
+
+# M: a decode step of one request and of 8 slots, both sides of the switch
+# from the split small-M kernel to the 64-row tile kernel, a ragged prefill;
+# (K, N): a ragged N (8 * 125), and a Llama-2-7B projection
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 293])
+@pytest.mark.parametrize("k,n", [(256, 1000), (4096, 4096)])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_matmul_kernels_match_plain(dev, fmt, k, n, m):
+    from llark_tpu_torch.models import quant
+    from llark_tpu_torch.ops import int4_matmul as tint4
+    from llark_tpu_torch.ops import int8_matmul as tint8
+
+    x, w = _wq_inputs(dev, 21, m, k, n)
+    if fmt == "int8":
+        wq = quant.quantize_weight(w)
+        fn, before = tint8.int8_matmul, tint8.int8_matmul.launches
+        got = fn(x, wq["q"], wq["scale"])
+        again = fn(x, wq["q"], wq["scale"])
+        want = tint8._int8_matmul_plain(x, wq["q"], wq["scale"])
+    else:
+        wq = quant.quantize_weight_int4(w, 128)
+        fn, before = tint4.int4_matmul, tint4.int4_matmul.launches
+        got = fn(x, wq["q4"], wq["scale"], group=128)
+        again = fn(x, wq["q4"], wq["scale"], group=128)
+        want = tint4._int4_matmul_plain(x, wq["q4"], wq["scale"])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    assert _row_err(got, want) <= WQ_ROW_TOL[fmt + "_matmul"]
+    assert _rel_to_max(got, want) <= 2e-2
+    assert torch.equal(got, again)  # split sums are combined in a fixed order
+
+
+def test_quantized_dispatch_on_the_card(dev):
+    # a 2-D leaf inside the contract launches its kernel; a stacked leaf and
+    # the cols layout take the plain expression; an fp32 compute dtype and a
+    # direct call outside the contract raise; autograd is refused
+    from llark_tpu_torch.models import quant
+    from llark_tpu_torch.ops.int4_matmul import int4_matmul
+    from llark_tpu_torch.ops.int8_matmul import int8_matmul
+
+    x, w = _wq_inputs(dev, 22, 6, 256, 128)
+    x3 = x.reshape(2, 3, 256)
+    w8, w4 = quant.quantize_weight(w), quant.quantize_weight_int4(w, 64)
+    w4c = quant.quantize_weight_int4_cols(w, 64)
+    bias = torch.ones(128, device=dev)
+    counts = lambda: (int8_matmul.launches, int4_matmul.launches)  # noqa: E731
+    n8, n4 = counts()
+    y8 = quant.quantized_dense(x3, w8, bias, torch.bfloat16)
+    y4 = quant.quantized_dense_int4(x3, w4, bias, torch.bfloat16)
+    assert counts() == (n8 + 1, n4 + 1)
+    assert tuple(y8.shape) == (2, 3, 128) and y8.dtype == torch.bfloat16
+    # the same leaves through the plain versions: no launch, same values
+    from llark_tpu_torch.ops.int4_matmul import _int4_matmul_plain
+    from llark_tpu_torch.ops.int8_matmul import _int8_matmul_plain
+
+    p8 = (_int8_matmul_plain(x, w8["q"], w8["scale"]) + bias.to(x.dtype)).reshape(2, 3, 128)
+    p4 = (_int4_matmul_plain(x, w4["q4"], w4["scale"]) + bias.to(x.dtype)).reshape(2, 3, 128)
+    pc = quant.quantized_dense_int4(x3, w4c, bias, torch.bfloat16)
+    stacked = {k: t[None] for k, t in w8.items()}
+    ps = quant.quantized_dense(x3[:1], stacked, None, torch.bfloat16)
+    assert counts() == (n8 + 1, n4 + 1)
+    assert _rel_to_max(y8, p8) <= 2e-2 and _rel_to_max(y4, p4) <= 2e-2
+    assert _rel_to_max(pc, p4) <= 2e-2
+    assert tuple(ps.shape) == (1, 3, 128)
+    # a supported shape with another compute dtype is an error at both layers
+    with pytest.raises(ValueError, match="bfloat16 activations"):
+        quant.quantized_dense(x3.float(), w8, bias, torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 activations"):
+        quant.quantized_dense_int4(x3.float(), w4, bias, torch.float32)
+    with pytest.raises(ValueError, match="the CUDA kernel takes"):
+        int8_matmul(x.float(), w8["q"], w8["scale"])
+    # the group is read off the scale: a `group` that only matches h // group
+    with pytest.raises(ValueError, match="does not divide"):
+        int4_matmul(x, w4["q4"], w4["scale"], group=50)
+    with pytest.raises(ValueError, match="the CUDA kernel takes"):
+        int4_matmul(x, w4["q4"][:, :124], w4["scale"][:, :124], group=64)
+    with pytest.raises(ValueError, match="aligned weight"):
+        int8_matmul(x, torch.zeros(256 * 128 + 1, dtype=torch.int8, device=dev)[1:].view(256, 128),
+                    w8["scale"])
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        int8_matmul(x.clone().requires_grad_(), w8["q"], w8["scale"])
+    assert counts() == (n8 + 1, n4 + 1)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4_rows", "int4_cols"])
+def test_quantized_forward_on_the_card(dev, fmt):
+    # a tiny bf16 model served from a quantized tree: the kernel route on the
+    # card against the plain versions of the same tree on the CPU
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models import quant
+    from llark_tpu_torch.models.decoder import decoder_forward
+    from llark_tpu_torch.models.fusion import init_llark_params
+    from llark_tpu_torch.ops.int4_matmul import int4_matmul
+    from llark_tpu_torch.ops.int8_matmul import int8_matmul
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", param_dtype="bfloat16")
+    params = init_llark_params(cfg, seed=3, device=dev)
+    if fmt == "int8":
+        params = quant.quantize_params_int8_incremental(cfg, params)
+    else:
+        params = quant.quantize_params_int4_incremental(cfg, params, group=32, layout=fmt[5:])
+    ids = torch.from_numpy(np.random.RandomState(4).randint(4, 200, (2, 12))).to(dev)
+    before = int8_matmul.launches, int4_matmul.launches
+    with torch.no_grad():
+        got, _ = decoder_forward(cfg, params, input_ids=ids)
+        torch.cuda.synchronize()
+        launched = (int8_matmul.launches - before[0], int4_matmul.launches - before[1])
+        cpu = {k: ({n: ({a: b.cpu() for a, b in t.items()} if isinstance(t, dict) else t.cpu())
+                    for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+               for k, v in params.items()}
+        want, _ = decoder_forward(cfg, cpu, input_ids=ids.cpu())
+    per_forward = 7 * cfg.num_layers
+    assert launched == {"int8": (per_forward, 0), "int4_rows": (0, per_forward),
+                        "int4_cols": (0, 0)}[fmt]
+    assert bool(torch.isfinite(got).all())
+    assert _rel_to_max(got.cpu(), want) <= 5e-2

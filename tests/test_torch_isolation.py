@@ -52,6 +52,8 @@ def _port_modules():
 def test_port_imports_without_jax_or_reference():
     modules = _port_modules() + ["chip_smoke"]
     assert "llark_tpu_torch.ops.decode_attention" in modules
+    for new in ("models.quant", "ops.int8_matmul", "ops.int4_matmul"):
+        assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(blocked=BLOCKED, modules=modules)],

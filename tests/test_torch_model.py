@@ -238,10 +238,16 @@ def test_out_of_slice_features_raise():
     lora = dict(tparams, layers=dict(tparams["layers"], wq_lora_a=tparams["layers"]["wq"]))
     with pytest.raises(NotImplementedError, match="LoRA"):
         tdecoder.decoder_forward(tcfg, lora, input_ids=torch.tensor([[1, 2]]))
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdecoder._dense(torch.zeros(1, 1, 4), {"q": None}, None, torch.float32)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdecoder.compute_logits(tcfg, {"lm_head": {"q": None}}, torch.zeros(1, 1, 64))
+    # quantized weights came into the slice: a quantized leaf is served, and
+    # only its gradient is refused (tests/test_torch_quant.py holds the values)
+    from llark_tpu_torch.models.quant import quantize_weight
+
+    wq = quantize_weight(tparams["lm_head"])
+    hidden = torch.ones(1, 1, 64)
+    assert tuple(tdecoder._dense(hidden, wq, None, torch.float32).shape) == (1, 1, tcfg.vocab_size)
+    assert tdecoder.compute_logits(tcfg, {"lm_head": wq}, hidden).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        tdecoder._dense(hidden.requires_grad_(), wq, None, torch.float32)
     # the serving engine's speculation and mesh arguments
     for kw in (dict(draft_cfg=tcfg, draft_params=tparams), dict(spec_mode="ngram"),
                dict(mesh=object())):
