@@ -47,20 +47,26 @@ Phases, in order; any failure exits non-zero before the final line:
      the plain route, logits within LOGITS_TOL;
   8. the training kernels against their plain versions at the training
      path's shape ([2, 32, 1024, 128] bf16, causal, kv_lengths [1024, 700])
-     and with GQA + ALiBi and head_dim 64: the forward's log-sum-exp, the
-     dq kernel and the dk/dv kernel;
+     and with GQA + ALiBi and head_dim 64: the forward's log-sum-exp and
+     the flash backward's dq, dk and dv (one call: delta, the products,
+     dq's rounding);
   9. one training step's loss and projector gradient at 7B width, 2 layers,
-     through the flash kernels and through the plain attention path;
+     through the flash kernels and through the plain attention path (2
+     flash backward launches);
  10. the adapter stage at full Llama-2-7B (32 layers, fp32 parameters,
      frozen backbone, remat) through `train()` on shards written to a temp
      dir: batch 2 x 2 accumulation steps, 1024 tokens, 256 x 4800 audio
      frames; the loss must fall;
  11. the run-of-record flags (the whole model trains) at 7B width, 4
      layers, likewise; for both: median step ms, tokens/s, MFU, peak
-     memory, launches of the three flash kernels per step and the card's
-     idle share in a torch.profiler trace of one step;
+     memory, launches of the flash forward and backward per step (the
+     backward exactly one per layer per micro-batch: 64 in the adapter
+     stage) and the card's idle share in a torch.profiler trace of one step;
  12. the training kernels' timings at the phase-8 shape beside their plain
-     versions and PyTorch's scaled_dot_product_attention backward; and the
+     versions and PyTorch's scaled_dot_product_attention (the whole
+     backward, delta included, against SDPA's backward with the same mask;
+     the old wrapper's PyTorch delta alone; at kv_len [1024, 1024] against
+     SDPA is_causal=True as a second reference); and the
      flash-decode kernel's int8 and paged modes at the phase-6 shape beside
      their plain version (no single PyTorch call reads an int8 or paged
      cache: SDPA over a dense bf16 view is printed beside them);
@@ -90,9 +96,12 @@ Phases, in order; any failure exits non-zero before the final line:
      against the same tree dequantized to bf16 weights;
  16. timings of the two quantized products at the three (K, N) and M in 1,
      8, 384, 2048, 4096 beside their plain versions, their bounds, and two
-     yardsticks that are not the same function (no single PyTorch call is):
-     `torch.matmul` on a bf16 copy of the weight, and dequantize-then-matmul;
-     and what one quantized projection costs the host to enqueue.
+     yardsticks that are not the same function: `torch.matmul` on a bf16
+     copy of the weight, and dequantize-then-matmul; what one quantized
+     projection costs the host to enqueue; and, where the installed torch
+     runs them on CUDA, `torch._weight_int8pack_mm` and
+     `torch._weight_int4pack_mm` at the reported shape, held against the
+     kernels' outputs (the kernels line's library_ms when they agree).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or llark_tpu.
@@ -153,11 +162,11 @@ SEED = 0
 # the group scales in fp32 and applies them to fp32 group sums, where the
 # plain version rounds nibble x scale to bf16 before the product: at most
 # 3.7e-3 read. Each limit is about one bf16 ulp above its reading.
-ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
+ROW_TOL = {"flash_fwd": 1e-2, "flash_decode": 4e-3, "flash_bwd": 1e-2,
            "int8_matmul": 4e-3, "int4_matmul": 8e-3}
 KERNEL_TOL = 2e-2
-# The backward kernels are held to the JAX package's bound for its flash
-# backward, 1.6e-2 relative to max (PERFORMANCE.md:130-132). Their per-row
+# The flash backward (dq, dk, dv) is held to the JAX package's bound for
+# its flash backward, 1.6e-2 relative to max (PERFORMANCE.md:130-132). Its per-row
 # measure floors each row's norm at 1e-2 of the tensor's RMS row norm: a
 # dq row can be ~0 by cancellation (the first query sees one key, so its
 # ds is p (dp - delta) = 0 up to rounding), and a relative error there says
@@ -165,7 +174,7 @@ KERNEL_TOL = 2e-2
 # 5.4e-3 per row and 6.1e-3 relative to max (PERF.md): the row limit is
 # about one bf16 ulp (3.9e-3 relative) above that.
 BWD_TOL = 1.6e-2
-ROW_FLOOR = {"flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
+ROW_FLOOR = {"flash_bwd": 1e-2}
 # log-sum-exp of the forward, kernel vs plain, absolute (fp32): read at
 # most 3.1e-5 on the cases below
 LSE_TOL = 1e-4
@@ -1028,6 +1037,57 @@ def time_wq_matmul(gen: torch.Generator):
     return report
 
 
+def time_wq_library(gen: torch.Generator):
+    """PyTorch's own weight-only quantized products at WQ_REPORT, where the
+    installed torch runs them on CUDA tensors (the port never calls them):
+    `torch._weight_int8pack_mm` (int8 [N, K], one bf16 scale per output
+    channel) and `torch._weight_int4pack_mm` (tinygemm's packed int4, bf16
+    scale and zero point per 128-row group; zero 0 here, the symmetric
+    scheme of K6). The weights are converted before the timed window. Each
+    is held against the kernel's output on the same inputs; it counts as
+    the kernel's library yardstick (same function up to its bf16 scales)
+    when it agrees within KERNEL_TOL. Returns {format: ms or None}."""
+    m, k, n = WQ_REPORT
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    x = bf16_randn(gen, m, k)
+    w8 = quant.quantize_weight(w)
+    w4 = quant.quantize_weight_int4(w, WQ_GROUP)
+
+    def int8_call():
+        wt = w8["q"].t().contiguous()
+        sc = w8["scale"].reshape(n).to(torch.bfloat16)
+        return lambda: torch._weight_int8pack_mm(x, wt, sc)
+
+    def int4_call():
+        q, scale = quant._quantize_groups_int4(w, WQ_GROUP)
+        qu = (q.to(torch.int32) + 8).t().contiguous()  # [N, K], 1..15, 8 = zero
+        packed = (qu[:, 0::2] << 4 | qu[:, 1::2]).to(torch.uint8)
+        wp = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+        return lambda: torch._weight_int4pack_mm(x, wp, WQ_GROUP, sz)
+
+    out = {}
+    for fmt, name, make, wq in (("int8", "torch._weight_int8pack_mm", int8_call, w8),
+                                ("int4", "torch._weight_int4pack_mm", int4_call, w4)):
+        out[fmt] = None
+        try:
+            fn = make()
+            got = fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            print(f"{name} does not run on CUDA tensors in torch {torch.__version__}: "
+                  f"{str(e).splitlines()[0][:160]}")
+            continue
+        rel, _ = rel_err(got, wq_run(fmt, x, wq))
+        ms = median_ms(fn)
+        same = rel <= KERNEL_TOL
+        print(f"{name} at M={m} (K,N)=({k},{n}): {ms:.4f} ms, rel-to-max against the {fmt} kernel "
+              f"{rel:.3e} ({'the same function up to its bf16 scales' if same else 'another function'})")
+        if same:
+            out[fmt] = ms
+    return out
+
+
 def print_wq_kernel_split(n: int = 10) -> None:
     """How each quantized product's device time at WQ_REPORT divides between
     its launches (the product and the combine of a split contraction): the
@@ -1132,15 +1192,15 @@ TRAIN_LENGTHS = [1024, 700]
 
 
 def check_flash_bwd(gen: torch.Generator):
-    """LSE, dq and dk/dv against their plain versions; the worst max |diff|
-    of each kernel."""
+    """The forward's LSE and the backward's dq, dk and dv against their
+    plain versions; the worst max |diff| of each."""
     b, h, s, d = TRAIN_SHAPE
     cases = [
         (f"main path [{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}", h, d, False),
         ("GQA Hkv=8 + ALiBi", 8, d, True),
         ("head_dim 64", h, 64, False),
     ]
-    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd_lse": 0.0, "flash_bwd": 0.0}
     for name, hkv, dd, alibi in cases:
         q, do = bf16_randn(gen, b, h, s, dd), bf16_randn(gen, b, h, s, dd)
         k, v = bf16_randn(gen, b, hkv, s, dd), bf16_randn(gen, b, hkv, s, dd)
@@ -1153,17 +1213,15 @@ def check_flash_bwd(gen: torch.Generator):
         print(f"flash_fwd log-sum-exp {name}: max|d| {lse_err:.3e}")
         check(lse_err <= LSE_TOL, f"log-sum-exp {name}: {lse_err:.3e} > {LSE_TOL}")
         worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
-        delta = (do.float() * out.float()).sum(-1)
-        dq = attn_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = attn_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        grads = attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
-        pdq, pdk, pdv = attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw)
-        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], check_close("flash_bwd_dq", name, dq, pdq))
-        for part, got, want in (("dk", dk, pdk), ("dv", dv, pdv)):
-            err = check_close("flash_bwd_dkv", f"{part} {name}", got, want)
-            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err)
-            # keys at or past kv_len get exact zeros
-            check(bool((got[1, :, TRAIN_LENGTHS[1]:] == 0).all()), f"{part}: a dead key is not zeros")
+        delta = attn_ops._flash_bwd_delta(out, do)
+        plain = attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+        for part, got, want in zip(("dq", "dk", "dv"), grads, plain):
+            err = check_close("flash_bwd", f"{part} {name}", got, want)
+            worst["flash_bwd"] = max(worst["flash_bwd"], err)
+            if part != "dq":  # keys at or past kv_len get exact zeros
+                check(bool((got[1, :, TRAIN_LENGTHS[1]:] == 0).all()), f"{part}: a dead key is not zeros")
     return worst
 
 
@@ -1225,15 +1283,15 @@ def check_gradient_through_kernels(cfg: ModelConfig, directory: str, shard: str)
     results = {}
     for use_kernels in (True, False):
         c = dataclasses.replace(small, use_pallas_attention=use_kernels)
-        attn_ops.flash_attention_bwd_dq.launches = 0
+        attn_ops.flash_attention_bwd.launches = 0
         loss, _ = make_loss_fn(c, audio_patch_id=bundle.audio_patch_id)(params, batch)
         (grad,) = torch.autograd.grad(loss, [proj])
-        results[use_kernels] = (loss.item(), grad, attn_ops.flash_attention_bwd_dq.launches)
+        results[use_kernels] = (loss.item(), grad, attn_ops.flash_attention_bwd.launches)
     (lk, gk, nk), (lp, gp, _) = results[True], results[False]
     rel, _ = rel_err(gk, gp)
     print(f"7B width, 2 layers, one step: loss {lk:.5f} (kernels) vs {lp:.5f} (plain), "
           f"projector gradient rel-to-max {rel:.3e}, |grad| {gk.norm().item():.4e} vs "
-          f"{gp.norm().item():.4e}; dq launches {nk}")
+          f"{gp.norm().item():.4e}; flash backward launches {nk}")
     check(nk == small.num_layers, "the kernel path did not run the flash backward")
     check(abs(lk - lp) <= TRAIN_ABS_LOSS_TOL, f"loss differs by {abs(lk - lp):.3e}")
     check(rel <= TRAIN_GRAD_TOL, f"projector gradient rel err {rel:.3e} > {TRAIN_GRAD_TOL}")
@@ -1265,11 +1323,10 @@ def device_split(trace_path: str, wall_ms: float, top: int = 6) -> None:
 def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps: int,
                  frozen_base: bool, lr: float, **flags):
     """Drive `train()` on the card; check and print what the path did.
-    Returns the launches of the three training kernels in the run."""
+    Returns the launches of the two training kernel wrappers in the run."""
     model_args, data_args, training_args = train_args(directory, shard, steps, lr, **flags)
     torch.cuda.reset_peak_memory_stats()
-    counters = (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd_dq,
-                attn_ops.flash_attention_bwd_dkv)
+    counters = (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1297,6 +1354,10 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
     check(all(np.isfinite(r["grad_norm"]) for r in records), f"{label}: a non-finite grad norm")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
     check(all(n > 0 for n in launches.values()), f"{label}: a training kernel never launched: {launches}")
+    # one backward per layer per micro-batch
+    per_step = training_args.gradient_accumulation_steps * cfg.num_layers
+    check(launches["flash_attention_bwd"] == steps * per_step,
+          f"{label}: {launches['flash_attention_bwd']} flash backward launches, not {steps} x {per_step}")
     del result
     shutil.rmtree(directory)  # the checkpoint: 27 GB at 32 layers
     torch.cuda.empty_cache()
@@ -1309,14 +1370,14 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
 
 
 def time_flash_bwd(gen):
-    """(dq row, dkv row) timings at the training shape: (ms, plain_ms,
-    library_ms, (bound_ms, bound_by), shape)."""
+    """Timings at the training shape: the forward with its log-sum-exp
+    (printed) and the whole flash backward (delta, the products, dq's
+    rounding): (ms, plain_ms, library_ms, (bound_ms, bound_by), shape)."""
     b, h, s, d = TRAIN_SHAPE
     q, k, v, do = (bf16_randn(gen, b, h, s, d) for _ in range(4))
     kv = torch.tensor(TRAIN_LENGTHS, dtype=torch.int32, device="cuda")
-    out, lse = attn_ops.flash_attention_fwd(q, k, v, kv_lengths=kv, return_lse=True)
-    delta = (do.float() * out.float()).sum(-1)
     kw = dict(causal=True, kv_lengths=kv, slopes=None)
+    out, lse = attn_ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     # library yardstick: SDPA forward and backward (dq, dk and dv together)
     # at the same mask; no query row here is without a visible key, which
     # would make SDPA's softmax NaN
@@ -1325,9 +1386,9 @@ def time_flash_bwd(gen):
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = sdpa(ql, kl, vl, mask)
     # visible (query, key) pairs; the forward does 2 products of 2*D FLOPs
-    # per pair, dq 3, dk/dv 4; bytes: inputs read once (bf16 q and dO whole,
-    # k and v up to each row's kv_len only; fp32 lse, delta), outputs
-    # written once (dk, dv whole: dead keys get zeros)
+    # per pair, the backward 5; bytes: inputs read once (bf16 q, dO and O
+    # whole, k and v up to each row's kv_len only; fp32 lse), outputs
+    # written once (dq, dk, dv whole: dead keys get zeros)
     qi, ki = np.arange(s)[:, None], np.arange(s)[None, :]
     pairs = sum(int(((ki <= qi) & (ki < n)).sum()) for n in TRAIN_LENGTHS) * h
     tensor = 2 * b * h * s * d  # one bf16 [B, H, S, D]
@@ -1339,15 +1400,30 @@ def time_flash_bwd(gen):
     print(f"flash_fwd with log-sum-exp at [{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}: "
           f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA {fwd_lib:.4f} ms, "
           f"bound {fwd_bound:.4f} ms ({fwd_by}), {fwd_bound / fwd_ms:.1%} of bound")
-    dq_ms = median_ms(lambda: attn_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
-    dkv_ms = median_ms(lambda: attn_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    plain_ms = median_ms(lambda: attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw))
+
+    def plain_bwd():
+        delta = attn_ops._flash_bwd_delta(out, do)
+        return attn_ops._flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+
+    bwd_ms = median_ms(lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    plain_ms = median_ms(plain_bwd)
     lib_ms = median_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
-    io_in = 2 * tensor + 2 * live_kv + 2 * 4 * b * h * s
-    dq_bound = bound(io_in + tensor, 6.0 * d * pairs)
-    dkv_bound = bound(io_in + 2 * tensor, 8.0 * d * pairs)
+    delta_ms = median_ms(lambda: attn_ops._flash_bwd_delta(out, do))
+    bwd_bound = bound(3 * tensor + 2 * live_kv + 4 * b * h * s + 3 * tensor, 10.0 * d * pairs)
     shape = f"[{b},{h},{s},{d}] causal, kv_len {TRAIN_LENGTHS}"
-    return ((dq_ms, plain_ms, lib_ms, dq_bound, shape), (dkv_ms, plain_ms, lib_ms, dkv_bound, shape))
+    print(f"  the PyTorch delta the two-kernel backward computed beforehand, "
+          f"(g.float() * out.float()).sum(-1), alone: {delta_ms:.4f} ms")
+    # second reference, not the yardstick: SDPA is_causal=True (PyTorch's
+    # flash backend) with every key live, beside the kernels at kv_len [s, s]
+    full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out_f, lse_f = attn_ops.flash_attention_fwd(q, k, v, causal=True, kv_lengths=full, return_lse=True)
+    full_ms = median_ms(lambda: attn_ops.flash_attention_bwd(
+        q, k, v, out_f, lse_f, do, causal=True, kv_lengths=full))
+    lib_c = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_c_ms = median_ms(lambda: torch.autograd.grad(lib_c, (ql, kl, vl), do, retain_graph=True))
+    print(f"  at kv_len [{s}, {s}]: flash backward {full_ms:.4f} ms, SDPA is_causal=True backward "
+          f"{lib_c_ms:.4f} ms (dq, dk and dv)")
+    return bwd_ms, plain_ms, lib_ms, bwd_bound, shape
 
 
 # ---------------------------------------------------------------------------
@@ -1407,8 +1483,7 @@ def main() -> int:
             "run-of-record flags, 7B width, 4 layers", dataclasses.replace(train_cfg, num_layers=4),
             os.path.join(tmp, "full"), shard, 6, frozen_base=False, lr=1e-4,
             tune_mm_mlp_adapter=True)
-    launches.update(flash_bwd_dq=adapter["flash_attention_bwd_dq"],
-                    flash_bwd_dkv=adapter["flash_attention_bwd_dkv"])
+    launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []
     for name, src, replaces, err, time_fn, length in (
@@ -1445,33 +1520,32 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
-    # the training kernels, at the training path's shape; their launches are
-    # the adapter stage's (32 layers x 2 micro-batches x 6 steps)
-    bwd_rows = time_flash_bwd(gen)
-    for name, replaces, (ms, plain_ms, lib_ms, (bound_ms, bound_by), shape) in zip(
-        ("flash_bwd_dq", "flash_bwd_dkv"),
-        ("llark_tpu/ops/attention.py:536", "llark_tpu/ops/attention.py:570"), bwd_rows,
-    ):
-        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (dq, dk and dv), "
-              f"SDPA backward {lib_ms:.4f} ms (dq, dk and dv), bound {bound_ms:.4f} ms "
-              f"({bound_by}), {bound_ms / ms:.1%} of bound")
-        kernels.append({
-            "name": name, "route": "cuda", "source": "llark_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": bwd_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms,
-        })
+    # the flash backward at the training path's shape; its launches are the
+    # adapter stage's (32 layers x 2 micro-batches x 6 steps)
+    ms, plain_ms, lib_ms, (bound_ms, bound_by), shape = time_flash_bwd(gen)
+    print(f"flash_bwd at {shape}: delta + products + dq rounding {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA backward {lib_ms:.4f} ms (dq, dk and dv; same mask), bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of bound")
+    kernels.append({
+        "name": "flash_bwd", "route": "cuda", "source": "llark_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "llark_tpu/ops/attention.py:536, llark_tpu/ops/attention.py:570",
+        "launches": launches["flash_bwd"], "max_abs_err": bwd_err["flash_bwd"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,
+    })
     print(f"flash_fwd log-sum-exp, worst |d| {bwd_err['flash_fwd_lse']:.3e}")
     # the quantized products at the serving engine's decode shape; their
     # launches are those of the run-of-record mode (a) served from each format
-    for fmt, (ms, plain_ms, (bound_ms, bound_by)) in time_wq_matmul(gen).items():
+    wq_times = time_wq_matmul(gen)
+    wq_library = time_wq_library(gen)
+    for fmt, (ms, plain_ms, (bound_ms, bound_by)) in wq_times.items():
         kernels.append({
             "name": f"{fmt}_matmul", "route": "cuda",
             "source": f"llark_tpu_torch/csrc/{fmt}_matmul.cu",
             "replaces": f"llark_tpu/ops/{fmt}_matmul.py:{88 if fmt == 'int8' else 106}",
             "launches": wq_serving[fmt]["a"][f"{fmt}_matmul"],
             "max_abs_err": wq_err[f"{fmt}_matmul"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": wq_library[fmt],
         })
 
     print(json.dumps({"kernels": kernels}))

@@ -90,41 +90,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int l
   a[3] = ld32(p + 8 * ld + 8);
 }
 
-// C fragments j = 2ks, 2ks + 1 (16 columns of fp32) rounded to bf16 as the
-// A fragment of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_f2(c0[0], c0[1]);
-  a[1] = pack_f2(c0[2], c0[3]);
-  a[2] = pack_f2(c1[0], c1[1]);
-  a[3] = pack_f2(c1[2], c1[3]);
-}
-
-// acc[n] += A * M[k0 : k0 + 16, :] for a row-major [*, ld] bf16 matrix M in
-// shared memory (the B operand read down M's rows), over D / 8 column groups
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                         const bf16* m, int ld, int k0, int g, int t) {
-  const bf16* row = m + (k0 + 2 * t) * ld + g;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const bf16* p = row + n * 8;
-    mma16816(acc[n], a, pack2(p, p + ld), pack2(p + 8 * ld, p + 9 * ld));
-  }
-}
-
-// s[j] += A * M[j*8 : j*8 + 8, col0 : col0 + 16]^T for a row-major [*, ld]
-// bf16 matrix M in shared memory (the B operand read along M's rows)
-template <int NJ>
-__device__ __forceinline__ void mma_cols(float (&s)[NJ][4], const uint32_t (&a)[4],
-                                         const bf16* m, int ld, int col0, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const bf16* p = m + (j * 8 + g) * ld + col0 + 2 * t;
-    mma16816(s[j], a, ld32(p), ld32(p + 8));
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

@@ -3,17 +3,17 @@ flash-attention kernels, forward and backward.
 
 Counterparts of llark_tpu/ops/attention.py. `xla_attention` keeps its name
 so the two packages read side by side; in the port it is the plain PyTorch
-path (fp32 softmax, products accumulated in fp32). Three wrappers launch
+path (fp32 softmax, products accumulated in fp32). Two wrappers launch
 hand-written CUDA kernels:
 
   flash_attention_fwd      csrc/flash_fwd.cu   replaces `_flash_fwd_kernel`
-  flash_attention_bwd_dq   csrc/flash_bwd.cu   replaces `_flash_bwd_dq_kernel`
-  flash_attention_bwd_dkv  csrc/flash_bwd.cu   replaces `_flash_bwd_dkv_kernel`
+  flash_attention_bwd      csrc/flash_bwd.cu   replaces `_flash_bwd_dq_kernel`
+                                               and `_flash_bwd_dkv_kernel`
 
 For CPU tensors each runs its plain PyTorch version instead; for CUDA
 tensors it launches its kernel or raises. `_FlashAttention`, the
 counterpart of the JAX package's `_flash_mha` custom VJP, ties the forward
-(with its log-sum-exp) to the two backward kernels for autograd.
+(with its log-sum-exp) to the backward for autograd.
 
 Slope convention everywhere: `slopes` are positive magnitudes; the additive
 bias is `slope * (k_pos - q_pos)` (<= 0 on the causal triangle).
@@ -258,12 +258,19 @@ flash_attention_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Flash-attention backward: two Hopper kernels + their plain PyTorch version
+# Flash-attention backward: Hopper kernels + their plain PyTorch version
 # ---------------------------------------------------------------------------
 
 
+def _flash_bwd_delta(out, g):
+    """delta = rowsum(g * out) [B, H, Sq] fp32, the plain version of
+    `flash_bwd_pre` in `csrc/flash_bwd.cu` (and of llark_tpu/ops/
+    attention.py:522-527)."""
+    return (g.float() * out.float()).sum(dim=-1)
+
+
 def _flash_bwd_plain(q, k, v, g, lse, delta, *, causal, kv_lengths, slopes):
-    """Plain PyTorch version of both backward kernels (`csrc/flash_bwd.cu`,
+    """Plain PyTorch version of the backward kernels (`csrc/flash_bwd.cu`,
     the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`):
     p rebuilt from the log-sum-exp, ds = p (dO v^T - delta) scale, then
     dq = ds k, dk = ds^T q, dv = p^T dO, all in fp32; dk/dv summed over
@@ -284,107 +291,90 @@ def _flash_bwd_plain(q, k, v, g, lse, delta, *, causal, kv_lengths, slopes):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-_BWD_DQ_ARGTYPES = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-)
-_BWD_DKV_ARGTYPES = (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+def _check_bwd_args(q, k, out, lse, g):
+    """Shapes the backward takes, on either device: out and g like q, lse
+    [B, H, Sq]."""
+    for name, t in (("out", out), ("g", g)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} is not q's {tuple(q.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} is not [B, H, Sq] "
+                         f"{tuple(q.shape[:3])}")
+    if k.dim() != 4 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash_attention_bwd: k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+
+
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
 
 
-def _flash_bwd_cuda(entry, q, k, v, g, lse, delta, outs, *, causal, kv_lengths, slopes):
-    """Launch one backward kernel of `csrc/flash_bwd.cu` into `outs`."""
+def _flash_attention_bwd_cuda(q, k, v, out, lse, g, *, causal, kv_lengths, slopes):
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, out, g)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous fp32 [B, H, Sq]")
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g))
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq) or not t.is_contiguous():
-            raise ValueError(f"{entry}: {name} must be contiguous fp32 [B, H, Sq]")
+    dev = q.device
+    if q.numel() == 0 or k.numel() == 0:  # no pair: zero gradients
+        return tuple(torch.zeros(t.shape, dtype=torch.bfloat16, device=dev) for t in (q, k, v))
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=dev)
+    dv = torch.empty(v.shape, dtype=torch.bfloat16, device=dev)
+    q, k, v, out, g = (_kernel_operand(t) for t in (q, k, v, out, g))
     kvl, sl = _kernel_lengths_slopes(q, k, kv_lengths, slopes)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3]
+    # scratch: delta and the fp32 dq accumulator, both filled by the kernels
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3]
     )
-    fn = getattr(_build.load("flash_bwd.cu"), entry)
-    argtypes = _BWD_DQ_ARGTYPES if len(outs) == 1 else _BWD_DKV_ARGTYPES
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn = _build.load("flash_bwd.cu").llark_flash_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(o.data_ptr() for o in outs), kvl.data_ptr(), _ptr(sl),
-        b, h, hkv, sq, sk, d, strides, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        kvl.data_ptr(), _ptr(sl), b, h, hkv, sq, sk, d, strides, int(causal),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, entry)
-
-
-def flash_attention_bwd_dq(
-    q, k, v, g, lse, delta, *, causal=True, kv_lengths=None, slopes=None
-) -> torch.Tensor:
-    """dq [B,H,Sq,D] of flash attention from q, k, v, the output cotangent
-    g, the forward's log-sum-exp and delta = rowsum(g * out), both [B,H,Sq]
-    fp32. Counterpart of the TPU kernel `_flash_bwd_dq_kernel`
-    (llark_tpu/ops/attention.py:370-419, called at :536). CUDA tensors
-    launch `llark_flash_bwd_dq` of `csrc/flash_bwd.cu`; CPU tensors run the
-    plain version. `flash_attention_bwd_dq.launches` counts launches."""
-    kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, g, lse, delta, **kw)[0]
-    _check_kernel_inputs("flash_attention_bwd_dq", q, k, v, g)
-    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    if dq.numel():
-        _flash_bwd_cuda("llark_flash_bwd_dq", q, k, v, g, lse, delta, (dq,), **kw)
-        flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-flash_attention_bwd_dq.launches = 0
-
-
-def flash_attention_bwd_dkv(
-    q, k, v, g, lse, delta, *, causal=True, kv_lengths=None, slopes=None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each [B,Hkv,Sk,D] and summed over the q heads of a kv head
-    (GQA), from the same inputs as `flash_attention_bwd_dq`. Counterpart of
-    the TPU kernel `_flash_bwd_dkv_kernel` (llark_tpu/ops/attention.py:
-    422-488, called at :570) plus the group-sum of `_flash_mha_bwd`. CUDA
-    tensors launch `llark_flash_bwd_dkv` of `csrc/flash_bwd.cu`; CPU tensors
-    run the plain version. `flash_attention_bwd_dkv.launches` counts
-    launches."""
-    kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, g, lse, delta, **kw)[1:]
-    _check_kernel_inputs("flash_attention_bwd_dkv", q, k, v, g)
-    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.bfloat16, device=q.device)
-    if dk.numel():
-        _flash_bwd_cuda("llark_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv), **kw)
-        flash_attention_bwd_dkv.launches += 1
-    return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
+    _build.check(err, "llark_flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_bwd(
     q, k, v, out, lse, g, *, causal=True, kv_lengths=None, slopes=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of flash attention, k/v at their own head count
-    (llark_tpu/ops/attention.py:491-596 with the group-sum of
-    `_flash_mha_bwd`). delta = rowsum(g * out) is a torch reduction, as in
-    the JAX package; the two kernels do the rest."""
-    delta = (g.float() * out.float()).sum(dim=-1)
+    """(dq, dk, dv) of flash attention from q [B,H,Sq,D], k, v [B,Hkv,Sk,D],
+    the forward's output and log-sum-exp [B,H,Sq] fp32, and the output
+    cotangent g; dk/dv at the kv head count, summed over each GQA group.
+    Counterpart of llark_tpu/ops/attention.py:491-596 (the TPU kernels
+    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, the delta reduction
+    and the group-sum of `_flash_mha_bwd`).
+
+    CUDA tensors launch `csrc/flash_bwd.cu` (bf16, head_dim 64 or 128;
+    anything else raises): delta and the zeroing of an fp32 dq accumulator,
+    one pass of wgmma products over the visible tile pairs, and dq's
+    rounding to bf16. dq's fp32 sums come in an order that varies from run
+    to run. Strided q, k, v, g with unit stride in D and 16-byte aligned
+    rows are read in place. CPU tensors run the plain version.
+    `flash_attention_bwd.launches` counts one per backward on the card."""
+    _check_bwd_args(q, k, out, lse, g)
     kw = dict(causal=causal, kv_lengths=kv_lengths, slopes=slopes)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
-    return dq, dk, dv
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, g, lse, _flash_bwd_delta(out, g), **kw)
+    return _flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw)
+
+
+flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its flash backward: the counterpart of the JAX
     package's `_flash_mha` custom VJP (llark_tpu/ops/attention.py:599-648).
     The forward keeps (q, k, v, out, lse); the backward recomputes the
-    probabilities in the two backward kernels. kv_lengths and slopes get no
+    probabilities in `flash_attention_bwd`. kv_lengths and slopes get no
     gradient."""
 
     @staticmethod

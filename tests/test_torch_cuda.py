@@ -16,7 +16,7 @@ probabilities to bf16 for the P.V product and both kernels sum in another
 order than the plain versions, which compute in fp32. A row with no live
 key must be zeros.
 
-The backward kernels (dq, dk/dv) are held as chip_smoke.py holds them:
+The flash backward (dq, dk, dv) is held as chip_smoke.py holds it:
 per row within 1e-2 with each row's norm floored at 1e-2 of the tensor's
 RMS row norm (a dq row can be ~0 by cancellation), and within the JAX
 package's 1.6e-2 relative to max (PERFORMANCE.md:130-132). The forward's
@@ -245,6 +245,24 @@ def _rel_to_max(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def _bwd_against_plain(q, k, v, do, kw):
+    """The flash backward on the card (one launch) against its plain
+    version on the same inputs; returns the kernel's (dq, dk, dv)."""
+    out, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    _, lse_plain = tattn._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    assert float((lse - lse_plain).abs().max()) <= LSE_TOL
+    before = tattn.flash_attention_bwd.launches
+    got = tattn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd.launches == before + 1
+    want = tattn._flash_bwd_plain(q, k, v, do, lse, tattn._flash_bwd_delta(out, do), **kw)
+    for a, ref in zip(got, want):
+        assert a.is_contiguous() and a.dtype == torch.bfloat16
+        assert _row_err(a, ref, BWD_ROW_FLOOR) <= ROW_TOL["flash_bwd"]
+        assert _rel_to_max(a, ref) <= BWD_TOL
+    return got
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 @pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
@@ -255,23 +273,56 @@ def test_flash_bwd_kernels_match_plain(dev, d, causal, hkv, alibi):
     kv_lengths = torch.tensor([0, 300, 130], device=dev)
     kw = dict(causal=causal, kv_lengths=kv_lengths,
               slopes=tattn.alibi_slopes(h, dev) if alibi else None)
-    out, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-    _, lse_plain = tattn._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
-    assert float((lse - lse_plain).abs().max()) <= LSE_TOL
-    delta = (do.float() * out.float()).sum(-1)
-    before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
-    dq = tattn.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = tattn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
-    assert (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
-    want = tattn._flash_bwd_plain(q, k, v, do, lse, delta, **kw)
-    for got, ref in zip((dq, dk, dv), want):
-        assert _row_err(got, ref, BWD_ROW_FLOOR) <= ROW_TOL["flash_bwd"]
-        assert _rel_to_max(got, ref) <= BWD_TOL
+    dq, dk, dv = _bwd_against_plain(q, k, v, do, kw)
     # the row with no live key: no gradient anywhere; dead keys get zeros
     assert float(dq[0].abs().max()) == 0.0 and float(dk[0].abs().max()) == 0.0
     assert float(dk[2, :, 130:].abs().max()) == 0.0 and float(dv[2, :, 130:].abs().max()) == 0.0
+
+
+def test_flash_bwd_long_rows(dev):
+    # 1024 queries: eight 128-key tiles add into each late dq row
+    b, h, s, d = 2, 4, 1024, 128
+    q, k, v = _qkv(dev, 30, b, h, h, s, s, d)
+    do = _qkv(dev, 31, b, h, h, s, s, d)[0]
+    kw = dict(causal=True, kv_lengths=torch.tensor([1024, 700], device=dev), slopes=None)
+    _, dk, dv = _bwd_against_plain(q, k, v, do, kw)
+    assert float(dk[1, :, 700:].abs().max()) == 0.0 and float(dv[1, :, 700:].abs().max()) == 0.0
+
+
+def test_flash_bwd_reads_decoder_views_in_place(dev, monkeypatch):
+    # the decoder hands over [B, S, H, D] activations transposed to
+    # [B, H, S, D]: the backward reads them through their strides, no copy
+    b, s, h, hkv, d = 2, 200, 8, 2, 128
+    rng = np.random.RandomState(32)
+
+    def view(heads):
+        x = rng.randn(b, s, heads, d).astype(np.float32)
+        return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = view(h), view(hkv), view(hkv), view(h)
+    assert not q.is_contiguous()
+    kw = dict(causal=True, kv_lengths=torch.tensor([200, 150], device=dev),
+              slopes=tattn.alibi_slopes(h, dev))
+    out, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    copied = []
+    real = tattn._kernel_operand
+
+    def operand(t):
+        got = real(t)
+        copied.append(got.data_ptr() != t.data_ptr())
+        return got
+
+    monkeypatch.setattr(tattn, "_kernel_operand", operand)
+    got = tattn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    monkeypatch.undo()
+    assert copied == [False] * 5, "an operand was copied"
+    want = tattn._flash_bwd_plain(q, k, v, do, lse, tattn._flash_bwd_delta(out, do), **kw)
+    contig = tattn.flash_attention_bwd(
+        *(t.contiguous() for t in (q, k, v)), out, lse, do.contiguous(), **kw)
+    torch.cuda.synchronize()
+    for a, ref, c in zip(got, want, contig):
+        assert _row_err(a, ref, BWD_ROW_FLOOR) <= ROW_TOL["flash_bwd"]
+        assert _rel_to_max(a, c) <= BWD_TOL
 
 
 @pytest.mark.parametrize("hkv", [8, 2])

@@ -345,6 +345,37 @@ def test_flash_bwd_plain_matches_pallas(b, h, hkv, s, d, causal, alibi):
         assert float(dv[1, :, s - 51:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "decoder_view"])
+def test_flash_bwd_delta_is_the_rowsum_of_g_times_out(strided):
+    # delta = rowsum(g * out) in fp32 from bf16 inputs, also from the
+    # decoder's transposed [B, S, H, D] views
+    rng = np.random.RandomState(26)
+    shape = (2, 9, 3, 16) if strided else (2, 3, 9, 16)
+    out, g = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    if strided:
+        out, g = out.transpose(1, 2), g.transpose(1, 2)
+    got = tattn._flash_bwd_delta(out, g)
+    want = (g.float().numpy().astype(np.float64) * out.float().numpy()).sum(-1)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 9)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_bwd_checks_shapes_before_dispatch():
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="g "):
+        tattn.flash_attention_bwd(q, k, k, q, lse, q[..., :8])
+    with pytest.raises(ValueError, match="out "):
+        tattn.flash_attention_bwd(q, k, k, q[:, :2], lse, q)
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_attention_bwd(q, k, k, q, lse[..., :4], q)
+    with pytest.raises(ValueError, match="does not fit"):
+        k3 = torch.zeros(1, 3, 8, 16)
+        tattn.flash_attention_bwd(q, k3, k3, q, lse, q)
+
+
 @pytest.mark.parametrize("hkv,causal,alibi", [(4, True, False), (2, False, True)],
                          ids=["causal", "gqa_noncausal_alibi"])
 def test_flash_attention_function_matches_autograd(hkv, causal, alibi):
