@@ -24,6 +24,8 @@ Phases, in order; any failure exits non-zero before the final line:
      times, L2 flushed before each launch) beside the plain version, PyTorch's
      scaled_dot_product_attention as the library yardstick, and the bound
      from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16);
+     the flash-prefill kernel also at one-shot admission's [8,32,512,128]
+     (printed);
   6. (A) the flash-decode kernel in every cache mode against its plain
      version at 7B serving shapes: q [8,32,1,128], 2048-position caches,
      live lengths 300-340; dense bf16, dense int8, paged bf16 with 16- and
@@ -66,7 +68,8 @@ Phases, in order; any failure exits non-zero before the final line:
      versions and PyTorch's scaled_dot_product_attention (the whole
      backward, delta included, against SDPA's backward with the same mask;
      the old wrapper's PyTorch delta alone; at kv_len [1024, 1024] against
-     SDPA is_causal=True as a second reference); and the
+     SDPA is_causal=True as a second reference, for the backward and for
+     the forward with and without its log-sum-exp); and the
      flash-decode kernel's int8 and paged modes at the phase-6 shape beside
      their plain version (no single PyTorch call reads an int8 or paged
      cache: SDPA over a dense bf16 view is printed beside them);
@@ -100,8 +103,18 @@ Phases, in order; any failure exits non-zero before the final line:
      copy of the weight, and dequantize-then-matmul; what one quantized
      projection costs the host to enqueue; and, where the installed torch
      runs them on CUDA, `torch._weight_int8pack_mm` and
-     `torch._weight_int4pack_mm` at the reported shape, held against the
-     kernels' outputs (the kernels line's library_ms when they agree).
+     `torch._weight_int4pack_mm` at the reported shape and at M = 2048,
+     (K, N) = (4096, 4096), held against the kernels' outputs and printed
+     beside the kernels' times (the kernels line's library_ms, at the
+     reported shape, when they agree); `python -m
+     llark_tpu_torch.tools.wq_library_times` times them at all six
+     admission shapes.
+
+Launch gates: the flash-prefill kernel once per layer per prefill (32 per
+request in phase 4), once per layer per admission wave in the one-shot
+serving modes (64 in (b) and (d), none in the chunked ones), and once per
+layer per micro-batch plus once more in remat's recomputation when
+training (128 per adapter step).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or llark_tpu.
@@ -426,7 +439,10 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows, params=None, 
     print(f"batch_infer ({label}): {len(results)} requests in {wall:.3f} s; launches {launches}")
     check(len(results) == len(rows), "batch_infer lost a row")
     check(all(isinstance(r["model_completion"], str) for r in results), "no completion")
-    check(launches["flash_fwd"] > 0, "the main path never launched the flash-prefill kernel")
+    # one prefill per request, one flash-prefill launch per layer
+    check(launches["flash_fwd"] == cfg.num_layers * len(rows),
+          f"the main path launched the flash-prefill kernel {launches['flash_fwd']} times, "
+          f"not {cfg.num_layers} x {len(rows)}")
     check(launches["flash_decode"] > 0, "the main path never launched the flash-decode kernel")
     if wq is None:
         check(launches["int8_matmul"] == 0 and launches["int4_matmul"] == 0,
@@ -547,26 +563,35 @@ def sdpa(q, k, v, mask):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def time_flash_fwd(gen, plen, b):
-    h, s, d = 32, 384, 128
+def time_flash_fwd_at(gen, s: int, lengths):
+    """K1 at q/k/v [len(lengths), 32, s, 128] bf16, causal, kv_len per row:
+    (ms, plain_ms, sdpa_ms, (bound_ms, bound_by), shape). SDPA gets the
+    same mask (every row here sees at least key 0, so its softmax has no
+    NaN row)."""
+    b, h, d = len(lengths), 32, 128
     q, k, v = (bf16_randn(gen, b, h, s, d) for _ in range(3))
     # int32 lengths, as the decoder passes them: the wrapper converts nothing
-    kv = torch.full((b,), plen, dtype=torch.int32, device="cuda")
-    ms = median_ms(lambda: attn_ops.flash_attention_fwd(q, k, v, kv_lengths=kv))
-    plain_ms = median_ms(lambda: attn_ops._flash_attention_fwd_plain(
-        q, k, v, causal=True, kv_lengths=kv, slopes=None))
+    kv = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, kv_lengths=kv, slopes=None)
+    ms = median_ms(lambda: attn_ops.flash_attention_fwd(q, k, v, **kw))
+    plain_ms = median_ms(lambda: attn_ops._flash_attention_fwd_plain(q, k, v, **kw))
     pos = torch.arange(s, device="cuda")
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv[:, None, None])
     lib_ms = median_ms(lambda: sdpa(q, k, v, mask[:, None]))
     # bytes: q and o whole, k and v live rows only; FLOPs: 4*D per visible
     # (query, key) pair
-    live = min(plen, s)
-    nbytes = 2 * (2 * b * h * s * d) + 2 * (2 * b * h * live * d) + 4 * b
+    live = [min(n, s) for n in lengths]
+    nbytes = 2 * (2 * b * h * s * d) + 2 * (2 * h * sum(live) * d) + 4 * b
     qi = np.arange(s)[:, None]
     ki = np.arange(s)[None, :]
-    pairs = int(((ki <= qi) & (ki < live)).sum())
-    flops = 4.0 * d * b * h * pairs
-    return ms, plain_ms, lib_ms, bound(nbytes, flops), f"[{b},{h},{s},{d}] causal, kv_len {plen}"
+    pairs = sum(int(((ki <= qi) & (ki < n)).sum()) for n in live)
+    flops = 4.0 * d * h * pairs
+    shown = lengths if len(set(lengths)) > 1 else lengths[0]
+    return ms, plain_ms, lib_ms, bound(nbytes, flops), f"[{b},{h},{s},{d}] causal, kv_len {shown}"
+
+
+def time_flash_fwd(gen, plen, b):
+    return time_flash_fwd_at(gen, 384, [plen] * b)
 
 
 def time_flash_decode(gen, kv_len, b):
@@ -870,9 +895,11 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle, params=None, m
         check(by_mode[own_mode] > 0, f"serving ({label}): no flash-decode launch in {own_mode}")
         check(sum(by_mode.values()) == by_mode[own_mode],
               f"serving ({label}): flash-decode launched in another cache mode: {by_mode}")
-        if "prefill_chunk" not in extra:
-            check(fwd_launches > 0, f"serving ({label}): one-shot admission never launched "
-                                    "the flash-prefill kernel")
+        # one-shot admission: two waves of 8, one flash-prefill launch per
+        # layer each; chunked admission attends through the plain route
+        want_fwd = 0 if "prefill_chunk" in extra else 2 * cfg.num_layers
+        check(fwd_launches == want_fwd,
+              f"serving ({label}): {fwd_launches} flash-prefill launches, not {want_fwd}")
         if wq is None:
             check(all(fn.launches == 0 for fn in WQ_KERNELS.values()),
                   f"serving ({label}): bf16 weights launched a quantized product")
@@ -1002,8 +1029,8 @@ def host_us(fn, n: int = 500) -> float:
 def time_wq_matmul(gen: torch.Generator):
     """Timings of both products at the three (K, N) and M in 1, 8, 384,
     2048, 4096. Returns {format: (ms, plain_ms, (bound_ms, bound_by))} at
-    WQ_REPORT."""
-    report = {}
+    WQ_REPORT, and every kernel time as {(format, M, K, N): ms}."""
+    report, times = {}, {}
     for k, n in WQ_SHAPES:
         w8, w4, wb = wq_case(gen, k, n)
         if (k, n) == WQ_SHAPES[0]:
@@ -1025,6 +1052,7 @@ def time_wq_matmul(gen: torch.Generator):
             deq_ms = median_ms(lambda: torch.matmul(x, quant.dequantize_weight(w8, torch.bfloat16)))
             for fmt, wq in (("int8", w8), ("int4", w4)):
                 ms = median_ms(lambda: wq_run(fmt, x, wq))
+                times[(fmt, m, k, n)] = ms
                 plain_ms = median_ms(lambda: wq_run(fmt, x, wq, plain=True))
                 bound_ms, bound_by = wq_bound(fmt, m, k, n)
                 print(f"{fmt}_matmul at M={m} (K,N)=({k},{n}): kernel {ms:.4f} ms, plain "
@@ -1034,57 +1062,69 @@ def time_wq_matmul(gen: torch.Generator):
                       f"{deq_ms:.4f} ms")
                 if (m, k, n) == WQ_REPORT:
                     report[fmt] = (ms, plain_ms, (bound_ms, bound_by))
-    return report
+    return report, times
 
 
-def time_wq_library(gen: torch.Generator):
-    """PyTorch's own weight-only quantized products at WQ_REPORT, where the
-    installed torch runs them on CUDA tensors (the port never calls them):
-    `torch._weight_int8pack_mm` (int8 [N, K], one bf16 scale per output
-    channel) and `torch._weight_int4pack_mm` (tinygemm's packed int4, bf16
-    scale and zero point per 128-row group; zero 0 here, the symmetric
-    scheme of K6). The weights are converted before the timed window. Each
-    is held against the kernel's output on the same inputs; it counts as
-    the kernel's library yardstick (same function up to its bf16 scales)
-    when it agrees within KERNEL_TOL. Returns {format: ms or None}."""
-    m, k, n = WQ_REPORT
-    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
-    x = bf16_randn(gen, m, k)
-    w8 = quant.quantize_weight(w)
-    w4 = quant.quantize_weight_int4(w, WQ_GROUP)
+# (M, K, N) of the library yardsticks: the kernels line's decode shape and
+# one chunked-admission shape (`_weight_int8pack_mm` takes 75-407 ms a call
+# at admission shapes, PERF.md)
+WQ_LIBRARY_SHAPES = (WQ_REPORT, (2048, 4096, 4096))
 
-    def int8_call():
-        wt = w8["q"].t().contiguous()
-        sc = w8["scale"].reshape(n).to(torch.bfloat16)
-        return lambda: torch._weight_int8pack_mm(x, wt, sc)
 
-    def int4_call():
-        q, scale = quant._quantize_groups_int4(w, WQ_GROUP)
-        qu = (q.to(torch.int32) + 8).t().contiguous()  # [N, K], 1..15, 8 = zero
-        packed = (qu[:, 0::2] << 4 | qu[:, 1::2]).to(torch.uint8)
-        wp = torch._convert_weight_to_int4pack(packed, 8)
-        sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
-        return lambda: torch._weight_int4pack_mm(x, wp, WQ_GROUP, sz)
-
+def time_wq_library(gen: torch.Generator, kernel_ms: dict, shapes=WQ_LIBRARY_SHAPES):
+    """PyTorch's own weight-only quantized products at `shapes` ((M, K, N)),
+    where the installed torch runs them on CUDA tensors (the port never
+    calls them): `torch._weight_int8pack_mm` (int8 [N, K], one bf16 scale
+    per output channel) and `torch._weight_int4pack_mm` (tinygemm's packed
+    int4, bf16 scale and zero point per 128-row group; zero 0 here, the
+    symmetric scheme of K6). The weights are converted before the timed
+    window. Each is held against the kernel's output on the same inputs; it
+    counts as the kernel's library yardstick (same function up to its bf16
+    scales) when it agrees within KERNEL_TOL, and is printed beside the
+    kernel's time from `kernel_ms` ({(format, M, K, N): ms}). Returns
+    {format: ms or None} at WQ_REPORT."""
     out = {}
-    for fmt, name, make, wq in (("int8", "torch._weight_int8pack_mm", int8_call, w8),
-                                ("int4", "torch._weight_int4pack_mm", int4_call, w4)):
-        out[fmt] = None
-        try:
-            fn = make()
-            got = fn()
-            torch.cuda.synchronize()
-        except (RuntimeError, NotImplementedError, AttributeError) as e:
-            print(f"{name} does not run on CUDA tensors in torch {torch.__version__}: "
-                  f"{str(e).splitlines()[0][:160]}")
-            continue
-        rel, _ = rel_err(got, wq_run(fmt, x, wq))
-        ms = median_ms(fn)
-        same = rel <= KERNEL_TOL
-        print(f"{name} at M={m} (K,N)=({k},{n}): {ms:.4f} ms, rel-to-max against the {fmt} kernel "
-              f"{rel:.3e} ({'the same function up to its bf16 scales' if same else 'another function'})")
-        if same:
-            out[fmt] = ms
+    for m, k, n in shapes:
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        x = bf16_randn(gen, m, k)
+        w8 = quant.quantize_weight(w)
+        w4 = quant.quantize_weight_int4(w, WQ_GROUP)
+
+        def int8_call():
+            wt = w8["q"].t().contiguous()
+            sc = w8["scale"].reshape(n).to(torch.bfloat16)
+            return lambda: torch._weight_int8pack_mm(x, wt, sc)
+
+        def int4_call():
+            q, scale = quant._quantize_groups_int4(w, WQ_GROUP)
+            qu = (q.to(torch.int32) + 8).t().contiguous()  # [N, K], 1..15, 8 = zero
+            packed = (qu[:, 0::2] << 4 | qu[:, 1::2]).to(torch.uint8)
+            wp = torch._convert_weight_to_int4pack(packed, 8)
+            sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+            return lambda: torch._weight_int4pack_mm(x, wp, WQ_GROUP, sz)
+
+        for fmt, name, make, wq in (("int8", "torch._weight_int8pack_mm", int8_call, w8),
+                                    ("int4", "torch._weight_int4pack_mm", int4_call, w4)):
+            try:
+                fn = make()
+                got = fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError, AttributeError) as e:
+                print(f"{name} does not run on CUDA tensors in torch {torch.__version__}: "
+                      f"{str(e).splitlines()[0][:160]}")
+                if (m, k, n) == WQ_REPORT:
+                    out[fmt] = None
+                continue
+            rel, _ = rel_err(got, wq_run(fmt, x, wq))
+            ms = median_ms(fn, n=N_TIMED if m < 2048 else 10)
+            same = rel <= KERNEL_TOL
+            kms = kernel_ms[(fmt, m, k, n)]
+            print(f"{name} at M={m} (K,N)=({k},{n}): {ms:.4f} ms beside the {fmt} kernel's "
+                  f"{kms:.4f} ms ({ms / kms:.2f}x); rel-to-max against the kernel {rel:.3e} "
+                  f"({'the same function up to its bf16 scales' if same else 'another function'})")
+            if (m, k, n) == WQ_REPORT:
+                out[fmt] = ms if same else None
+        del w, x, w8, w4
     return out
 
 
@@ -1358,6 +1398,11 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
     per_step = training_args.gradient_accumulation_steps * cfg.num_layers
     check(launches["flash_attention_bwd"] == steps * per_step,
           f"{label}: {launches['flash_attention_bwd']} flash backward launches, not {steps} x {per_step}")
+    # the forward once per layer per micro-batch, and again in remat's
+    # recomputation
+    fwd_per_step = per_step * (2 if cfg.remat else 1)
+    check(launches["flash_attention_fwd"] == steps * fwd_per_step,
+          f"{label}: {launches['flash_attention_fwd']} flash forward launches, not {steps} x {fwd_per_step}")
     del result
     shutil.rmtree(directory)  # the checkpoint: 27 GB at 32 layers
     torch.cuda.empty_cache()
@@ -1423,6 +1468,19 @@ def time_flash_bwd(gen):
     lib_c_ms = median_ms(lambda: torch.autograd.grad(lib_c, (ql, kl, vl), do, retain_graph=True))
     print(f"  at kv_len [{s}, {s}]: flash backward {full_ms:.4f} ms, SDPA is_causal=True backward "
           f"{lib_c_ms:.4f} ms (dq, dk and dv)")
+    # K1 beside SDPA is_causal=True with every key live
+    full_lse = median_ms(lambda: attn_ops.flash_attention_fwd(
+        q, k, v, causal=True, kv_lengths=full, return_lse=True))
+    full_fwd = median_ms(lambda: attn_ops.flash_attention_fwd(q, k, v, causal=True, kv_lengths=full))
+    full_plain = median_ms(lambda: attn_ops._flash_attention_fwd_plain(
+        q, k, v, causal=True, kv_lengths=full, slopes=None, return_lse=True))
+    lib_fwd = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True))
+    full_pairs = b * h * s * (s + 1) // 2
+    full_bound, full_by = bound(4 * tensor + 4 * b * h * s, 4.0 * d * full_pairs)
+    print(f"  at kv_len [{s}, {s}]: flash_fwd with log-sum-exp {full_lse:.4f} ms, without "
+          f"{full_fwd:.4f} ms, plain (with log-sum-exp) {full_plain:.4f} ms, SDPA is_causal=True "
+          f"forward {lib_fwd:.4f} ms, bound "
+          f"{full_bound:.4f} ms ({full_by}), {full_bound / full_lse:.1%} of bound")
     return bwd_ms, plain_ms, lib_ms, bwd_bound, shape
 
 
@@ -1506,6 +1564,10 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    # K1 at one-shot admission (serving modes (b), (d)), printed beside it
+    ms, plain_ms, lib_ms, (bound_ms, bound_by), shape = time_flash_fwd_at(gen, 512, admitted)
+    print(f"flash_fwd at one-shot admission {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     # K2': each cache mode at the phase-6 shape, launches from the serving
     # mode that runs it
     for name, mode, bs, label, cache_mode in K2_ROWS:
@@ -1536,8 +1598,8 @@ def main() -> int:
     print(f"flash_fwd log-sum-exp, worst |d| {bwd_err['flash_fwd_lse']:.3e}")
     # the quantized products at the serving engine's decode shape; their
     # launches are those of the run-of-record mode (a) served from each format
-    wq_times = time_wq_matmul(gen)
-    wq_library = time_wq_library(gen)
+    wq_times, wq_kernel_ms = time_wq_matmul(gen)
+    wq_library = time_wq_library(gen, wq_kernel_ms)
     for fmt, (ms, plain_ms, (bound_ms, bound_by)) in wq_times.items():
         kernels.append({
             "name": f"{fmt}_matmul", "route": "cuda",

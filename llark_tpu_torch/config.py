@@ -6,8 +6,9 @@ two kernel switches and activation recomputation. `use_pallas_attention`
 switches the hand-written Hopper flash-attention kernels (forward, and the
 backward when training) and `use_flash_decode` the flash-decode kernel; the
 names are the JAX package's so that the same keyword arguments build the
-same model in both. Features of later slices (int8 KV cache, MoE) keep only
-the field that makes the decoder raise.
+same model in both. `kv_cache_quant` makes the decoder keep an int8 KV
+cache with fp32 per-position scales. MoE, a feature of a later slice, keeps
+only the field that makes the decoder raise.
 
 Also own copies of the training argument dataclasses, `write_args_to_file`
 and `parse_args` (llark_tpu/config.py:160-335), field for field, so the
@@ -51,7 +52,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     # Kernels: the Hopper flash-attention kernels (ops/attention.py)
     use_pallas_attention: bool = True
-    # int8 KV cache (not in this slice of the port: the decoder raises)
+    # int8 KV cache with fp32 per-position scales (models/decoder.py)
     kv_cache_quant: bool = False
     # Hopper flash-decode kernel for short cached steps (ops/
     # decode_attention.py). None = off, as in the JAX package's Generator;

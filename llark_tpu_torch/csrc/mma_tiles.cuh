@@ -1,5 +1,6 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile copies into shared memory and the bf16 mma.sync m16n8k16 product.
+// Shared register-level pieces of the kernels: the bf16 mma.sync m16n8k16
+// product and its fragments (wq_matmul.cuh), bf16 packing and the quad
+// reductions of a softmax row (flash_fwd.cu, flash_bwd.cu).
 //
 // mma.m16n8k16 fragments (lane = 4 * g + t): A (16x16, row-major) holds
 // rows g and g+8 at columns 2t, 2t+1 (regs 0, 1) and 2t+8, 2t+9 (regs 2, 3);
@@ -16,52 +17,8 @@ typedef __nv_bfloat16 bf16;
 
 namespace tiles {
 
-// Copy rows [r0, r0 + ROWS) of NMAT [*, D] bf16 matrices (row stride `ss`
-// elements) into shared memory with row stride `ldd`; rows at or past
-// `limit` are zero. NT threads share the copy. All 16-byte loads are issued
-// into registers before the first shared-memory store: the compiler cannot
-// move a global load above a store through another pointer it might alias,
-// so a load-store loop would pay one memory round trip per iteration.
-template <int D, int ROWS, int NMAT, int NT>
-__device__ __forceinline__ void load_tiles(bf16* const (&dst)[NMAT], int ldd,
-                                           const bf16* const (&src)[NMAT],
-                                           const long long (&ss)[NMAT], int r0,
-                                           int limit) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int N = ROWS * CH / NT;
-  static_assert(ROWS * CH % NT == 0, "whole copy rounds");
-  uint4 val[NMAT][N];
-#pragma unroll
-  for (int m = 0; m < NMAT; ++m) {
-#pragma unroll
-    for (int it = 0; it < N; ++it) {
-      const int i = threadIdx.x + it * NT;
-      const int r = i / CH;
-      val[m][it] = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < limit) {
-        val[m][it] = *reinterpret_cast<const uint4*>(src[m] + (long long)(r0 + r) * ss[m] +
-                                                     (i % CH) * 8);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < NMAT; ++m) {
-#pragma unroll
-    for (int it = 0; it < N; ++it) {
-      const int i = threadIdx.x + it * NT;
-      *reinterpret_cast<uint4*>(dst[m] + (i / CH) * ldd + (i % CH) * 8) = val[m][it];
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from separate addresses, the first in the low half
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return uint32_t(*reinterpret_cast<const unsigned short*>(lo)) |
-         (uint32_t(*reinterpret_cast<const unsigned short*>(hi)) << 16);
 }
 
 __device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {

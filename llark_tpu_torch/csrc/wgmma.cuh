@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward
-// (flash_bwd.cu): cp.async tile copies into shared memory, the wgmma
-// matrix descriptor and the warpgroup products.
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): cp.async tile copies into shared memory,
+// mbarriers and named barriers, the wgmma matrix descriptor and the
+// warpgroup products.
 //
-// Shared-memory tiles. An [R, C] bf16 tile (C contiguous in device memory)
-// is kept as 8 x 8 "core matrices" of 128 contiguous bytes: core matrix
+// Shared-memory tiles of flash_bwd.cu. An [R, C] bf16 tile (C contiguous in
+// device memory) is kept as 8 x 8 "core matrices" of 128 contiguous bytes: core matrix
 // (row block rb, column chunk cb) holds rows 8rb..8rb+7, columns
 // 8cb..8cb+7, one 16-byte row after another, at byte
 // (rb * C / 8 + cb) * 128. That is wgmma's layout without swizzle for either
@@ -59,6 +60,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// mbarrier in shared memory: init (one thread, then a block barrier),
+// arrive, the arrive of this thread's prior cp.async copies on their
+// completion (counted in the init count, no pending-count increment), and
+// a wait for the phase of the given parity to complete
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `n` threads. Pass
+// constants: a barrier id held in a register makes ptxas reserve all 16.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // order this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) before later async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -100,7 +139,9 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // wgmma matrix descriptor, no swizzle: start address, leading and stride
-// byte offsets (all multiples of 16 bytes)
+// byte offsets (all multiples of 16 bytes). Setting bit 62 selects the
+// 128-byte swizzle (flash_fwd.cu): rows of 128 bytes, 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8) of the 1024-byte aligned 8-row group.
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
   return uint64_t((smem_addr(smem) & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32);

@@ -61,7 +61,9 @@ inline int splits(int m, int k, int n, int unit) {
 
 // Copy x[m0 : m0 + ROWS, k0 : k0 + BK] into shared memory (row stride
 // BK + 8); rows at or past m and columns at or past kend are zero. All
-// 16-byte loads are issued before the first store (see tiles::load_tiles).
+// 16-byte loads are issued before the first store: the compiler cannot move
+// a global load above a store through another pointer it might alias, so a
+// load-store loop would pay one memory round trip per iteration.
 template <int ROWS, int BK>
 __device__ __forceinline__ void load_x(bf16* xs, const bf16* __restrict__ x, int m,
                                        int k_total, int m0, int k0, int kend) {

@@ -229,6 +229,16 @@ def _flash_attention_fwd_cuda(q, k, v, *, causal, kv_lengths, slopes, return_lse
     return (o, lse) if return_lse else o
 
 
+def flash_fwd_kernel_takes(head_dim: int) -> bool:
+    """Whether the flash kernels (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`)
+    take a query of this head_dim: 64 or 128. Like the reference's routing
+    condition (llark_tpu/ops/attention.py:720-723) it looks at the shape
+    alone: `multihead_attention` sends a CUDA query outside it to
+    `xla_attention`, and one inside it to the kernels, whose wrappers raise
+    on a dtype other than bfloat16."""
+    return head_dim in (64, 128)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -412,9 +422,12 @@ def multihead_attention(
     to the flash kernels: through `_FlashAttention` (forward with its
     log-sum-exp, flash backward) when autograd records and an input needs a
     gradient, else straight to `flash_attention_fwd` (serving, eval). A
-    single-token query and prefix-LM masking take the plain `xla_attention`
-    path, as on the TPU."""
-    if use_pallas and q.shape[2] > 1 and prefix_lengths is None:
+    single-token query, prefix-LM masking and a CUDA query of a head_dim
+    outside the kernels' contract (`flash_fwd_kernel_takes`) take the plain
+    `xla_attention` path, as on the TPU. CPU tensors take the flash route's
+    plain versions at any head_dim and dtype."""
+    takes = q.device.type == "cpu" or flash_fwd_kernel_takes(q.shape[3])
+    if use_pallas and q.shape[2] > 1 and prefix_lengths is None and takes:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return _FlashAttention.apply(q, k, v, causal, kv_lengths, slopes)
         return flash_attention_fwd(

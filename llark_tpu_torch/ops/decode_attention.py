@@ -265,6 +265,16 @@ def reset_launch_counts() -> None:
         flash_decode_attention.launches_by_mode[mode] = 0
 
 
+def flash_decode_kernel_takes(head_dim: int) -> bool:
+    """Whether `csrc/flash_decode.cu` takes a query of this head_dim: 64 or
+    128. Like the reference's routing condition
+    (llark_tpu/ops/decode_attention.py:531) it looks at the shape alone:
+    `decode_attention` sends a CUDA query outside it to `xla_attention`, and
+    one inside it to the kernel, whose wrapper raises on a query other than
+    bfloat16 or a cache other than bfloat16 or int8 with scales."""
+    return head_dim in (64, 128)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -280,11 +290,13 @@ def decode_attention(
 ) -> torch.Tensor:
     """Dispatching decode-attention entry point
     (llark_tpu/ops/decode_attention.py:508-572): with `use_pallas`, a query
-    window of at most 32 tokens goes to `flash_decode_attention`; otherwise
-    the plain `xla_attention` path runs, after gathering a dense view of a
-    paged pool."""
+    window of at most 32 tokens goes to `flash_decode_attention` if the
+    query lies on the CPU or the kernel takes its head_dim
+    (`flash_decode_kernel_takes`); otherwise the plain `xla_attention` path runs, after gathering a dense
+    view of a paged pool."""
     b, h, sq, d = q.shape
-    if use_pallas and sq <= 32:
+    takes = q.device.type == "cpu" or flash_decode_kernel_takes(d)
+    if use_pallas and sq <= 32 and takes:
         return flash_decode_attention(
             q, k_cache, v_cache, kv_lengths=kv_lengths, q_positions=q_positions,
             k_scale=k_scale, v_scale=v_scale, slopes=slopes, block_tables=block_tables,

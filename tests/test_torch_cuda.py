@@ -107,6 +107,113 @@ def test_flash_fwd_kernel_strided_noncausal(dev):
     assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("alibi", [False, True], ids=["plain", "alibi"])
+@pytest.mark.parametrize("group", [1, 4, 8], ids=["group1", "group4", "group8"])
+@pytest.mark.parametrize("h", [8, 64], ids=["one_warpgroup_blocks", "two_warpgroup_blocks"])
+def test_flash_fwd_kernel_lengths_groups_and_lse(dev, d, alibi, group, h):
+    # Sq = Sk = 200 is no multiple of the 64- or 128-row query block or the
+    # 64-key tile; kv_len 0 and 1, and 129 and 200, whose keys span three
+    # and four tiles of the two-stage K/V ring. 8 heads give 64 blocks of
+    # 128 rows, fewer than the card's SMs, so the kernel runs blocks of one
+    # warpgroup; 64 heads give 512 and blocks of two
+    b, s = 4, 200
+    hkv = h // group
+    q, k, v = _qkv(dev, 13, b, h, hkv, s, s, d)
+    kw = dict(causal=True, kv_lengths=torch.tensor([0, 1, 129, 200], device=dev),
+              slopes=tattn.alibi_slopes(h, dev) if alibi else None)
+    got, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    again, lse_again = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want, lse_want = tattn._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
+    assert float((lse - lse_want).abs().max()) <= LSE_TOL
+    assert float(got[0].abs().max()) == 0.0  # kv_len 0: no key
+    # no atomics: two launches on the same inputs agree bit for bit
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_kernel_noncausal_strided_lse(dev, d):
+    # q/k/v read in place as transposed views of [B, S, H, D]; Sk > Sq,
+    # neither a multiple of 64; GQA group 2 with ALiBi
+    b, h, hkv, sq, sk = 2, 4, 2, 70, 150
+    rng = np.random.RandomState(14)
+    q, k, v = (
+        torch.from_numpy(rng.randn(b, n, heads, d).astype(np.float32)).to(dev, torch.bfloat16)
+        .transpose(1, 2) for n, heads in ((sq, h), (sk, hkv), (sk, hkv))
+    )
+    kw = dict(causal=False, kv_lengths=torch.tensor([150, 65], device=dev),
+              slopes=tattn.alibi_slopes(h, dev))
+    got, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want, lse_want = tattn._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
+    assert float((lse - lse_want).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["serving", "training"])
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16), (128, torch.float32)],
+                         ids=["d96_bf16", "d128_fp32"])
+def test_multihead_attention_routes_by_head_dim(dev, d, dtype, grad):
+    # the dispatcher routes by head_dim alone, as the reference does: a query
+    # of head_dim 96 answers through xla_attention instead of raising; an
+    # fp32 query of head_dim 128 reaches the kernel, which raises on it
+    b, h, hkv, s = 2, 4, 2, 40
+    q, k, v = (t.to(dtype).requires_grad_(grad) for t in _qkv(dev, 15, b, h, hkv, s, s, d))
+    kw = dict(causal=True, kv_lengths=torch.tensor([40, 17], device=dev))
+    before = tattn.flash_attention_fwd.launches
+    if dtype != torch.bfloat16:
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            tattn.multihead_attention(q, k, v, **kw)
+        assert tattn.flash_attention_fwd.launches == before
+        return
+    got = tattn.multihead_attention(q, k, v, **kw)
+    assert tattn.flash_attention_fwd.launches == before
+    want = tattn.xla_attention(q, k, v, **kw)
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+    if grad:
+        g = torch.ones_like(got)
+        got_grads = torch.autograd.grad(got, (q, k, v), g)
+        want_grads = torch.autograd.grad(want, (q, k, v), g)
+        for a, w in zip(got_grads, want_grads):
+            assert _rel_to_max(a, w) <= 1e-3
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16), (128, torch.float32)],
+                         ids=["d96_bf16", "d128_fp32"])
+def test_decode_attention_routes_by_head_dim(dev, d, dtype, paged):
+    b, h, hkv, sq, bs, n_blocks = 2, 4, 2, 3, 16, 4
+    q, k, v = (t.to(dtype) for t in _qkv(dev, 16, b, h, hkv, sq, bs * n_blocks, d))
+    kv_lengths = torch.tensor([50, 20], device=dev)
+    kw = dict(kv_lengths=kv_lengths, q_positions=kv_lengths - sq)
+    before = tdec.flash_decode_attention.launches
+    if dtype != torch.bfloat16:
+        # head_dim 128 lies inside the contract: the kernel raises on fp32
+        with pytest.raises(ValueError, match="bfloat16 q"):
+            tdec.decode_attention(q, k, v, block_tables=(
+                torch.arange(b * n_blocks, device=dev, dtype=torch.int32).reshape(b, n_blocks)
+                if paged else None), **kw)
+        assert tdec.flash_decode_attention.launches == before
+        return
+    if paged:
+        # both rows' blocks shuffled in one pool; the tables point at them
+        pool_k = k.reshape(b, hkv, n_blocks, bs, d).permute(0, 2, 1, 3, 4).reshape(-1, hkv, bs, d)
+        pool_v = v.reshape(b, hkv, n_blocks, bs, d).permute(0, 2, 1, 3, 4).reshape(-1, hkv, bs, d)
+        order = torch.randperm(b * n_blocks, generator=torch.Generator().manual_seed(0))
+        inverse = torch.argsort(order).to(dev)
+        tables = inverse.reshape(b, n_blocks).to(torch.int32)
+        got = tdec.decode_attention(q, pool_k[order.to(dev)], pool_v[order.to(dev)],
+                                    block_tables=tables, **kw)
+    else:
+        got = tdec.decode_attention(q, k, v, **kw)
+    assert tdec.flash_decode_attention.launches == before
+    want = tattn.xla_attention(q, k, v, causal=True, kv_lengths=kv_lengths,
+                               q_offset=kv_lengths - sq)
+    assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+
+
 @pytest.mark.parametrize("sq", [1, 5])
 @pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
 def test_flash_decode_kernel_matches_plain(dev, sq, hkv, alibi):

@@ -161,6 +161,30 @@ def test_multihead_attention_dispatch(case, route):
     assert empty_row_is_zero == (route == "flash")
 
 
+@pytest.mark.parametrize(
+    "d,takes", [(128, True), (64, True), (96, False), (16, False), (256, False), (80, False)],
+)
+def test_flash_fwd_kernel_contract(d, takes):
+    assert tattn.flash_fwd_kernel_takes(d) is takes
+
+
+@pytest.mark.parametrize(
+    "d,dtype,takes", [(128, torch.bfloat16, True), (96, torch.bfloat16, False),
+                      (128, torch.float32, True)],
+)
+def test_multihead_attention_routes_by_the_kernel_contract(d, dtype, takes):
+    # tensors on neither the CPU nor a card: inside the contract (by head_dim
+    # alone, as the reference routes) the call reaches the kernel wrapper,
+    # which refuses a non-CUDA tensor; outside it the plain route answers
+    for grad in (False, True):
+        q = torch.empty((1, 2, 8, d), dtype=dtype, device="meta", requires_grad=grad)
+        if takes:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                tattn.multihead_attention(q, q, q, causal=True)
+        else:
+            assert tattn.multihead_attention(q, q, q, causal=True).shape == q.shape
+
+
 # ---------------------------------------------------------------------------
 # K2: flash_decode_attention's plain version vs the Pallas kernels
 # ---------------------------------------------------------------------------
@@ -266,6 +290,32 @@ def test_decode_attention_dispatch_paged(sq):
         block_tables=_t(tables),
     )
     assert _rel_err(got, want) < XLA_TOL
+
+
+@pytest.mark.parametrize(
+    "d,takes", [(128, True), (64, True), (96, False), (16, False), (256, False), (80, False)],
+)
+def test_flash_decode_kernel_contract(d, takes):
+    assert tdec.flash_decode_kernel_takes(d) is takes
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize(
+    "d,dtype,takes", [(128, torch.bfloat16, True), (96, torch.bfloat16, False),
+                      (128, torch.float32, True)],
+)
+def test_decode_attention_routes_by_the_kernel_contract(d, dtype, takes, paged):
+    # as above, on meta tensors: the kernel wrapper refuses them, the plain
+    # route (over a gathered dense view when paged) answers
+    q = torch.empty((2, 4, 1, d), dtype=dtype, device="meta")
+    cache = torch.empty((6 if paged else 2, 2, 16, d), dtype=dtype, device="meta")
+    tables = torch.zeros((2, 3), dtype=torch.int32, device="meta") if paged else None
+    kw = dict(kv_lengths=torch.full((2,), 9, device="meta"), block_tables=tables)
+    if takes:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tdec.decode_attention(q, cache, cache, **kw)
+    else:
+        assert tdec.decode_attention(q, cache, cache, **kw).shape == q.shape
 
 
 # ---------------------------------------------------------------------------
