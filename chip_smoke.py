@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
      llark_tpu_torch/csrc/ (nvcc, one process per source, in parallel);
-     how the device time of the two quantized products at the reported
-     shape divides between the product and the combine kernel;
+     the device time of the two quantized products at the reported shape
+     by kernel (one kernel each);
   2. flash-prefill kernel vs its plain PyTorch version (bf16, seeded), at
      the shape batch_infer gives it (batch 1) and at batch 4, held per
      query row: |kernel - plain| / |plain| over the head dim (L2);
@@ -51,7 +51,11 @@ Phases, in order; any failure exits non-zero before the final line:
      path's shape ([2, 32, 1024, 128] bf16, causal, kv_lengths [1024, 700])
      and with GQA + ALiBi and head_dim 64: the forward's log-sum-exp and
      the flash backward's dq, dk and dv (one call: delta, the products,
-     dq's rounding);
+     dq's rounding); then every kernel on fp32 inputs against its fp32
+     plain version, each launch counted: K1 with and without its
+     log-sum-exp and K3+K4 at the training shape and at head_dim 64 with
+     GQA + ALiBi, K2 with an fp32 or int8 cache, dense or paged, and K5 / K6
+     at M = 1, 9, 17, 65, 2048 (one per switch of their tiles);
   9. one training step's loss and projector gradient at 7B width, 2 layers,
      through the flash kernels and through the plain attention path (2
      flash backward launches);
@@ -76,8 +80,9 @@ Phases, in order; any failure exits non-zero before the final line:
  13. the two weight-only quantized products (int8, int4 with 128-row groups)
      against their plain versions, bf16, weights quantized from seeded
      randn * 0.02: (K, N) in (4096, 4096), (4096, 11008), (11008, 4096) x
-     M in 1, 8, 293, 384, 2048 (chunked admission, 8 x 256), 4096, and a
-     ragged case (M 5, K 256, N 1000);
+     M in 1, 8, 9, 16, 17, 64, 65 (both sides of each switch of the
+     kernel's tiles), 293, 384, 2048 (chunked admission, 8 x 256), 4096,
+     and a ragged case (M 5, K 256, N 1000);
      each held per output row, |kernel - plain| / |plain| (L2 over N);
  14. serving from quantized weights at full Llama-2-7B width, 32 layers:
      bf16 params from the seed, quantized on the card
@@ -100,7 +105,8 @@ Phases, in order; any failure exits non-zero before the final line:
  16. timings of the two quantized products at the three (K, N) and M in 1,
      8, 384, 2048, 4096 beside their plain versions, their bounds, and two
      yardsticks that are not the same function: `torch.matmul` on a bf16
-     copy of the weight, and dequantize-then-matmul; what one quantized
+     copy of the weight, and dequantize-then-matmul; at M = 1 and 8 also
+     with a clean cold L2 (`flush_l2(clean=True)`); what one quantized
      projection costs the host to enqueue; and, where the installed torch
      runs them on CUDA, `torch._weight_int8pack_mm` and
      `torch._weight_int4pack_mm` at the reported shape and at M = 2048,
@@ -243,25 +249,32 @@ def bf16_randn(gen: torch.Generator, *shape) -> torch.Tensor:
 _FLUSH = None
 
 
-def flush_l2() -> None:
-    """A 256 MB write: the next kernel finds the 50 MB L2 cache cold."""
+def flush_l2(clean: bool = False) -> None:
+    """A 256 MB write: the next kernel finds the 50 MB L2 cache cold. The
+    cache then holds ~50 MB of dirty lines, which the next kernel's reads
+    write back to device memory first (a bytes-bound kernel pays ~15 us for
+    them at 3.35 TB/s). With `clean`, a read of the same 256 MB follows: the
+    cache is cold and clean, as a layer of the model finds it after a
+    projection that only read its weights."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     _FLUSH.zero_()
+    if clean:
+        _FLUSH.sum()
 
 
-def median_ms(fn, n: int = N_TIMED) -> float:
+def median_ms(fn, n: int = N_TIMED, clean: bool = False) -> float:
     """Median device time of fn over n runs, from CUDA events. Before each
     run a 256 MB write leaves the L2 cache cold (as a layer of the model
-    finds it), and a sleep kernel keeps the card busy while the host
-    enqueues fn, so the events time the device work and not the Python
-    around the launch."""
+    finds it; `clean`: and holding no dirty line, see flush_l2), and a sleep
+    kernel keeps the card busy while the host enqueues fn, so the events
+    time the device work and not the Python around the launch."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
-        flush_l2()
+        flush_l2(clean)
         torch.cuda._sleep(4_000_000)  # ~2 ms at 1.98 GHz
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -989,9 +1002,12 @@ def check_wq_matmul(gen: torch.Generator):
     """Both quantized products against their plain versions at the shapes
     the quantized serving path gives them (decode of one request and of 8
     slots, prefill of one request ragged and padded, chunked admission of
-    8 x 256, one-shot admission of 8 x 512) and at a ragged shape. The worst max |diff| per kernel."""
+    8 x 256, one-shot admission of 8 x 512), at an M on each side of every
+    switch of the kernel's tiles (8 | 9, 16 | 17, 64 | 65), and at a ragged
+    shape. The worst max |diff| per kernel."""
     worst = {"int8_matmul": 0.0, "int4_matmul": 0.0}
-    cases = [(k, n, (1, 8, 293, 384, 2048, 4096)) for k, n in WQ_SHAPES] + [(256, 1000, (5,))]
+    cases = [(k, n, (1, 8, 9, 16, 17, 64, 65, 293, 384, 2048, 4096)) for k, n in WQ_SHAPES]
+    cases.append((256, 1000, (5,)))
     for k, n, ms in cases:
         w8, w4, _ = wq_case(gen, k, n)
         for m in ms:
@@ -1060,6 +1076,14 @@ def time_wq_matmul(gen: torch.Generator):
                       f"{bound_ms / ms:.1%} of bound; not the same function: torch.matmul on a "
                       f"bf16 copy of the weight {bf16_ms:.4f} ms, int8 dequantize-then-matmul "
                       f"{deq_ms:.4f} ms")
+                if m <= 8:
+                    # decode shapes are bound by bytes: also with no dirty
+                    # line in the cold L2 (flush_l2)
+                    clean_ms = median_ms(lambda: wq_run(fmt, x, wq), clean=True)
+                    clean_bf16 = median_ms(lambda: torch.matmul(x, wb), clean=True)
+                    print(f"  with a clean cold L2: kernel {clean_ms:.4f} ms, "
+                          f"{bound_ms / clean_ms:.1%} of bound; torch.matmul on a bf16 copy "
+                          f"{clean_bf16:.4f} ms")
                 if (m, k, n) == WQ_REPORT:
                     report[fmt] = (ms, plain_ms, (bound_ms, bound_by))
     return report, times
@@ -1129,12 +1153,12 @@ def time_wq_library(gen: torch.Generator, kernel_ms: dict, shapes=WQ_LIBRARY_SHA
 
 
 def print_wq_kernel_split(n: int = 10) -> None:
-    """How each quantized product's device time at WQ_REPORT divides between
-    its launches (the product and the combine of a split contraction): the
-    mean device time of each kernel over n runs, L2 flushed, by name, from
-    torch.profiler. Runs first, on inputs from a seed of its own: late in
-    the script the profiler returned no device events for a window this
-    short."""
+    """Each quantized product's device time at WQ_REPORT by kernel: the mean
+    device time of each kernel over n runs, L2 flushed, by name, from
+    torch.profiler. One kernel a product: a split contraction is combined
+    inside it by the last block of each output tile. Runs first, on inputs
+    from a seed of its own: late in the script the profiler returned no
+    device events for a window this short."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1221,6 +1245,117 @@ def check_int4_cols(cfg: ModelConfig) -> None:
     check(rel <= LOGITS_TOL, f"int4 cols logits rel err {rel:.3e} > {LOGITS_TOL}")
     del params, dense
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8 (fp32): every kernel on fp32 inputs
+# ---------------------------------------------------------------------------
+
+# The kernels round fp32 q, k, v, dO (K1, K3+K4) and x (K5, K6) to bf16 as
+# they stage them, for bf16 products with fp32 accumulators, and write fp32
+# outputs; K2 reads fp32 as it is. Each is held against its fp32 plain
+# version at the bf16 kernels' per-row gates (ROW_TOL). The log-sum-exp then
+# carries the rounding of the scores (q.k of bf16-rounded operands, about
+# 2**-8 of |s| each) and is held to FP32_LSE_TOL, absolute: an H100 80GB
+# HBM3 at 700 W read 5.3e-3 and 6.5e-3 on random [2, 8, 200, 64 | 128]
+# inputs (PERF.md). FP32_BWD_NOTE: the rounding of q, k, v, dO alone moves a
+# dq row near cancellation by up to 8.5e-2 of its norm (the plain version on
+# rounded against unrounded operands, [2, 32, 1024, 128], PERF.md), so the
+# backward's per-row gate holds it against its plain version on the rounded
+# operands, and against the unrounded ones relative to max (BWD_TOL).
+FP32_LSE_TOL = 2e-2
+
+
+def fp32_randn(gen: torch.Generator, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def check_fp32_kernels(gen: torch.Generator) -> None:
+    """K1 (with and without its log-sum-exp), K3+K4, K2 in all four cache
+    modes, K5 and K6 on fp32 inputs against their fp32 plain versions, each
+    launch counted."""
+    def launched(fn, counter, before):
+        out = fn()
+        torch.cuda.synchronize()
+        check(counter() > before, "an fp32 call did not launch its kernel")
+        return out
+
+    b, h, s, d = 2, 32, 1024, 128
+    kv = torch.tensor(TRAIN_LENGTHS, device="cuda")
+    for hkv, dd, alibi in ((h, d, False), (8, 64, True)):
+        q, do = fp32_randn(gen, b, h, s, dd), fp32_randn(gen, b, h, s, dd)
+        k, v = fp32_randn(gen, b, hkv, s, dd), fp32_randn(gen, b, hkv, s, dd)
+        kw = dict(causal=True, kv_lengths=kv, slopes=attn_ops.alibi_slopes(h, "cuda") if alibi else None)
+        name = f"fp32 [{b},{h},{s},{dd}] Hkv={hkv}{' ALiBi' if alibi else ''}"
+        fwd = attn_ops.flash_attention_fwd
+        got = launched(lambda: fwd(q, k, v, **kw), lambda: fwd.launches, fwd.launches)
+        out, lse = launched(lambda: fwd(q, k, v, return_lse=True, **kw), lambda: fwd.launches,
+                            fwd.launches)
+        check(got.dtype == torch.float32 and out.dtype == torch.float32, f"fp32 K1 output is {got.dtype}")
+        want, lse_p = attn_ops._flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+        check_close("flash_fwd", name, got, want)
+        lse_err = (lse - lse_p).abs().max().item()
+        print(f"flash_fwd log-sum-exp {name}: max|d| {lse_err:.3e}")
+        check(lse_err <= FP32_LSE_TOL, f"fp32 log-sum-exp {name}: {lse_err:.3e} > {FP32_LSE_TOL}")
+        bwd = attn_ops.flash_attention_bwd
+        grads = launched(lambda: bwd(q, k, v, out, lse, do, **kw), lambda: bwd.launches, bwd.launches)
+        plain = attn_ops._flash_bwd_plain(q, k, v, do, lse, attn_ops._flash_bwd_delta(out, do), **kw)
+        # the per-row gate against the plain version on the operands rounded
+        # as the kernel rounds them (FP32_BWD_NOTE); against the unrounded
+        # ones relative to max
+        qr, kr, vr, dr = (t.to(torch.bfloat16).float() for t in (q, k, v, do))
+        rounded = attn_ops._flash_bwd_plain(qr, kr, vr, dr, lse, attn_ops._flash_bwd_delta(out, dr), **kw)
+        for part, g, w, r in zip(("dq", "dk", "dv"), grads, plain, rounded):
+            check(g.dtype == torch.float32, f"fp32 {part} is {g.dtype}")
+            check_close("flash_bwd", f"{part} {name} (rounded operands)", g, r)
+            rel, _ = rel_err(g, w)
+            row = row_err(g, w, ROW_FLOOR["flash_bwd"])
+            print(f"flash_bwd {part} {name} against the unrounded operands: rel-to-max {rel:.3e}, "
+                  f"worst row {row:.3e} (not gated)")
+            check(rel <= BWD_TOL, f"fp32 {part} {name}: rel-to-max {rel:.3e} > {BWD_TOL}")
+    # K2: q [8,32,1,128] and Sq = 5 with GQA, fp32 or int8 caches, dense
+    # and paged (128-token blocks, scattered tables)
+    dec = dec_ops.flash_decode_attention
+    lengths = torch.tensor(SERVE_LENGTHS, device="cuda")
+    for cache in ("fp32", "int8"):
+        for paged in (False, True):
+            for sq, hkv in ((1, 32), (5, 8)):
+                q = fp32_randn(gen, 8, 32, sq, 128)
+                k, v = fp32_randn(gen, 8, hkv, 2048, 128), fp32_randn(gen, 8, hkv, 2048, 128)
+                kw = dict(kv_lengths=lengths, q_positions=lengths - sq, k_scale=None, v_scale=None,
+                          block_tables=None)
+                if cache == "int8":
+                    k, kw["k_scale"] = _quantize_kv(k)
+                    v, kw["v_scale"] = _quantize_kv(v)
+                if paged:
+                    perm = torch.randperm(8 * 16, generator=gen, device="cuda")
+                    kw["block_tables"] = perm.reshape(8, 16).to(torch.int32)
+                    def pool(t):
+                        blocks = t.reshape(8, hkv, 16, 128, *t.shape[3:]).transpose(1, 2)
+                        blocks = blocks.reshape(8 * 16, hkv, 128, *t.shape[3:])
+                        out = torch.empty_like(blocks)
+                        out[perm] = blocks
+                        return out
+                    k, v = pool(k), pool(v)
+                    if cache == "int8":
+                        kw["k_scale"], kw["v_scale"] = pool(kw["k_scale"]), pool(kw["v_scale"])
+                mode = ("paged_" if paged else "dense_") + cache
+                before = dec.launches_by_mode[mode]
+                got = launched(lambda: dec(q, k, v, **kw), lambda: dec.launches_by_mode[mode], before)
+                want = dec_ops._flash_decode_plain(q, k, v, slopes=None, **kw)
+                check(got.dtype == torch.float32, f"fp32 K2 output is {got.dtype}")
+                check_close("flash_decode", f"fp32 q, {mode} cache, Sq={sq} Hkv={hkv}", got, want)
+    # K5, K6: each regime at a 7B projection
+    k_, n_ = WQ_SHAPES[0]
+    w8, w4, _ = wq_case(gen, k_, n_)
+    for m in (1, 9, 17, 65, 2048):
+        x = fp32_randn(gen, m, k_)
+        for fmt, wq in (("int8", w8), ("int4", w4)):
+            fn = WQ_KERNELS[fmt]
+            got = launched(lambda: wq_run(fmt, x, wq), lambda: fn.launches, fn.launches)
+            check(got.dtype == torch.float32, f"fp32 {fmt} output is {got.dtype}")
+            check_close(f"{fmt}_matmul", f"fp32 M={m} (K,N)=({k_},{n_})", got,
+                        wq_run(fmt, x, wq, plain=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1530,6 +1665,7 @@ def main() -> int:
     check_int4_cols(cfg)
 
     bwd_err = check_flash_bwd(gen)
+    check_fp32_kernels(gen)
     train_cfg = ModelConfig.llama2_7b()  # fp32 parameters, bf16 compute, remat
     with tempfile.TemporaryDirectory() as tmp:
         shard = write_shards(tmp, train_cfg)

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): one pass over the visible
-// (key tile, query tile) pairs that yields dq, dk and dv, bf16 in, fp32
-// accumulate, on wgmma.
+// (key tile, query tile) pairs that yields dq, dk and dv, bf16 or fp32 in
+// (fp32 q, k, v, dO rounded to bf16 as they are staged; O read as it is),
+// fp32 accumulate, on wgmma, the gradients in the inputs' dtype.
 //
 // Replaces the TPU kernels llark_tpu/ops/attention.py `_flash_bwd_dq_kernel`
 // and `_flash_bwd_dkv_kernel` (called at :536 and :570) and the delta
@@ -93,30 +94,88 @@ struct Strides {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s, do_b, do_h, do_s;
 };
 
-// rows [r0, r0 + ROWS) of a [*, D] bf16 matrix (row stride ss) into a
-// core-matrix tile, asynchronously; rows at or past `limit` are zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src, long long ss,
+// rows [r0, r0 + ROWS) of a [*, D] matrix (row stride ss) into a bf16
+// core-matrix tile; rows at or past `limit` are zeros. bf16 (T = bf16):
+// cp.async copies, waited for with the block's cp.async groups. fp32: every
+// chunk (8 values, two 16-byte loads) of a round is loaded into registers
+// before the first store, converted to bf16 and stored; the block's
+// fence_proxy_async and barrier before the products cover the stores.
+template <class T, int D, int ROWS>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const T* src, long long ss,
                                           int r0, int limit) {
   constexpr int CH = D / 8;
+  constexpr int N = ROWS * CH / NT;
   static_assert(ROWS * CH % NT == 0, "whole copy rounds");
+  auto row_of = [](int i) { return ((i >> 3) / CH) * 8 + (i & 7); };
+  auto col_of = [](int i) { return ((i >> 3) % CH) * 8; };
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int it = 0; it < ROWS * CH / NT; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int rest = i >> 3;
-    const int r = (rest / CH) * 8 + (i & 7);
-    const bool ok = r0 + r < limit;
-    const bf16* p = ok ? src + (long long)(r0 + r) * ss + (rest % CH) * 8 : src;
-    cp_async16(dst + i * 16, p, ok);
+    for (int it = 0; it < N; ++it) {
+      const int i = threadIdx.x + it * NT;
+      const int r = row_of(i);
+      const bool ok = r0 + r < limit;
+      const T* p = ok ? src + (long long)(r0 + r) * ss + col_of(i) : src;
+      cp_async16(dst + i * 16, p, ok);
+    }
+  } else {
+    constexpr int R = N < 4 ? N : 4;  // chunks a round, to bound the registers
+#pragma unroll
+    for (int it0 = 0; it0 < N; it0 += R) {
+      float4 v[R][2];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (it0 + u) * NT;
+        const int r = row_of(i);
+        v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r0 + r < limit) {
+          const float4* p = reinterpret_cast<const float4*>(src + (long long)(r0 + r) * ss + col_of(i));
+          v[u][0] = p[0];
+          v[u][1] = p[1];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (it0 + u) * NT;
+        *reinterpret_cast<uint4*>(dst + i * 16) = tiles::pack_f8(v[u][0], v[u][1]);
+      }
+    }
   }
 }
 
-template <int D>
+// 8 neighbouring values of a bf16 or fp32 row as floats; with `as_bf16`
+// fp32 values are rounded to bf16 first, as the products see them
+__device__ __forceinline__ void load8f(float (&f)[8], const bf16* p, bool) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x, f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load8f(float (&f)[8], const float* p, bool as_bf16) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  if (as_bf16) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(__float2bfloat16(f[i]));
+  }
+}
+
+// two neighbouring values into a bf16 or fp32 row
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+template <class T, int D>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
                  const int* __restrict__ kv_lengths, const float* __restrict__ slopes,
                  int group, int Sq, int Sk, Strides st, int causal, float scale) {
   using P = Plan<D>;
@@ -157,10 +216,10 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto prefetch = [&](int it, int stg) {
     const int h = hk * group + it / per_head;
     const int q0 = (q_first + it % per_head) * BQ;
-    copy_tile<D, BQ>(smem + P::q_off + stg * P::q_tile, q + b * st.q_b + h * st.q_h, st.q_s,
-                     q0, Sq);
-    copy_tile<D, BQ>(smem + P::do_off + stg * P::q_tile, dout + b * st.do_b + h * st.do_h,
-                     st.do_s, q0, Sq);
+    copy_tile<T, D, BQ>(smem + P::q_off + stg * P::q_tile, q + b * st.q_b + h * st.q_h, st.q_s,
+                        q0, Sq);
+    copy_tile<T, D, BQ>(smem + P::do_off + stg * P::q_tile, dout + b * st.do_b + h * st.do_h,
+                        st.do_s, q0, Sq);
     if (tid < 2 * BQ) {
       const int i = tid & (BQ - 1);
       const float* src = (tid < BQ ? lse : delta) + ((long long)b * H + h) * Sq;
@@ -193,8 +252,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   if (n_it > 0) {
-    copy_tile<D, BK>(sK, k + b * st.k_b + hk * st.k_h, st.k_s, k0, kv_len);
-    copy_tile<D, BK>(sV, v + b * st.v_b + hk * st.v_h, st.v_s, k0, kv_len);
+    copy_tile<T, D, BK>(sK, k + b * st.k_b + hk * st.k_h, st.k_s, k0, kv_len);
+    copy_tile<T, D, BK>(sV, v + b * st.v_b + hk * st.v_h, st.v_s, k0, kv_len);
     prefetch(0, 0);
     cp_async_commit();
   }
@@ -320,24 +379,24 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (kpos[r] < Sk) {
       const bool live = kpos[r] < kv_len;
-      bf16* krow_p = dk + (out_base + kpos[r]) * D + 2 * t;
-      bf16* vrow_p = dv + (out_base + kpos[r]) * D + 2 * t;
+      T* krow_p = dk + (out_base + kpos[r]) * D + 2 * t;
+      T* vrow_p = dv + (out_base + kpos[r]) * D + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(krow_p + j * 8) = __floats2bfloat162_rn(
-            live ? dk_acc[4 * j + 2 * r] : 0.f, live ? dk_acc[4 * j + 2 * r + 1] : 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(vrow_p + j * 8) = __floats2bfloat162_rn(
-            live ? dv_acc[4 * j + 2 * r] : 0.f, live ? dv_acc[4 * j + 2 * r + 1] : 0.f);
+        store2(krow_p + j * 8, live ? dk_acc[4 * j + 2 * r] : 0.f,
+               live ? dk_acc[4 * j + 2 * r + 1] : 0.f);
+        store2(vrow_p + j * 8, live ? dv_acc[4 * j + 2 * r] : 0.f,
+               live ? dv_acc[4 * j + 2 * r + 1] : 0.f);
       }
     }
   }
 }
 
 // delta = rowsum(dO * O) in fp32, and the dq accumulator's rows zeroed.
-// D / 8 threads per row, each 8 elements (16 bytes) of dO and of O.
-template <int D>
+// D / 8 threads per row, each 8 elements of dO and of O.
+template <class T, int D>
 __global__ void __launch_bounds__(256)
-flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+flash_bwd_pre(const T* __restrict__ out, const T* __restrict__ dout,
               float* __restrict__ delta, float* __restrict__ dq_acc, int H, int Sq,
               long long n_rows, Strides st) {
   constexpr int TPR = D / 8;
@@ -348,17 +407,14 @@ flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
     const long long bh = row / Sq;
     const long long s = row % Sq;
     const long long b = bh / H, h = bh % H;
-    const uint4 o = *reinterpret_cast<const uint4*>(out + b * st.o_b + h * st.o_h + s * st.o_s + c * 8);
-    const uint4 d = *reinterpret_cast<const uint4*>(dout + b * st.do_b + h * st.do_h +
-                                                    s * st.do_s + c * 8);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+    // dO as dP = dO . v^T sees it (rounded to bf16), O as the forward wrote
+    // it: for a row that sees one key, O is that key's rounded v, and
+    // dP - delta is 0 as in exact arithmetic
+    float of[8], df[8];
+    load8f(of, out + b * st.o_b + h * st.o_h + s * st.o_s + c * 8, false);
+    load8f(df, dout + b * st.do_b + h * st.do_h + s * st.do_s + c * 8, true);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 of = __bfloat1622float2(o2[i]);
-      const float2 df = __bfloat1622float2(d2[i]);
-      sum += of.x * df.x + of.y * df.y;
-    }
+    for (int i = 0; i < 8; ++i) sum += of[i] * df[i];
     float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + c * 8);
     acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -387,7 +443,7 @@ Strides unpack(const long long* s) {
                  s[8], s[9], s[10], s[11], s[12], s[13], s[14]};
 }
 
-template <int D>
+template <class T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, float* dq_acc, void* dq,
                    void* dk, void* dv, const int* kv_lengths, const float* slopes, int B,
@@ -396,23 +452,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   const Strides st = unpack(strides);
   const long long n_rows = (long long)B * H * Sq;
   constexpr int rows_per_block = 256 / (D / 8);
-  flash_bwd_pre<D><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), 256, 0, stream>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, dq_acc, H, Sq,
-      n_rows, st);
+  flash_bwd_pre<T, D><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), 256, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, dq_acc, H, Sq, n_rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t smem = Plan<D>::bytes;
-  err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, B, (Sk + BK - 1) / BK);
-  flash_bwd_kernel<D><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, dq_acc, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), kv_lengths, slopes, H / Hkv, Sq, Sk, st, causal, scale);
+  flash_bwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), kv_lengths, slopes, H / Hkv, Sq, Sk, st, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // fp32: the accumulator is dq itself (dq_acc == dq), nothing to round
+  if (sizeof(T) == 4) return cudaSuccess;
 
   const long long n8 = n_rows * D / 8;
   flash_bwd_dq<<<(unsigned)((n8 + 255) / 256), 256, 0, stream>>>(dq_acc, static_cast<bf16*>(dq),
@@ -423,25 +480,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 }  // namespace
 
 // C entry point, bound with ctypes. q, out, dout [B,H,Sq,D] and k, v
-// [B,Hkv,Sk,D], bf16 with unit stride in D, 16-byte aligned rows; `strides`
-// holds the (batch, head, seq) element strides of q, k, v, out, dout in that
-// order. lse is contiguous [B,H,Sq] fp32. delta [B,H,Sq] and dq_acc
-// [B,H,Sq,D] are contiguous fp32 scratch the kernels fill; dq [B,H,Sq,D]
-// and dk, dv [B,Hkv,Sk,D] are contiguous bf16 outputs. Sq and Sk must be
-// positive. `slopes` may be null (no ALiBi). Returns the first launch's
-// non-zero cudaError_t, else 0.
+// [B,Hkv,Sk,D], all bf16 (f32 = 0) or all fp32 (f32 = 1: rounded to bf16 as
+// they are staged for the products), unit stride in D, 16-byte aligned
+// rows; `strides` holds the (batch, head, seq) element strides of q, k, v,
+// out, dout in that order. lse is contiguous [B,H,Sq] fp32. delta [B,H,Sq]
+// and dq_acc [B,H,Sq,D] are contiguous fp32 scratch the kernels fill; dq
+// [B,H,Sq,D] and dk, dv [B,Hkv,Sk,D] are contiguous outputs in the inputs'
+// dtype (fp32: dq_acc must be dq, which the accumulator then is). Sq and Sk
+// must be positive. `slopes` may be null (no ALiBi). Returns the first
+// launch's non-zero cudaError_t, else 0.
 extern "C" int llark_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                                const void* dout, const float* lse, float* delta, float* dq_acc,
                                void* dq, void* dk, void* dv, const int* kv_lengths,
                                const float* slopes, int B, int H, int Hkv, int Sq, int Sk, int D,
-                               const long long* strides, int causal, float scale,
+                               const long long* strides, int causal, float scale, int f32,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, out, dout, lse, delta, dq_acc, dq, dk, dv, kv_lengths, slopes, B,
-                      H, Hkv, Sq, Sk, strides, causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, out, dout, lse, delta, dq_acc, dq, dk, dv, kv_lengths, slopes,
-                       B, H, Hkv, Sq, Sk, strides, causal, scale, s);
+  if (f32 && dq_acc != dq) return (int)cudaErrorInvalidValue;
+#define BWD_LAUNCH(T, DD)                                                                     \
+  launch<T, DD>(q, k, v, out, dout, lse, delta, dq_acc, dq, dk, dv, kv_lengths, slopes, B, H, \
+                Hkv, Sq, Sk, strides, causal, scale, s)
+  if (D == 64) return f32 ? BWD_LAUNCH(float, 64) : BWD_LAUNCH(bf16, 64);
+  if (D == 128) return f32 ? BWD_LAUNCH(float, 128) : BWD_LAUNCH(bf16, 128);
+#undef BWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Split-KV flash decode for Hopper (sm_90a): short-query attention over a
-// KV cache that is dense or paged, bf16 or int8.
+// KV cache that is dense or paged, in the query's dtype (bf16 or fp32, read
+// as it is: the dots are fp32 on the CUDA cores) or int8.
 //
 // Replaces the TPU kernels llark_tpu/ops/decode_attention.py
 // `_decode_kernel_all_heads` (all_heads=True) and `_decode_kernel`
@@ -26,7 +27,7 @@
 // the tensor cores would idle on memory anyway.
 //
 // The cache modes change only how a split stages its rows (one template
-// per (D, INT8, PAGED)):
+// per (D, q's dtype, the cache's dtype, PAGED)):
 //  * int8 (the TPU kernel's `quant`): K and V are read as int8, 16 values
 //    per 16-byte load, with fp32 per-position scales staged beside them.
 //    Scores are (q.k) * k_scale, then ALiBi, then the mask; m and l come
@@ -69,7 +70,11 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+__device__ __forceinline__ void from_float(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
 
 // Byte strides of one cache operand (k, v, or a scale tensor): dense
 // [B, Hkv, S(, D)] takes (batch, head, position); a paged pool
@@ -78,9 +83,8 @@ struct Strides {
   long long outer, head, pos;
 };
 
-template <int D, bool INT8>
+template <int D, class T>
 struct Smem {
-  typedef typename std::conditional<INT8, int8_t, bf16>::type T;
   static constexpr size_t kv_bytes = 2 * size_t(TK) * D * sizeof(T);
   static constexpr size_t p_off = kv_bytes + size_t(MAX_ROWS) * D * 4;
   static constexpr size_t bytes = p_off + size_t(MAX_ROWS) * TK * 4;
@@ -101,10 +105,11 @@ __device__ __forceinline__ long long row_offset(const Strides& st, const int* ta
   return (long long)b * st.outer + hk * st.head + (long long)p * st.pos;
 }
 
-// Block: D threads (D/32 warps). Thread d owns output dimension d.
-template <int D, bool INT8, bool PAGED>
+// Block: D threads (D/32 warps). Thread d owns output dimension d. QT: q's
+// dtype (bf16 or fp32); T: the cache's (q's, or int8 with scales).
+template <int D, class QT, class T, bool PAGED>
 __global__ void __launch_bounds__(D)
-decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
+decode_split_kernel(const QT* __restrict__ q, const char* __restrict__ k,
                     const char* __restrict__ v, const char* __restrict__ k_scale,
                     const char* __restrict__ v_scale, const int* __restrict__ tables,
                     const int* __restrict__ kv_lengths, const int* __restrict__ q_positions,
@@ -113,7 +118,7 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
                     int Hkv, int Sq, int S, int n_splits, int row_chunks, int bs,
                     int max_blocks, int n_pool, long long q_sb, long long q_sh,
                     long long q_ss, Strides k_st, Strides v_st, Strides ks_st, Strides vs_st, float scale) {
-  typedef typename Smem<D, INT8>::T T;
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
   constexpr int NW = D / 32;
   constexpr int E = D / 32;  // key elements per lane in the score dot
   const int split = blockIdx.x;
@@ -133,7 +138,7 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + TK * D;
   float (*sQ)[D] = reinterpret_cast<float (*)[D]>(smem + 2 * size_t(TK) * D * sizeof(T));
-  float (*sP)[TK] = reinterpret_cast<float (*)[TK]>(smem + Smem<D, INT8>::p_off);
+  float (*sP)[TK] = reinterpret_cast<float (*)[TK]>(smem + Smem<D, T>::p_off);
   __shared__ int sQpos[MAX_ROWS];
   __shared__ float sSlope[MAX_ROWS];
   __shared__ float sM[MAX_ROWS];
@@ -184,7 +189,7 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
     if (r < rows) {
       const int g = (row0 + r) / Sq;
       const int j = (row0 + r) % Sq;
-      qv[r] = __bfloat162float(q[b * q_sb + (hk * group + g) * q_sh + j * q_ss + tid]);
+      qv[r] = to_float(q[b * q_sb + (hk * group + g) * q_sh + j * q_ss + tid]);
     }
   }
 #pragma unroll
@@ -275,12 +280,12 @@ decode_split_kernel(const bf16* __restrict__ q, const char* __restrict__ k,
 }
 
 // Merge the live splits of one (batch row, head, query position).
-template <int D>
+template <int D, class QT>
 __global__ void __launch_bounds__(D)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_m,
                       const float* __restrict__ part_l,
-                      const int* __restrict__ kv_lengths, bf16* __restrict__ out,
+                      const int* __restrict__ kv_lengths, QT* __restrict__ out,
                       int H, int Sq, int S, int n_splits) {
   const int j = blockIdx.x;
   const int h = blockIdx.y;
@@ -303,7 +308,7 @@ decode_combine_kernel(const float* __restrict__ part_acc,
     }
   }
   // a row that saw no key writes zeros
-  out[(((long long)b * H + h) * Sq + j) * D + tid] = __float2bfloat16(l > 0.f ? a / l : 0.f);
+  from_float(out + (((long long)b * H + h) * Sq + j) * D + tid, l > 0.f ? a / l : 0.f);
 }
 
 struct Args {
@@ -317,20 +322,20 @@ struct Args {
   float scale;
 };
 
-template <int D, bool INT8, bool PAGED>
+template <int D, class QT, class T, bool PAGED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n_splits = (a.S + TK - 1) / TK;
   const int rows = (a.H / a.Hkv) * a.Sq;
   const int row_chunks = (rows + MAX_ROWS - 1) / MAX_ROWS;
   dim3 grid(n_splits, a.Hkv * row_chunks, a.B);
-  const size_t smem = Smem<D, INT8>::bytes;
-  auto kernel = decode_split_kernel<D, INT8, PAGED>;
+  const size_t smem = Smem<D, T>::bytes;
+  auto kernel = decode_split_kernel<D, QT, T, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long* st = a.st;
   kernel<<<grid, D, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const char*>(a.k),
+      static_cast<const QT*>(a.q), static_cast<const char*>(a.k),
       static_cast<const char*>(a.v), static_cast<const char*>(a.k_scale),
       static_cast<const char*>(a.v_scale), a.tables, a.kv_lengths, a.q_positions,
       a.slopes, a.part_acc, a.part_m, a.part_l, a.H, a.Hkv, a.Sq, a.S, n_splits,
@@ -339,17 +344,22 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<D><<<dim3(a.Sq, a.H, a.B), D, 0, stream>>>(
-      a.part_acc, a.part_m, a.part_l, a.kv_lengths, static_cast<bf16*>(a.out), a.H,
+  decode_combine_kernel<D, QT><<<dim3(a.Sq, a.H, a.B), D, 0, stream>>>(
+      a.part_acc, a.part_m, a.part_l, a.kv_lengths, static_cast<QT*>(a.out), a.H,
       a.Sq, a.S, n_splits);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_mode(const Args& a, bool int8, bool paged, cudaStream_t s) {
+template <int D, class QT>
+cudaError_t launch_cache(const Args& a, bool int8, bool paged, cudaStream_t s) {
   if (int8)
-    return paged ? launch<D, true, true>(a, s) : launch<D, true, false>(a, s);
-  return paged ? launch<D, false, true>(a, s) : launch<D, false, false>(a, s);
+    return paged ? launch<D, QT, int8_t, true>(a, s) : launch<D, QT, int8_t, false>(a, s);
+  return paged ? launch<D, QT, QT, true>(a, s) : launch<D, QT, QT, false>(a, s);
+}
+
+template <int D>
+cudaError_t launch_mode(const Args& a, bool f32, bool int8, bool paged, cudaStream_t s) {
+  return f32 ? launch_cache<D, float>(a, int8, paged, s) : launch_cache<D, bf16>(a, int8, paged, s);
 }
 
 }  // namespace
@@ -357,19 +367,19 @@ cudaError_t launch_mode(const Args& a, bool int8, bool paged, cudaStream_t s) {
 // Number of KV splits for a cache of S logical positions (sizes the partials).
 extern "C" int llark_flash_decode_splits(int S) { return (S + TK - 1) / TK; }
 
-// C entry point, bound with ctypes. q [B,H,Sq,D] bf16 (element strides in
-// `strides[0..2]`). k/v: a dense cache [B,Hkv,S,D] or, with `tables`
-// non-null, a pool [n_pool,Hkv,bs,D] read through int32 tables
-// [B,max_blocks] (S = max_blocks * bs; block ids are clipped to
-// [0, n_pool)); bf16, or int8 with fp32 scales k_scale/v_scale
+// C entry point, bound with ctypes. q [B,H,Sq,D] bf16 (f32 = 0) or fp32
+// (f32 = 1), element strides in `strides[0..2]`. k/v: a dense cache
+// [B,Hkv,S,D] or, with `tables` non-null, a pool [n_pool,Hkv,bs,D] read
+// through int32 tables [B,max_blocks] (S = max_blocks * bs; block ids are
+// clipped to [0, n_pool)); in q's dtype, or int8 with fp32 scales k_scale/v_scale
 // [B,Hkv,S] (paged: [n_pool,Hkv,bs]); unit stride in D, rows 16-byte
 // aligned. kv_lengths count live positions per row and are clamped to
 // [0, S]; positions past a row's length are never read.
 // `strides[3..14]` hold the (outer, head, position) BYTE strides of k, v,
 // k_scale and v_scale in that order. Partials: part_acc
 // [B,H,Sq,splits,D], part_m/part_l [B,H,Sq,splits] fp32. out is a
-// contiguous [B,H,Sq,D] bf16 tensor. `slopes` may be null. Returns the
-// launches' cudaError_t.
+// contiguous [B,H,Sq,D] tensor in q's dtype. `slopes` may be null. Returns
+// the launches' cudaError_t.
 extern "C" int llark_flash_decode(const void* q, const void* k, const void* v,
                                   const void* k_scale, const void* v_scale,
                                   const int* tables, const int* kv_lengths,
@@ -377,14 +387,14 @@ extern "C" int llark_flash_decode(const void* q, const void* k, const void* v,
                                   float* part_acc, float* part_m, float* part_l, void* out,
                                   int B, int H, int Hkv, int Sq, int S, int D, int bs,
                                   int max_blocks, int n_pool, const long long* strides,
-                                  float scale, void* stream) {
+                                  float scale, int f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, k_scale, v_scale, tables, kv_lengths, q_positions, slopes,
                part_acc, part_m, part_l, out, B, H, Hkv, Sq, S, bs, max_blocks,
                n_pool, strides, scale};
   const bool int8 = k_scale != nullptr;
   const bool paged = tables != nullptr;
-  if (D == 64) return launch_mode<64>(a, int8, paged, s);
-  if (D == 128) return launch_mode<128>(a, int8, paged, s);
+  if (D == 64) return launch_mode<64>(a, f32, int8, paged, s);
+  if (D == 128) return launch_mode<128>(a, f32, int8, paged, s);
   return (int)cudaErrorInvalidValue;
 }

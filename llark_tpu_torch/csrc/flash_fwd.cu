@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax state,
-// both products on wgmma.
+// Flash-attention forward for Hopper (sm_90a), bf16 or fp32 in (fp32 q, k,
+// v rounded to bf16 as they are staged, o written in fp32), fp32 softmax
+// state, both products on wgmma.
 //
 // Replaces the TPU kernel llark_tpu/ops/attention.py `_flash_fwd_kernel`
 // (reached through `flash_attention_fwd`, called at :319): blocked
@@ -107,21 +108,52 @@ __device__ __forceinline__ int swizzled(int hc, int r, int c) {
   return hc * ROWS * 128 + r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// rows [r0, r0 + ROWS) of a [*, D] bf16 matrix (row stride ss) into a
-// swizzled tile, asynchronously; rows at or past `limit` are zeros. A warp
-// copies whole 128-byte rows: 4 rows, 8 chunks each. NT: the block's threads.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src, long long ss,
+// rows [r0, r0 + ROWS) of a [*, D] matrix (row stride ss) into a swizzled
+// bf16 tile; rows at or past `limit` are zeros. A warp fills whole 128-byte
+// rows: 4 rows, 8 chunks each. NT: the block's threads. bf16 (T = bf16):
+// cp.async copies, which arrive on the stage's barrier when they land. fp32:
+// every chunk (8 values, two 16-byte loads) is loaded into registers before
+// the first store, converted to bf16 and stored, and the stores are fenced
+// for wgmma's reads; the caller then arrives on the barrier itself.
+template <class T, int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const T* src, long long ss,
                                           int r0, int limit) {
   constexpr int N = ROWS * D / 8;
   static_assert(N % NT == 0, "whole copy rounds");
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int it = 0; it < N / NT; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int hc = i / (ROWS * 8), r = (i / 8) % ROWS, c = i % 8;
-    const bool ok = r0 + r < limit;
-    const bf16* p = ok ? src + (long long)(r0 + r) * ss + hc * 64 + c * 8 : src;
-    cp_async16(dst + swizzled<ROWS>(hc, r, c), p, ok);
+    for (int it = 0; it < N / NT; ++it) {
+      const int i = threadIdx.x + it * NT;
+      const int hc = i / (ROWS * 8), r = (i / 8) % ROWS, c = i % 8;
+      const bool ok = r0 + r < limit;
+      const T* p = ok ? src + (long long)(r0 + r) * ss + hc * 64 + c * 8 : src;
+      cp_async16(dst + swizzled<ROWS>(hc, r, c), p, ok);
+    }
+  } else {
+    // in rounds of at most 4 chunks a thread, to bound the registers
+    constexpr int R = N / NT < 4 ? N / NT : 4;
+#pragma unroll
+    for (int it0 = 0; it0 < N / NT; it0 += R) {
+      float4 v[R][2];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (it0 + u) * NT;
+        const int hc = i / (ROWS * 8), r = (i / 8) % ROWS, c = i % 8;
+        v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r0 + r < limit) {
+          const float4* p = reinterpret_cast<const float4*>(src + (long long)(r0 + r) * ss + hc * 64 + c * 8);
+          v[u][0] = p[0];
+          v[u][1] = p[1];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (it0 + u) * NT;
+        const int hc = i / (ROWS * 8), r = (i / 8) % ROWS, c = i % 8;
+        *reinterpret_cast<uint4*>(dst + swizzled<ROWS>(hc, r, c)) = tiles::pack_f8(v[u][0], v[u][1]);
+      }
+    }
+    fence_proxy_async();
   }
 }
 
@@ -141,16 +173,17 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   }
 }
 
-template <int D, int NWG>
+template <class T, int D, int NWG>
 __global__ void __launch_bounds__(128 * NWG, MIN_BLOCKS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ kv_lengths, const float* __restrict__ slopes,
                  int group, int Sq, int Sk, Strides st, int causal, float scale2) {
   constexpr int NT = 128 * NWG;
   constexpr int BQ = 64 * NWG;  // query rows per block
   using P = Plan<D, BQ>;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int CH = D / 8;  // 16-byte chunks per bf16 row
+  constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* sQ = smem + P::q_off;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::bar_off);
@@ -172,8 +205,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;
   const int kv_len = min(max(kv_lengths[b], 0), Sk);
   const float slope2 = slopes != nullptr ? fabsf(slopes[h]) * LOG2E : 0.f;
-  const bf16* kb = k + b * st.k_b + hk * st.k_h;
-  const bf16* vb = v + b * st.v_b + hk * st.v_h;
+  const T* kb = k + b * st.k_b + hk * st.k_h;
+  const T* vb = v + b * st.v_b + hk * st.v_h;
 
   // keys at or past the row's live length, or (causal) past the block's
   // last query, are never read
@@ -195,12 +228,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load = [&](int tile) {
     const int stg = tile % STAGES;
     if (tile >= STAGES) mbar_wait(empty + stg, (tile / STAGES - 1) & 1);
-    copy_tile<D, BK, NT>(smem + P::k_off + stg * P::kv_tile, kb, st.k_s, tile * BK, kv_len);
-    copy_tile<D, BK, NT>(smem + P::v_off + stg * P::kv_tile, vb, st.v_s, tile * BK, kv_len);
-    cp_async_arrive(full + stg);
+    copy_tile<T, D, BK, NT>(smem + P::k_off + stg * P::kv_tile, kb, st.k_s, tile * BK, kv_len);
+    copy_tile<T, D, BK, NT>(smem + P::v_off + stg * P::kv_tile, vb, st.v_s, tile * BK, kv_len);
+    if constexpr (F32) {
+      mbar_arrive(full + stg);
+    } else {
+      cp_async_arrive(full + stg);
+    }
   };
   if (n_tiles > 0) {
-    copy_tile<D, BQ, NT>(sQ, q + b * st.q_b + h * st.q_h, st.q_s, q0, Sq);
+    copy_tile<T, D, BQ, NT>(sQ, q + b * st.q_b + h * st.q_h, st.q_s, q0, Sq);
     load(0);
   }
 
@@ -303,15 +340,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (lane == 0) mbar_arrive(empty + stg);
   }
 
-  // normalise (a row that saw no key, l == 0, writes zeros) into this
-  // warpgroup's own rows of the Q tile, in its swizzle, so that neither
+  // normalise (a row that saw no key, l == 0, writes zeros). bf16: into
+  // this warpgroup's own rows of the Q tile, in its swizzle, so that neither
   // these 4-byte writes nor the 16-byte reads below meet a bank twice; then
-  // out in whole 16-byte chunks
+  // out in whole 16-byte chunks. fp32: straight from the registers.
   auto o_at = [&](int row, int c) {
     return sQ + swizzled<BQ>(c / 8, wg * 64 + row, c % 8);
   };
   float* lse_row = lse != nullptr ? lse + ((long long)b * H + h) * Sq : nullptr;
-  warpgroup_sync(wg);  // every warp is done reading its Q rows
+  T* ob = o + b * st.o_b + h * st.o_h;
+  if constexpr (!F32) warpgroup_sync(wg);  // every warp is done reading its Q rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lsum = quad_sum(l[r]);
@@ -322,35 +360,43 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = warp * 16 + g + 8 * r;
 #pragma unroll
     for (int n = 0; n < CH; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(o_at(row, n) + 4 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+      const float x0 = acc[4 * n + 2 * r] * inv, x1 = acc[4 * n + 2 * r + 1] * inv;
+      if constexpr (F32) {
+        if (qpos[r] < Sq) {
+          *reinterpret_cast<float2*>(ob + (long long)qpos[r] * st.o_s + 8 * n + 2 * t) =
+              make_float2(x0, x1);
+        }
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o_at(row, n) + 4 * t) = __floats2bfloat162_rn(x0, x1);
+      }
     }
   }
-  warpgroup_sync(wg);
-  bf16* ob = o + b * st.o_b + h * st.o_h;
+  if constexpr (!F32) {
+    warpgroup_sync(wg);
 #pragma unroll
-  for (int i = tid & 127; i < 64 * CH; i += 128) {
-    const int row = i / CH, c = i % CH;
-    if (wq0 + row < Sq) {
-      *reinterpret_cast<uint4*>(ob + (long long)(wq0 + row) * st.o_s + c * 8) =
-          *reinterpret_cast<const uint4*>(o_at(row, c));
+    for (int i = tid & 127; i < 64 * CH; i += 128) {
+      const int row = i / CH, c = i % CH;
+      if (wq0 + row < Sq) {
+        *reinterpret_cast<uint4*>(ob + (long long)(wq0 + row) * st.o_s + c * 8) =
+            *reinterpret_cast<const uint4*>(o_at(row, c));
+      }
     }
   }
 }
 
-template <int D, int NWG>
+template <class T, int D, int NWG>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o, float* lse,
                       const int* kv_lengths, const float* slopes, int B, int H, int Hkv, int Sq,
                       int Sk, const Strides& st, int causal, float scale, cudaStream_t stream) {
   constexpr int BQ = 64 * NWG;
   const size_t smem = Plan<D, BQ>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
-  flash_fwd_kernel<D, NWG><<<grid, 128 * NWG, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, kv_lengths, slopes, H / Hkv, Sq, Sk, st, causal,
+  flash_fwd_kernel<T, D, NWG><<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, kv_lengths, slopes, H / Hkv, Sq, Sk, st, causal,
       scale * LOG2E);
   return cudaGetLastError();
 }
@@ -358,7 +404,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o, floa
 // Blocks of two warpgroups share each K/V tile between 128 query rows; a
 // grid of them that would leave SMs idle (the serving prefill: 96 blocks on
 // 132 SMs) runs as twice as many blocks of one warpgroup instead.
-template <int D>
+template <class T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* kv_lengths, const float* slopes, int B, int H, int Hkv, int Sq,
                    int Sk, const long long* s, int causal, float scale, cudaStream_t stream) {
@@ -374,31 +420,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
   const long long blocks_of_two = (long long)H * B * ((Sq + 127) / 128);
   if (blocks_of_two < sms[dev]) {
-    return launch_as<D, 1>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk, st, causal,
+    return launch_as<T, D, 1>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk, st, causal,
                            scale, stream);
   }
-  return launch_as<D, 2>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk, st, causal,
+  return launch_as<T, D, 2>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk, st, causal,
                          scale, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. q [B,H,Sq,D], k/v [B,Hkv,Sk,D], o
-// [B,H,Sq,D], all bf16 with unit stride in D and 16-byte aligned rows;
-// `strides` holds the (batch, head, seq) element strides of q, k, v, o in
-// that order. `lse` ([B,H,Sq] fp32, contiguous) and `slopes` may be null
-// (no log-sum-exp, no ALiBi). Returns the launch's cudaError_t.
+// [B,H,Sq,D], all bf16 (f32 = 0) or all fp32 (f32 = 1: rounded to bf16 as
+// they are staged, o written in fp32), with unit stride in D and 16-byte
+// aligned rows; `strides` holds the (batch, head, seq) element strides of
+// q, k, v, o in that order. `lse` ([B,H,Sq] fp32, contiguous) and `slopes`
+// may be null (no log-sum-exp, no ALiBi). Returns the launch's cudaError_t.
 extern "C" int llark_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, const int* kv_lengths,
                                const float* slopes, int B, int H, int Hkv,
                                int Sq, int Sk, int D, const long long* strides,
-                               int causal, float scale, void* stream) {
+                               int causal, float scale, int f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
-                      strides, causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk,
-                       strides, causal, scale, s);
+#define FWD_LAUNCH(T, DD)                                                                   \
+  launch<T, DD>(q, k, v, o, lse, kv_lengths, slopes, B, H, Hkv, Sq, Sk, strides, causal, scale, s)
+  if (D == 64) return f32 ? FWD_LAUNCH(float, 64) : FWD_LAUNCH(bf16, 64);
+  if (D == 128) return f32 ? FWD_LAUNCH(float, 128) : FWD_LAUNCH(bf16, 128);
+#undef FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

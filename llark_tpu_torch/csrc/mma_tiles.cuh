@@ -1,11 +1,5 @@
-// Shared register-level pieces of the kernels: the bf16 mma.sync m16n8k16
-// product and its fragments (wq_matmul.cuh), bf16 packing and the quad
-// reductions of a softmax row (flash_fwd.cu, flash_bwd.cu).
-//
-// mma.m16n8k16 fragments (lane = 4 * g + t): A (16x16, row-major) holds
-// rows g and g+8 at columns 2t, 2t+1 (regs 0, 1) and 2t+8, 2t+9 (regs 2, 3);
-// B (16x8) holds column g at rows 2t, 2t+1 (reg 0) and 2t+8, 2t+9 (reg 1);
-// C (16x8, fp32) holds rows g (c0, c1) and g+8 (c2, c3) at columns 2t, 2t+1.
+// Shared register-level pieces of the kernels: bf16 packing (the wgmma ones)
+// and the quad reductions of a softmax row (flash_fwd.cu, flash_bwd.cu).
 
 #pragma once
 
@@ -17,34 +11,15 @@ typedef __nv_bfloat16 bf16;
 
 namespace tiles {
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a * b on the tensor cores: m16n8k16, bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of 16 rows starting at `row0` of a row-major [*, ld] bf16
-// matrix in shared memory, at columns [col0, col0 + 16).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld,
-                                       int row0, int col0, int g, int t) {
-  const bf16* p = base + (row0 + g) * ld + col0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
+// 8 floats (two float4 of neighbouring values) as 8 bf16s, in order
+__device__ __forceinline__ uint4 pack_f8(const float4& lo, const float4& hi) {
+  return make_uint4(pack_f2(lo.x, lo.y), pack_f2(lo.z, lo.w), pack_f2(hi.x, hi.y),
+                    pack_f2(hi.z, hi.w));
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -24,8 +24,10 @@ which launches the CUDA kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors. What lies outside the contract (a stacked
 leaf, the cols layout, a scale group that is not a multiple of 16 rows)
 takes the same plain expression the JAX package uses there. The contracts
-are about shape alone: the kernels compute in bfloat16, and another compute
-dtype on the card with a leaf inside a contract raises. There is no
+are about shape alone: the kernels take bfloat16 or float32 activations
+(float32 ones rounded to bf16 for the products, the output in float32), and
+another compute dtype on the card with a leaf inside a contract raises.
+There is no
 environment switch.
 The quantized products carry no gradient in this slice of the port.
 """
@@ -119,8 +121,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> Dict[str, torch.T
     """[..., in, out] -> {'q4': int8 [..., in/2, out] (two nibbles),
     'scale': f32 [..., in/group, out]}: symmetric group-wise int4, pair
     layout (packed row r = original rows 2r in the low nibble, 2r + 1 in
-    the high one), which is what one register of the int4 kernel's B
-    operand holds."""
+    the high one): one packed byte becomes one register of the int4
+    kernel's A operand (contraction rows 2t, 2t + 1 of one channel)."""
     fan_in = w.shape[-2]
     if fan_in % group or fan_in % 2:
         raise ValueError(f"fan_in {fan_in} must divide group {group} and 2")

@@ -158,7 +158,7 @@ def _flash_attention_fwd_plain(q, k, v, *, causal, kv_lengths, slopes, return_ls
 
 _FWD_ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -173,9 +173,11 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
 def _check_kernel_inputs(name, q, k, v, *rest):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the CUDA kernel takes bfloat16 or float32, got {q.dtype}")
     for t in (q, k, v, *rest):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: the CUDA kernel takes one dtype, got {q.dtype} and {t.dtype}")
         if t.device != q.device or t.dim() != 4:
             raise ValueError(f"{name}: q, k, v must be 4-D tensors on one device")
     d = q.shape[3]
@@ -210,7 +212,7 @@ def _flash_attention_fwd_cuda(q, k, v, *, causal, kv_lengths, slopes, return_lse
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     dev = q.device
     kvl, sl = _kernel_lengths_slopes(q, k, kv_lengths, slopes)
-    o = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=dev)
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
     if o.numel() == 0:
         return (o, lse) if return_lse else o
@@ -221,8 +223,8 @@ def _flash_attention_fwd_cuda(q, k, v, *, causal, kv_lengths, slopes, return_lse
     fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), kvl.data_ptr(),
-        _ptr(sl), b, h, hkv, sq, sk, d, strides,
-        int(causal), 1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(sl), b, h, hkv, sq, sk, d, strides, int(causal), 1.0 / math.sqrt(d),
+        int(q.dtype == torch.float32), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_fwd")
     flash_attention_fwd.launches += 1
@@ -234,8 +236,9 @@ def flash_fwd_kernel_takes(head_dim: int) -> bool:
     take a query of this head_dim: 64 or 128. Like the reference's routing
     condition (llark_tpu/ops/attention.py:720-723) it looks at the shape
     alone: `multihead_attention` sends a CUDA query outside it to
-    `xla_attention`, and one inside it to the kernels, whose wrappers raise
-    on a dtype other than bfloat16."""
+    `xla_attention`, and one inside it to the kernels, which take bfloat16
+    and float32 (rounded to bf16 for the products) and raise on any other
+    dtype."""
     return head_dim in (64, 128)
 
 
@@ -255,7 +258,9 @@ def flash_attention_fwd(
     artifact the port drops).
 
     Counterpart of llark_tpu/ops/attention.py:227-332. CUDA tensors launch
-    `csrc/flash_fwd.cu` (bf16, head_dim 64 or 128; anything else raises);
+    `csrc/flash_fwd.cu` (bf16 or fp32, head_dim 64 or 128; anything else
+    raises; fp32 q, k, v are rounded to bf16 for the products and the
+    output is fp32);
     CPU tensors run the plain version. Unlike the TPU kernel, no length has
     to divide a block size: the kernel masks ragged edges itself.
     `flash_attention_fwd.launches` counts kernel launches."""
@@ -316,7 +321,7 @@ def _check_bwd_args(q, k, out, lse, g):
 
 _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -327,16 +332,18 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, g, *, causal, kv_lengths, slope
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dev = q.device
+    f32 = q.dtype == torch.float32
     if q.numel() == 0 or k.numel() == 0:  # no pair: zero gradients
-        return tuple(torch.zeros(t.shape, dtype=torch.bfloat16, device=dev) for t in (q, k, v))
-    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
-    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=dev)
-    dv = torch.empty(v.shape, dtype=torch.bfloat16, device=dev)
+        return tuple(torch.zeros(t.shape, dtype=q.dtype, device=dev) for t in (q, k, v))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=dev)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=dev)
     q, k, v, out, g = (_kernel_operand(t) for t in (q, k, v, out, g))
     kvl, sl = _kernel_lengths_slopes(q, k, kv_lengths, slopes)
     # scratch: delta and the fp32 dq accumulator, both filled by the kernels
+    # (for fp32 inputs the accumulator is dq itself)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    dq_acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    dq_acc = dq if f32 else torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3]
     )
@@ -346,7 +353,7 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, g, *, causal, kv_lengths, slope
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         kvl.data_ptr(), _ptr(sl), b, h, hkv, sq, sk, d, strides, int(causal),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / math.sqrt(d), int(f32), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_bwd")
     flash_attention_bwd.launches += 1
@@ -363,10 +370,11 @@ def flash_attention_bwd(
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, the delta reduction
     and the group-sum of `_flash_mha_bwd`).
 
-    CUDA tensors launch `csrc/flash_bwd.cu` (bf16, head_dim 64 or 128;
-    anything else raises): delta and the zeroing of an fp32 dq accumulator,
-    one pass of wgmma products over the visible tile pairs, and dq's
-    rounding to bf16. dq's fp32 sums come in an order that varies from run
+    CUDA tensors launch `csrc/flash_bwd.cu` (bf16 or fp32, head_dim 64 or
+    128; anything else raises; fp32 inputs are rounded to bf16 for the
+    products and the gradients are fp32): delta and the zeroing of an fp32
+    dq accumulator, one pass of wgmma products over the visible tile pairs,
+    and dq's rounding to bf16 (for fp32 the accumulator is dq). dq's fp32 sums come in an order that varies from run
     to run. Strided q, k, v, g with unit stride in D and 16-byte aligned
     rows are read in place. CPU tensors run the plain version.
     `flash_attention_bwd.launches` counts one per backward on the card."""

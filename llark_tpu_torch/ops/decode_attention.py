@@ -106,17 +106,17 @@ def _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables):
     name = "flash_decode_attention"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {q.device}")
-    if q.dtype != torch.bfloat16 or q.dim() != 4:
-        raise ValueError(f"{name}: the CUDA kernel takes a 4-D bfloat16 q, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or q.dim() != 4:
+        raise ValueError(f"{name}: the CUDA kernel takes a 4-D bfloat16 or float32 q, got {q.dtype}")
     quant = k_scale is not None
     if (v_scale is not None) != quant:
         raise ValueError(f"{name}: an int8 cache needs both k_scale and v_scale")
-    want = torch.int8 if quant else torch.bfloat16
+    want = torch.int8 if quant else q.dtype
     for t in (k_cache, v_cache):
         if t.dtype != want or t.dim() != 4 or t.device != q.device:
             raise ValueError(
                 f"{name}: the CUDA kernel takes a 4-D {want} cache on q's device "
-                f"({'int8 with scales' if quant else 'bfloat16'}), got {t.dtype}"
+                f"({'int8 with scales' if quant else 'in q dtype'}), got {t.dtype}"
             )
     d = q.shape[3]
     if d not in (64, 128):
@@ -159,7 +159,7 @@ def _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables):
 
 _DECODE_ARGTYPES = (
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -188,7 +188,7 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
         strides += _byte_strides(k_scale) + _byte_strides(v_scale)
     else:
         strides += [0] * 6
-    out = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0 or s_len == 0:
         return out.zero_()
     lib = _build.load("flash_decode.cu")
@@ -205,11 +205,12 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
         _ptr(tables), kvl.data_ptr(), qpos.data_ptr(), _ptr(sl), part_acc.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, hkv, sq, s_len, d, bs,
         max_blocks, n_pool, (ctypes.c_longlong * 15)(*q.stride()[:3], *strides),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / math.sqrt(d), int(q.dtype == torch.float32), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "llark_flash_decode")
     flash_decode_attention.launches += 1
-    mode = ("paged_" if tables is not None else "dense_") + ("int8" if k_scale is not None else "bf16")
+    cache = "int8" if k_scale is not None else ("fp32" if q.dtype == torch.float32 else "bf16")
+    mode = ("paged_" if tables is not None else "dense_") + cache
     flash_decode_attention.launches_by_mode[mode] += 1
     return out
 
@@ -233,15 +234,17 @@ def flash_decode_attention(
     except that `q_positions` defaults to `kv_lengths - 1` and a row that
     sees no key gives zeros. Queries of a row sit at consecutive positions
     from its `q_positions` entry; for Sq > 1 each sees keys up to its own
-    position. CUDA tensors launch `csrc/flash_decode.cu` (bf16 q, head_dim
-    64 or 128; a bf16 cache, or an int8 one with scales; dense, or a pool
-    with block tables; unit stride in head_dim and 16-byte aligned cache
-    rows); CPU tensors run the plain version. The kernel clamps live
+    position. CUDA tensors launch `csrc/flash_decode.cu` (bf16 or fp32 q,
+    head_dim 64 or 128; a cache in q's dtype, or an int8 one with scales;
+    dense, or a pool with block tables; unit stride in head_dim and 16-byte
+    aligned cache rows; the output in q's dtype); CPU tensors run the plain
+    version. The kernel clamps live
     lengths to the cache length and clips block ids into the pool, as the
     JAX gather clips; the plain version raises on an id outside the pool.
     `flash_decode_attention.launches` counts kernel launches and
     `.launches_by_mode` splits them by cache mode ("dense_bf16",
-    "dense_int8", "paged_bf16", "paged_int8")."""
+    "dense_int8", "paged_bf16", "paged_int8", and "dense_fp32",
+    "paged_fp32" for an fp32 cache)."""
     if q.device.type == "cpu":
         return _flash_decode_plain(
             q, k_cache, v_cache, kv_lengths=kv_lengths, q_positions=q_positions,
@@ -255,7 +258,7 @@ def flash_decode_attention(
 
 flash_decode_attention.launches = 0
 flash_decode_attention.launches_by_mode = dict.fromkeys(
-    ("dense_bf16", "dense_int8", "paged_bf16", "paged_int8"), 0)
+    ("dense_bf16", "dense_int8", "paged_bf16", "paged_int8", "dense_fp32", "paged_fp32"), 0)
 
 
 def reset_launch_counts() -> None:
@@ -271,7 +274,8 @@ def flash_decode_kernel_takes(head_dim: int) -> bool:
     (llark_tpu/ops/decode_attention.py:531) it looks at the shape alone:
     `decode_attention` sends a CUDA query outside it to `xla_attention`, and
     one inside it to the kernel, whose wrapper raises on a query other than
-    bfloat16 or a cache other than bfloat16 or int8 with scales."""
+    bfloat16 or float32 or a cache other than in q's dtype or int8 with
+    scales."""
     return head_dim in (64, 128)
 
 

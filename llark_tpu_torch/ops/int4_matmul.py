@@ -4,7 +4,9 @@ Counterpart of llark_tpu/ops/int4_matmul.py. `int4_matmul` wraps the
 hand-written CUDA kernel `csrc/int4_matmul.cu`, which replaces the TPU
 kernel `_int4_matmul_kernel`: only the packed bytes (and the group scales)
 cross device memory; nibbles are sign-extended and turned into bf16 in
-registers on the way into the tensor cores.
+registers on the way into the tensor cores (wgmma). bf16 and fp32
+activations both launch it; fp32 ones are rounded to bf16 as the kernel
+stages them and the output is written in fp32.
 
 Packing contract (pair layout, `models/quant.py` `quantize_weight_int4`):
 packed row r holds original row 2r in the low nibble and 2r + 1 in the high
@@ -71,14 +73,13 @@ def int4_kernel_takes(q4: torch.Tensor, scale: torch.Tensor) -> bool:
     (`models/quant.py` `quantized_dense_int4`) asks, about the leaf's shapes
     alone: a 2-D packed weight [H/2, D] in the pair layout whose scale group
     (H over the scale's rows) is a multiple of 16 rows (a group ends on a
-    tensor-core step) and divides H, and D % 8 == 0 (16-byte output stores;
-    M, and D up to that, are masked). Wider than the TPU gate (group >= 128,
+    tensor-core step) and divides H, and D % 8 == 0 (the packed rows are
+    copied in 8-byte pieces; M, and D up to that, are masked). Wider than the TPU gate (group >= 128,
     H % 256 == 0, D % 128 == 0); all seven Llama-2-7B projections are
     inside. Such a leaf goes to the wrapper on either device: it runs the
     plain version for CPU tensors, and for CUDA tensors it launches the
-    kernel or raises (the kernel computes in bfloat16 only, so another
-    compute dtype on the card is an error there, not a step down to the
-    plain expression)."""
+    kernel (bfloat16 or float32 activations) or raises, never stepping down
+    to the plain expression."""
     if q4.dim() != 2 or scale.dim() != 2 or scale.shape[0] == 0:
         return False
     h, d = q4.shape[0] * 2, q4.shape[1]
@@ -97,7 +98,8 @@ def int4_matmul(
     avoids an interleave on the TPU; this kernel reads x as it is). `group`
     must divide H and agree with the scale's rows; the group the product
     uses is read off the scale's shape. CUDA tensors launch
-    `csrc/int4_matmul.cu` (bfloat16 x; group % 16 == 0 and D % 8 == 0, see
+    `csrc/int4_matmul.cu` (bfloat16 or float32 x, the product in bf16 with
+    fp32 group sums; group % 16 == 0 and D % 8 == 0, see
     `int4_kernel_takes`; a contiguous weight, never copied) or raise; CPU
     tensors run the plain version. `int4_matmul.launches` counts kernel
     launches."""

@@ -4,8 +4,10 @@ Counterpart of llark_tpu/ops/int8_matmul.py. `int8_matmul` wraps the
 hand-written CUDA kernel `csrc/int8_matmul.cu`, which replaces the TPU
 kernel `_int8_matmul_kernel`: the int8 bytes are the only weight bytes that
 cross device memory, the convert to bf16 happens in registers on the way
-into the tensor cores, and the per-output-channel fp32 scale multiplies the
-fp32 accumulator before the one rounding to the activations' dtype.
+into the tensor cores (wgmma), and the per-output-channel fp32 scale
+multiplies the fp32 accumulator before the one rounding to the activations'
+dtype. bf16 and fp32 activations both launch it; fp32 ones are rounded to
+bf16 as the kernel stages them and the output is written in fp32.
 PyTorch has no fused convert-in-the-dot: `x @ q.to(bf16)` writes a bf16
 copy of the weight at every use, so the kernel is the serving route for
 every 2-D int8 projection on the card.
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,13 +52,13 @@ def int8_kernel_takes(q: torch.Tensor) -> bool:
     """The kernel route's contract, the one predicate the dispatcher
     (`models/quant.py` `quantized_dense`) asks, about the weight's shape
     alone: a 2-D weight [K, N] with K % 16 == 0 (the tensor-core step) and
-    N % 8 == 0 (16-byte output stores; M, and N up to that, are masked).
+    N % 8 == 0 (the weight rows are copied in 8-byte pieces; M, and N up to
+    that, are masked).
     Wider than the TPU gate (K % 128 == 0 and N % 128 == 0); all seven
     Llama-2-7B projections are inside. Such a leaf goes to the wrapper on
     either device: it runs the plain version for CPU tensors, and for CUDA
-    tensors it launches the kernel or raises (the kernel computes in
-    bfloat16 only, so another compute dtype on the card is an error there,
-    not a step down to the plain expression)."""
+    tensors it launches the kernel (bfloat16 or float32 activations) or
+    raises, never stepping down to the plain expression."""
     return q.dim() == 2 and q.shape[0] % 16 == 0 and q.shape[1] % 8 == 0
 
 
@@ -71,10 +73,11 @@ def _refuse_gradient(name: str, x: torch.Tensor) -> None:
 
 def _check_operands(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> None:
     """What both quantized-product kernels ask of their CUDA operands."""
-    if x.dtype != torch.bfloat16:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            f"{name}: the CUDA kernel takes bfloat16 activations (the only compute dtype "
-            f"of the quantized products on the card), got {x.dtype}"
+            f"{name}: the CUDA kernel takes bfloat16 or float32 activations, got {x.dtype}"
         )
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise ValueError(
@@ -83,8 +86,8 @@ def _check_operands(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Te
         )
     if w.device != x.device or scale.device != x.device:
         raise ValueError(f"{name}: operands on {x.device}, {w.device} and {scale.device}")
-    # the kernel reads weight rows as 8-byte and scales as 16-byte vectors;
-    # a weight is never copied here
+    # the kernel copies weight rows in 8-byte (16-byte) pieces and reads
+    # scales as 16-byte vectors; a weight is never copied here
     if not w.is_contiguous() or w.data_ptr() % 8:
         raise ValueError(
             f"{name}: the CUDA kernel takes a contiguous, 8-byte aligned weight, got "
@@ -103,33 +106,55 @@ def _entry_points(source: str, entry: str, n_extra: int):
     splits = getattr(lib, entry + "_splits")
     splits.argtypes, splits.restype = [ctypes.c_int] * 4, ctypes.c_int
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (4 + n_extra) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (6 + n_extra) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, functools.lru_cache(maxsize=1024)(splits)
 
 
+# The arrival counters of a split contraction (one per output tile; the
+# kernel's MAX_COUNTERS) and the fp32 partial sums, kept per (device,
+# stream): the kernel allocates nothing, the wrapper allocates them once and
+# again only when a larger split needs more room. The counters are zeroed
+# once; every launch leaves them zero. Two streams never share them, so two
+# products in flight at once never meet in one counter.
+_COUNTERS = 4096
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int):
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < floats:
+        counters = ws[1] if ws is not None else torch.zeros(
+            _COUNTERS, dtype=torch.int32, device=device)
+        ws = _workspaces[key] = (torch.empty(floats, dtype=torch.float32, device=device), counters)
+    return ws
+
+
 def _launch(source: str, entry: str, x, w, scale, m, k, n, unit, extra=()):
-    """Shared launch of the two quantized-product kernels: x [M, K] bf16,
-    w the packed weight, out [M, N] bf16. The library picks the split of the
-    contraction for this shape, in whole `unit`s of rows; partial sums of a
-    split go through an fp32 scratch tensor and are combined in a fixed
-    order."""
+    """Shared launch of the two quantized-product kernels: x [M, K] bf16 or
+    fp32, w the packed weight, out [M, N] in x's dtype. The library picks the
+    split of the contraction for this shape, in whole `unit`s of rows; the
+    partial sums of a split go through the workspace and are combined in a
+    fixed order inside the same launch."""
     if not x.is_contiguous():
         x = x.contiguous()
     if x.data_ptr() % 16:  # the kernel reads x rows as 16-byte vectors
         x = x.clone()
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     fn, splits = _entry_points(source, entry, len(extra))
     n_splits = splits(m, k, n, unit)
-    part = None
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    part = counters = None
     if n_splits > 1:
-        part = torch.empty((n_splits, m, n), dtype=torch.float32, device=x.device)
+        part, counters = _workspace(x.device, stream, n_splits * m * n)
     err = fn(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), m, k, n, *extra, n_splits,
-        torch._C._cuda_getCurrentRawStream(x.device.index),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), m, k, n, *extra, n_splits,
+        int(x.dtype == torch.float32), int(n % 16 == 0 and w.data_ptr() % 16 == 0), stream,
     )
     _build.check(err, entry)
     return out
@@ -144,9 +169,10 @@ def int8_matmul(
     read from device memory. Counterpart of llark_tpu/ops/int8_matmul.py:58-99
     (the TPU wrapper's row and scale padding are TPU tile artefacts: this
     kernel masks its M tail). CUDA tensors launch `csrc/int8_matmul.cu`
-    (bfloat16 x; K % 16 == 0 and N % 8 == 0, see `int8_kernel_takes`; a
-    contiguous weight, never copied) or raise; CPU tensors run the plain
-    version. `int8_matmul.launches` counts kernel launches."""
+    (bfloat16 or float32 x, the product in bf16 with an fp32 accumulator;
+    K % 16 == 0 and N % 8 == 0, see `int8_kernel_takes`; a contiguous
+    weight, never copied) or raise; CPU tensors run the plain version.
+    `int8_matmul.launches` counts kernel launches, one per product."""
     m, k = x.shape
     kq, n = q.shape
     if kq != k:

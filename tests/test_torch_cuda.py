@@ -65,10 +65,10 @@ def _row_err(got, want, floor=0.0):
     return float(((g - w).norm(dim=-1)[live] / w_norm[live]).max())
 
 
-def _qkv(dev, seed, b, h, hkv, sq, sk, d):
+def _qkv(dev, seed, b, h, hkv, sq, sk, d, dtype=torch.bfloat16):
     rng = np.random.RandomState(seed)
     return tuple(
-        torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+        torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
         for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
     )
 
@@ -157,23 +157,34 @@ def test_flash_fwd_kernel_noncausal_strided_lse(dev, d):
                          ids=["d96_bf16", "d128_fp32"])
 def test_multihead_attention_routes_by_head_dim(dev, d, dtype, grad):
     # the dispatcher routes by head_dim alone, as the reference does: a query
-    # of head_dim 96 answers through xla_attention instead of raising; an
-    # fp32 query of head_dim 128 reaches the kernel, which raises on it
+    # of head_dim 96 answers through xla_attention; an fp32 query of
+    # head_dim 128 reaches the kernels (K1, and K3+K4 for its gradients),
+    # which round q, k, v (and dO) to bf16 for the products and answer in
+    # fp32: held against the fp32 plain path at the bf16 kernels' gates
     b, h, hkv, s = 2, 4, 2, 40
-    q, k, v = (t.to(dtype).requires_grad_(grad) for t in _qkv(dev, 15, b, h, hkv, s, s, d))
+    q, k, v = (t.requires_grad_(grad) for t in _qkv(dev, 15, b, h, hkv, s, s, d, dtype))
     kw = dict(causal=True, kv_lengths=torch.tensor([40, 17], device=dev))
-    before = tattn.flash_attention_fwd.launches
-    if dtype != torch.bfloat16:
-        with pytest.raises(ValueError, match="takes bfloat16"):
-            tattn.multihead_attention(q, k, v, **kw)
-        assert tattn.flash_attention_fwd.launches == before
-        return
+    before = tattn.flash_attention_fwd.launches, tattn.flash_attention_bwd.launches
     got = tattn.multihead_attention(q, k, v, **kw)
-    assert tattn.flash_attention_fwd.launches == before
     want = tattn.xla_attention(q, k, v, **kw)
+    g = torch.from_numpy(np.random.RandomState(16).randn(*got.shape).astype(np.float32)).to(dev, dtype)
+    if dtype == torch.float32:
+        assert got.dtype == torch.float32
+        assert tattn.flash_attention_fwd.launches == before[0] + 1
+        assert _row_err(got, want) <= ROW_TOL["flash_fwd"]
+        if grad:
+            got_grads = torch.autograd.grad(got, (q, k, v), g)
+            torch.cuda.synchronize()
+            assert tattn.flash_attention_bwd.launches == before[1] + 1
+            rounded = _bwd_plain_on_rounded_operands(q, k, v, g, kw)
+            for a, w, r in zip(got_grads, torch.autograd.grad(want, (q, k, v), g), rounded):
+                assert a.dtype == torch.float32
+                assert _row_err(a, r, BWD_ROW_FLOOR) <= ROW_TOL["flash_bwd"]
+                assert _rel_to_max(a, w) <= BWD_TOL
+        return
+    assert tattn.flash_attention_fwd.launches == before[0]
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
     if grad:
-        g = torch.ones_like(got)
         got_grads = torch.autograd.grad(got, (q, k, v), g)
         want_grads = torch.autograd.grad(want, (q, k, v), g)
         for a, w in zip(got_grads, want_grads):
@@ -184,19 +195,16 @@ def test_multihead_attention_routes_by_head_dim(dev, d, dtype, grad):
 @pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16), (128, torch.float32)],
                          ids=["d96_bf16", "d128_fp32"])
 def test_decode_attention_routes_by_head_dim(dev, d, dtype, paged):
+    # head_dim 96 answers through xla_attention; an fp32 query of head_dim
+    # 128 with an fp32 cache launches the kernel, which reads both as they
+    # are (fp32 dots), in its own cache mode
     b, h, hkv, sq, bs, n_blocks = 2, 4, 2, 3, 16, 4
-    q, k, v = (t.to(dtype) for t in _qkv(dev, 16, b, h, hkv, sq, bs * n_blocks, d))
+    q, k, v = _qkv(dev, 16, b, h, hkv, sq, bs * n_blocks, d, dtype)
     kv_lengths = torch.tensor([50, 20], device=dev)
     kw = dict(kv_lengths=kv_lengths, q_positions=kv_lengths - sq)
     before = tdec.flash_decode_attention.launches
-    if dtype != torch.bfloat16:
-        # head_dim 128 lies inside the contract: the kernel raises on fp32
-        with pytest.raises(ValueError, match="bfloat16 q"):
-            tdec.decode_attention(q, k, v, block_tables=(
-                torch.arange(b * n_blocks, device=dev, dtype=torch.int32).reshape(b, n_blocks)
-                if paged else None), **kw)
-        assert tdec.flash_decode_attention.launches == before
-        return
+    mode = ("paged_" if paged else "dense_") + "fp32"
+    by_mode = tdec.flash_decode_attention.launches_by_mode[mode]
     if paged:
         # both rows' blocks shuffled in one pool; the tables point at them
         pool_k = k.reshape(b, hkv, n_blocks, bs, d).permute(0, 2, 1, 3, 4).reshape(-1, hkv, bs, d)
@@ -208,7 +216,11 @@ def test_decode_attention_routes_by_head_dim(dev, d, dtype, paged):
                                     block_tables=tables, **kw)
     else:
         got = tdec.decode_attention(q, k, v, **kw)
-    assert tdec.flash_decode_attention.launches == before
+    torch.cuda.synchronize()
+    fp32 = dtype == torch.float32
+    assert got.dtype == dtype
+    assert tdec.flash_decode_attention.launches == before + int(fp32)
+    assert tdec.flash_decode_attention.launches_by_mode[mode] == by_mode + int(fp32)
     want = tattn.xla_attention(q, k, v, causal=True, kv_lengths=kv_lengths,
                                q_offset=kv_lengths - sq)
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
@@ -343,13 +355,31 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((1, 4, 8, 16), dtype=torch.bfloat16, device=dev)
         tattn.flash_attention_fwd(x, x, x)
-    with pytest.raises(ValueError, match="bfloat16"):
-        x = torch.zeros((1, 4, 8, 128), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        x = torch.zeros((1, 4, 8, 128), dtype=torch.float16, device=dev)
         tattn.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="bfloat16 or float32 q"):
+        tdec.flash_decode_attention(q.half(), kb, kb, kv_lengths=lengths)
 
 
 def _rel_to_max(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _bwd_plain_on_rounded_operands(q, k, v, do, kw):
+    """The flash backward's plain version (fp32) on fp32 q, k, v, dO rounded
+    to bf16 as the kernels round them for their products, with the kernel
+    forward's fp32 output and log-sum-exp, as the backward reads them. The
+    per-row gate holds fp32 gradients against this: the rounding alone moves
+    a dq row near cancellation by up to 8.5e-2 of its norm against the plain
+    version on the unrounded operands (PERF.md), so against those the fp32
+    path is held relative to max (BWD_TOL)."""
+    with torch.no_grad():
+        out, lse = tattn.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        qr, kr, vr, dr = (t.detach().to(torch.bfloat16).float() for t in (q, k, v, do))
+        return tattn._flash_bwd_plain(qr, kr, vr, dr, lse, tattn._flash_bwd_delta(out, dr),
+                                      causal=kw.get("causal", True), kv_lengths=kw.get("kv_lengths"),
+                                      slopes=kw.get("slopes"))
 
 
 def _bwd_against_plain(q, k, v, do, kw):
@@ -481,25 +511,33 @@ def test_logits_keep_the_fp32_accumulator(dev, tied):
 # ---------------------------------------------------------------------------
 
 
-def _wq_inputs(dev, seed, m, k, n):
+def _wq_inputs(dev, seed, m, k, n, dtype=torch.bfloat16):
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.randn(k, n) * 0.02).astype(np.float32)).to(dev)
     return x, w
 
 
-# M: a decode step of one request and of 8 slots, both sides of the switch
-# from the split small-M kernel to the 64-row tile kernel, a ragged prefill;
-# (K, N): a ragged N (8 * 125), and a Llama-2-7B projection
-@pytest.mark.parametrize("m", [1, 8, 16, 17, 293])
-@pytest.mark.parametrize("k,n", [(256, 1000), (4096, 4096)])
+# M: a decode step of one request and of 8 slots, both sides of each switch
+# of the kernel's tiles (8 | 9: the decode token tile of 8 or 16; 16 | 17:
+# decode to admission; 64 | 65: int8's admission token tile of 64 or 128;
+# 128 | 129 a token tile's edge), a ragged prefill and chunked admission;
+# (K, N, group): a ragged N (8 * 125: no multiple of the 128- or 256-channel
+# tile, rows copied in 8-byte pieces), a Llama-2-7B projection, and a K that
+# is no multiple of either ring stage depth (64, 128 rows) with int4 groups
+# of 80 rows that end inside a stage. fp32 activations launch the same
+# kernels (rounded to bf16 as they are staged) and are held against the
+# fp32 plain version.
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64, 65, 129, 293, 2048])
+@pytest.mark.parametrize("k,n,group", [(256, 1000, 128), (4096, 4096, 128), (1040, 512, 80)])
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
-def test_quantized_matmul_kernels_match_plain(dev, fmt, k, n, m):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_quantized_matmul_kernels_match_plain(dev, fmt, k, n, group, m, dtype):
     from llark_tpu_torch.models import quant
     from llark_tpu_torch.ops import int4_matmul as tint4
     from llark_tpu_torch.ops import int8_matmul as tint8
 
-    x, w = _wq_inputs(dev, 21, m, k, n)
+    x, w = _wq_inputs(dev, 21, m, k, n, dtype)
     if fmt == "int8":
         wq = quant.quantize_weight(w)
         fn, before = tint8.int8_matmul, tint8.int8_matmul.launches
@@ -507,23 +545,24 @@ def test_quantized_matmul_kernels_match_plain(dev, fmt, k, n, m):
         again = fn(x, wq["q"], wq["scale"])
         want = tint8._int8_matmul_plain(x, wq["q"], wq["scale"])
     else:
-        wq = quant.quantize_weight_int4(w, 128)
+        wq = quant.quantize_weight_int4(w, group)
         fn, before = tint4.int4_matmul, tint4.int4_matmul.launches
-        got = fn(x, wq["q4"], wq["scale"], group=128)
-        again = fn(x, wq["q4"], wq["scale"], group=128)
+        got = fn(x, wq["q4"], wq["scale"], group=group)
+        again = fn(x, wq["q4"], wq["scale"], group=group)
         want = tint4._int4_matmul_plain(x, wq["q4"], wq["scale"])
     torch.cuda.synchronize()
-    assert fn.launches == before + 2
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    assert fn.launches == before + 2  # one launch a product
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
     assert _row_err(got, want) <= WQ_ROW_TOL[fmt + "_matmul"]
     assert _rel_to_max(got, want) <= 2e-2
     assert torch.equal(got, again)  # split sums are combined in a fixed order
 
 
 def test_quantized_dispatch_on_the_card(dev):
-    # a 2-D leaf inside the contract launches its kernel; a stacked leaf and
-    # the cols layout take the plain expression; an fp32 compute dtype and a
-    # direct call outside the contract raise; autograd is refused
+    # a 2-D leaf inside the contract launches its kernel, in bf16 or fp32; a
+    # stacked leaf and the cols layout take the plain expression; a float16
+    # compute dtype and a direct call outside the contract raise; autograd is
+    # refused
     from llark_tpu_torch.models import quant
     from llark_tpu_torch.ops.int4_matmul import int4_matmul
     from llark_tpu_torch.ops.int8_matmul import int8_matmul
@@ -552,13 +591,21 @@ def test_quantized_dispatch_on_the_card(dev):
     assert _rel_to_max(y8, p8) <= 2e-2 and _rel_to_max(y4, p4) <= 2e-2
     assert _rel_to_max(pc, p4) <= 2e-2
     assert tuple(ps.shape) == (1, 3, 128)
-    # a supported shape with another compute dtype is an error at both layers
-    with pytest.raises(ValueError, match="bfloat16 activations"):
-        quant.quantized_dense(x3.float(), w8, bias, torch.float32)
-    with pytest.raises(ValueError, match="bfloat16 activations"):
-        quant.quantized_dense_int4(x3.float(), w4, bias, torch.float32)
+    # an fp32 compute dtype launches the same kernels and answers in fp32,
+    # against the fp32 plain versions; float16 is an error at both layers
+    y8f = quant.quantized_dense(x3.float(), w8, bias, torch.float32)
+    y4f = quant.quantized_dense_int4(x3.float(), w4, bias, torch.float32)
+    assert counts() == (n8 + 2, n4 + 2)
+    assert y8f.dtype == torch.float32 and y4f.dtype == torch.float32
+    p8f = (_int8_matmul_plain(x.float(), w8["q"], w8["scale"]) + bias).reshape(2, 3, 128)
+    p4f = (_int4_matmul_plain(x.float(), w4["q4"], w4["scale"]) + bias).reshape(2, 3, 128)
+    assert _rel_to_max(y8f, p8f) <= 2e-2 and _rel_to_max(y4f, p4f) <= 2e-2
+    with pytest.raises(ValueError, match="bfloat16 or float32 activations"):
+        quant.quantized_dense(x3.half(), w8, bias, torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32 activations"):
+        quant.quantized_dense_int4(x3.half(), w4, bias, torch.float16)
     with pytest.raises(ValueError, match="the CUDA kernel takes"):
-        int8_matmul(x.float(), w8["q"], w8["scale"])
+        int8_matmul(x.half(), w8["q"], w8["scale"])
     # the group is read off the scale: a `group` that only matches h // group
     with pytest.raises(ValueError, match="does not divide"):
         int4_matmul(x, w4["q4"], w4["scale"], group=50)
@@ -569,7 +616,7 @@ def test_quantized_dispatch_on_the_card(dev):
                     w8["scale"])
     with pytest.raises(NotImplementedError, match="no gradient"):
         int8_matmul(x.clone().requires_grad_(), w8["q"], w8["scale"])
-    assert counts() == (n8 + 1, n4 + 1)
+    assert counts() == (n8 + 2, n4 + 2)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4_rows", "int4_cols"])

@@ -170,12 +170,14 @@ def test_flash_fwd_kernel_contract(d, takes):
 
 @pytest.mark.parametrize(
     "d,dtype,takes", [(128, torch.bfloat16, True), (96, torch.bfloat16, False),
-                      (128, torch.float32, True)],
+                      (128, torch.float32, True), (128, torch.float16, True)],
 )
 def test_multihead_attention_routes_by_the_kernel_contract(d, dtype, takes):
     # tensors on neither the CPU nor a card: inside the contract (by head_dim
-    # alone, as the reference routes) the call reaches the kernel wrapper,
-    # which refuses a non-CUDA tensor; outside it the plain route answers
+    # alone, as the reference routes, whatever the dtype: the kernels take
+    # bf16 and fp32 and raise on another) the call reaches the kernel
+    # wrapper, which refuses a non-CUDA tensor; outside it the plain route
+    # answers
     for grad in (False, True):
         q = torch.empty((1, 2, 8, d), dtype=dtype, device="meta", requires_grad=grad)
         if takes:
@@ -302,7 +304,7 @@ def test_flash_decode_kernel_contract(d, takes):
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 @pytest.mark.parametrize(
     "d,dtype,takes", [(128, torch.bfloat16, True), (96, torch.bfloat16, False),
-                      (128, torch.float32, True)],
+                      (128, torch.float32, True), (128, torch.float16, True)],
 )
 def test_decode_attention_routes_by_the_kernel_contract(d, dtype, takes, paged):
     # as above, on meta tensors: the kernel wrapper refuses them, the plain

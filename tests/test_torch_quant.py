@@ -323,18 +323,19 @@ def test_kernel_contracts(case):
         assert not tint8.int8_kernel_takes(q[:, :44])
         assert not tint4.int4_kernel_takes(q4[:, :44], s4[:, :44])
     elif case == "fp32_on_card":
-        # a leaf inside the contract with another compute dtype than bfloat16
-        # off the CPU: the dispatchers go to the wrappers, which raise before
-        # any launch (no step down to the plain expression); meta tensors
-        # stand for the card's
+        # a leaf inside the contract with an fp32 compute dtype off the CPU:
+        # the dispatchers go to the wrappers (which launch the kernels on
+        # fp32 activations on the card), never to the plain expression; meta
+        # tensors stand for the card's, and the wrappers refuse them as
+        # non-CUDA tensors before any launch
         assert tint8.int8_kernel_takes(q) and tint4.int4_kernel_takes(q4, s4)
         x = torch.zeros(2, 3, 64, device="meta")
         w8 = {"q": q.to("meta"), "scale": torch.zeros(1, 48, device="meta")}
         w4 = {"q4": q4.to("meta"), "scale": s4.to("meta")}
         before = tint8.int8_matmul.launches, tint4.int4_matmul.launches
-        with pytest.raises(ValueError, match="bfloat16 activations"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             tquant.quantized_dense(x, w8, None, torch.float32)
-        with pytest.raises(ValueError, match="bfloat16 activations"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             tquant.quantized_dense_int4(x, w4, None, torch.float32)
         assert (tint8.int8_matmul.launches, tint4.int4_matmul.launches) == before
     elif case == "bf16_on_card":
