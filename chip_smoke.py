@@ -114,7 +114,25 @@ Phases, in order; any failure exits non-zero before the final line:
      beside the kernels' times (the kernels line's library_ms, at the
      reported shape, when they agree); `python -m
      llark_tpu_torch.tools.wq_library_times` times them at all six
-     admission shapes.
+     admission shapes;
+ 17. checkpoint I/O and the WebDataset CLI at Llama-2-7B width, 4 layers
+     (CKPT_LAYERS), bf16 params from the seed: `save_hf_checkpoint` (fp32
+     pytorch_model.bin + config.json), the same state dict rewritten as two
+     bf16 .safetensors shards with an index by this script's own writer, and
+     `load_hf_state_dict` bitwise alike from both; `load_pretrained_backbone`
+     onto the card; `train()` from that directory (adapter-stage flags, 2
+     steps, phase 10's shard), whose first step must see the exported
+     backbone bit for bit, with a finite loss and the flash launch gates of
+     phase 10; then `from_webdataset.main` over a 4-row shard of [256, 4800]
+     encodings with crop-window keys, one request at a time (greedy, 32 new
+     tokens) and through the engine in mode (a)'s cache (8 slots, paged
+     128-token blocks, int8 KV, chunks of 128, which the CLI's prompt buckets
+     allow): 4 CSV rows with the example ids restored, equal to
+     `batch_infer` / `batch_infer_continuous` on the loaded model in this
+     process, the flash-prefill kernel once per layer per request in the
+     first run, flash decode only in each run's cache mode (dense bf16, then
+     paged int8); export and import seconds and GB/s and the CLI's seconds
+     per request beside the card's name and power limit.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -129,10 +147,12 @@ Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import shutil
@@ -152,8 +172,15 @@ from llark_tpu_torch.generate import (
     paged_prefill_chunk,
     prefill_last,
 )
-from llark_tpu_torch.infer import _common_prompt_prefix, batch_infer, build_prompt_ids
+from llark_tpu_torch.infer import (
+    _common_prompt_prefix,
+    batch_infer,
+    batch_infer_continuous,
+    build_prompt_ids,
+)
+from llark_tpu_torch.inference import from_webdataset
 from llark_tpu_torch.inference.server import BatchedServer, Request
+from llark_tpu_torch.interop import hf
 from llark_tpu_torch.models import quant
 from llark_tpu_torch.models.decoder import _quantize_kv, decoder_forward
 from llark_tpu_torch.models.fusion import build_inputs_embeds, init_llark_params
@@ -163,7 +190,9 @@ from llark_tpu_torch.ops import decode_attention as dec_ops
 from llark_tpu_torch.ops import int4_matmul as int4_ops
 from llark_tpu_torch.ops import int8_matmul as int8_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
+from llark_tpu_torch.models.utils import load_pretrained_model
 from llark_tpu_torch.train import flops
+from llark_tpu_torch.train import train as train_mod
 from llark_tpu_torch.train.step import make_loss_fn
 from llark_tpu_torch.train.train import train
 
@@ -1622,6 +1651,263 @@ def time_flash_bwd(gen):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 17: checkpoint I/O and the WebDataset CLI at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+# a 32-layer export writes 27 GB of fp32 on the host, and reads as much
+# back, within the script's limit: depth is cut to 4 layers
+CKPT_LAYERS = 4
+ST_DTYPE_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16"}
+
+
+def seconds(fn):
+    """(fn(), its wall seconds, the card synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A .safetensors file written by the format itself (no package): the
+    header's length as 8 little-endian bytes, a JSON header of dtype, shape
+    and data offsets, padded to 8 bytes, then the raw little-endian data."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+
+
+def write_safetensors_shards(directory: str, sd: dict, n_shards: int = 2) -> int:
+    """`sd` as `n_shards` .safetensors files and their index; bytes written."""
+    keys = list(sd)
+    weight_map, total = {}, 0
+    for s in range(n_shards):
+        fname = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = {k: sd[k] for k in keys[s::n_shards]}
+        write_safetensors(os.path.join(directory, fname), part)
+        weight_map.update(dict.fromkeys(part, fname))
+        total += os.path.getsize(os.path.join(directory, fname))
+    with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return total
+
+
+@contextlib.contextmanager
+def first_step_params():
+    """Inside, `train()`'s first step records a copy of the backbone it
+    receives (the list this yields holds it) before it runs."""
+    seen = []
+    make = train_mod.make_train_step
+
+    def make_watched(*args, **kw):
+        step = make(*args, **kw)
+
+        def watched(state, batch):
+            if not seen:
+                seen.append({k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                             else v.clone() for k, v in state.params.items()
+                             if k != "mm_projector"})
+            return step(state, batch)
+        return watched
+
+    train_mod.make_train_step = make_watched
+    try:
+        yield seen
+    finally:
+        train_mod.make_train_step = make
+
+
+def backbone_equal(got: dict, want: dict, top=("embed", "final_norm_scale", "lm_head")) -> list:
+    """Names of the backbone leaves of `got` (the layers and `top`) that
+    differ from `want` (cast to got's dtype) in any bit."""
+    bad = []
+    for name in top:
+        if not torch.equal(got[name], want[name].to(got[name].dtype)):
+            bad.append(name)
+    for name, t in want["layers"].items():
+        if not torch.equal(got["layers"][name], t.to(got["layers"][name].dtype)):
+            bad.append(f"layers/{name}")
+    return bad
+
+
+def write_eval_shard(directory: str, cfg: ModelConfig) -> tuple:
+    """A 4-row eval shard: crop-window keys in the packer's encoding, a
+    question each, random [256, 4800] encodings from the seed. Returns its
+    path and the example ids the CLI must restore."""
+    rng = np.random.RandomState(SEED + 17)
+    questions = ["What is the tempo of this piece ?", "Which instruments play ?",
+                 "What is the key of this piece ?", "Describe the audio ."]
+    writer = TarShardWriter(os.path.join(directory, "eval-%05d.tar"), max_count=100)
+    for i, question in enumerate(questions):
+        writer.write({
+            "__key__": f"clip{i:03d}-start30_000-end60_000",
+            "json": {"response": [{"question": question, "answer": "a slow ballad ."}]},
+            "audio_encoding.pyd": rng.randn(256, cfg.mm_hidden_size).astype(np.float32),
+        })
+    writer.close()
+    return writer.written_paths[0], [f"clip{i:03d}-start30.000-end60.000" for i in range(4)]
+
+
+def run_webdataset_cli(label: str, run_dir: str, shard: str, ids: list, flags: list,
+                       smi: str) -> tuple:
+    """`from_webdataset.main` over the shard; returns its CSV rows and the
+    flash kernels' launches of that run."""
+    out_csv = os.path.join(run_dir, f"eval-{label.split()[0]}.csv")
+    attn_ops.flash_attention_fwd.launches = 0
+    dec_ops.reset_launch_counts()
+    _, wall = seconds(lambda: from_webdataset.main([
+        "--checkpoint-dir", run_dir, "--input", shard, "--output", out_csv,
+        "--max-new-tokens", "32", "--max-cache-len", "2048", *flags]))
+    launches = {"flash_fwd": attn_ops.flash_attention_fwd.launches,
+                **{k: v for k, v in dec_ops.flash_decode_attention.launches_by_mode.items() if v}}
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    print(f"from_webdataset ({label}, {smi}): {len(rows)} rows in {wall:.2f} s, "
+          f"{wall / max(len(rows), 1):.3f} s per request (the model's load included); "
+          f"launches {launches}")
+    check(len(rows) == len(ids), f"from_webdataset ({label}): {len(rows)} CSV rows, not {len(ids)}")
+    check([r["example_id"] for r in rows] == ids,
+          f"from_webdataset ({label}): example ids {[r['example_id'] for r in rows]}")
+    return rows, launches
+
+
+def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
+    """Export a seeded bf16 tree at 7B width, import it into `train()`, and
+    serve the result through the WebDataset CLI twice."""
+    cfg = ModelConfig.llama2_7b(num_layers=CKPT_LAYERS, param_dtype="bfloat16")
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    hf_dir = os.path.join(directory, "hf")
+    bin_path = os.path.join(hf_dir, "pytorch_model.bin")
+
+    # (a) export: fp32 pytorch_model.bin, then the same state dict as two
+    # bf16 safetensors shards; both must read back bitwise alike
+    _, export_s = seconds(lambda: hf.save_hf_checkpoint(hf_dir, cfg, params))
+    bin_gb = os.path.getsize(bin_path) / 1e9
+    from_bin, bin_read_s = seconds(lambda: hf.load_hf_state_dict(bin_path))
+    st_bytes, st_write_s = seconds(lambda: write_safetensors_shards(
+        hf_dir, {k: v.to(torch.bfloat16) for k, v in from_bin.items()}))
+    st_gb = st_bytes / 1e9
+
+    def read_and_compare():
+        from_st = hf.load_hf_state_dict(hf_dir)  # the index comes first
+        check(sorted(from_st) == sorted(from_bin), "the safetensors shards hold other tensors")
+        return [k for k in from_bin if from_st[k].dtype != torch.bfloat16
+                or not torch.equal(from_st[k].float(), from_bin[k])]
+
+    differ, st_read_s = seconds(read_and_compare)
+    print(f"checkpoint I/O ({smi}), Llama-2-7B width, {CKPT_LAYERS} layers, bf16 params: "
+          f"export {export_s:.2f} s ({bin_gb:.3f} GB fp32 pytorch_model.bin, "
+          f"{bin_gb / export_s:.2f} GB/s); .bin read {bin_read_s:.2f} s "
+          f"({bin_gb / bin_read_s:.2f} GB/s); safetensors write {st_write_s:.2f} s "
+          f"({st_gb:.3f} GB bf16, 2 shards); safetensors read and compare {st_read_s:.2f} s "
+          f"({st_gb / st_read_s:.2f} GB/s); {len(from_bin)} tensors")
+    check(not differ, f"safetensors and .bin differ in {differ[:5]}")
+    check("model.mm_projector.weight" in from_bin, "the export lost the projector")
+    del from_bin
+    imported, import_s = seconds(lambda: hf.load_pretrained_backbone(hf_dir, cfg, device="cuda"))
+    print(f"  load_pretrained_backbone onto the card (safetensors, bf16): "
+          f"{import_s:.2f} s ({st_gb / import_s:.2f} GB/s)")
+    bad = backbone_equal(imported, params)
+    check(not bad, f"the imported backbone differs from the exported tree in {bad}")
+    del imported
+
+    # (b) train() from the HF directory: the adapter stage's flags, 2 steps
+    model_args, data_args, training_args = train_args(
+        os.path.join(directory, "train"), train_shard, 2, freeze_backbone=True,
+        tune_mm_mlp_adapter=True)
+    model_args.model_name_or_path = hf_dir
+    training_args.profile_dir = ""
+    for fn in (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd):
+        fn.launches = 0
+    with first_step_params() as seen:
+        result, train_s = seconds(lambda: train(model_args, data_args, training_args,
+                                                device="cuda"))
+    run_cfg, tok = result["cfg"], result["bundle"].tokenizer
+    losses = result["losses"]
+    fwd, bwd = attn_ops.flash_attention_fwd.launches, attn_ops.flash_attention_bwd.launches
+    per_step = training_args.gradient_accumulation_steps * run_cfg.num_layers
+    print(f"train() from the HF directory ({smi}): {train_s:.1f} s with the import "
+          f"and the checkpoint write; losses {[round(x, 4) for x in losses]}; flash forward "
+          f"{fwd}, backward {bwd} launches; tokenizer {type(tok).__name__} ({len(tok)} entries)")
+    check(len(seen) == 1, "train() ran no step")
+    bad = backbone_equal(seen[0], params)
+    check(not bad, f"train()'s first step saw a backbone other than the exported one: {bad}")
+    check(result["final_step"] == 2 and all(np.isfinite(losses)), f"train(): losses {losses}")
+    check(run_cfg.num_layers == CKPT_LAYERS and run_cfg.vocab_size == cfg.vocab_size,
+          "train() read another configuration from config.json")
+    check(bwd == 2 * per_step and fwd == 2 * per_step * 2,
+          f"train(): {fwd} / {bwd} flash launches, not {4 * per_step} / {2 * per_step}")
+    # the adapter stage trains the embedding's new-token rows, nothing else
+    # of the backbone
+    bad = backbone_equal(result["state"].params, params, top=("final_norm_scale", "lm_head"))
+    check(not bad, f"the frozen backbone moved in training: {bad}")
+    del result, seen
+    torch.cuda.empty_cache()
+
+    # (c) serve the run directory through the CLI: one request at a time,
+    # then the engine in mode (a)'s cache (paged 128-token blocks, int8 KV,
+    # chunked admission); flash decode is the serving configuration's switch
+    # (phase 4 sets it too). The CLI's prompt buckets are (128, 512) in both
+    # packages, and a paged cache needs a chunk that divides each: 128, where
+    # phase 7 reaches 256 with buckets of (512,)
+    run_dir = training_args.output_dir
+    meta_path = os.path.join(run_dir, "model_config.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["model_config"]["use_flash_decode"] = True
+    with open(meta_path, "w") as f:
+        json.dump(meta, f, indent=2)
+    shard, ids = write_eval_shard(directory, cfg)
+    one, one_launches = run_webdataset_cli("one at a time", run_dir, shard, ids, [], smi)
+    eng, eng_launches = run_webdataset_cli(
+        "engine mode (a)", run_dir, shard, ids,
+        ["--continuous-batching", "8", "--kv-block-size", "128", "--kv-cache-int8",
+         "--prefill-chunk", "128"], smi)
+    check(one_launches["flash_fwd"] == CKPT_LAYERS * len(ids),
+          f"one at a time: {one_launches['flash_fwd']} flash-prefill launches, not "
+          f"{CKPT_LAYERS} x {len(ids)}")
+    check(set(one_launches) == {"flash_fwd", "dense_bf16"},
+          f"one at a time: flash decode launched in {sorted(one_launches)}")
+    check(set(eng_launches) == {"flash_fwd", "paged_int8"},
+          f"engine mode (a): flash decode launched in {sorted(eng_launches)}")
+
+    # the same rows in this process, on the loaded model
+    run_cfg, run_params, bundle = load_pretrained_model(run_dir, device="cuda")
+    rows = list(from_webdataset.iter_eval_rows([shard]))
+    gen_cfg = GenerationConfig(max_new_tokens=32, temperature=0.0, stop_text="###")
+    want_one, one_s = seconds(lambda: batch_infer(rows, Generator(
+        run_cfg, run_params, bundle.audio_patch_id, gen_cfg, max_cache_len=2048, device="cuda"),
+        bundle))
+    want_eng, eng_s = seconds(lambda: batch_infer_continuous(
+        rows, dataclasses.replace(run_cfg, kv_cache_quant=True), run_params, bundle,
+        gen_cfg=gen_cfg, max_batch=8, max_cache_len=2048, prefill_chunk=128,
+        kv_block_size=128, device="cuda"))
+    print(f"  in this process, the model loaded ({smi}): batch_infer {one_s / len(rows):.3f} s "
+          f"and batch_infer_continuous {eng_s / len(rows):.3f} s per request")
+    for label, got, want in (("one at a time", one, want_one), ("engine mode (a)", eng, want_eng)):
+        want = [{k: str(v) for k, v in r.items()} for r in want]
+        check(got == want, f"from_webdataset ({label}): CSV rows differ from the in-process run")
+    print("  CLI rows equal the in-process batch_infer / batch_infer_continuous rows; "
+          f"completion 0: {one[0]['model_completion'][:80]!r}")
+    check(all(r["model_completion"] for r in one + eng),
+          "an empty completion: the rows would compare nothing")
+    del run_params, params
+    shutil.rmtree(directory)  # the export and the run: ~11 GB
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -1633,7 +1919,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for src, log in reports.items():
@@ -1677,6 +1963,8 @@ def main() -> int:
             "run-of-record flags, 7B width, 4 layers", dataclasses.replace(train_cfg, num_layers=4),
             os.path.join(tmp, "full"), shard, 6, frozen_base=False, lr=1e-4,
             tune_mm_mlp_adapter=True)
+        _, phase_s = seconds(lambda: run_checkpoint_io(os.path.join(tmp, "ckpt"), shard, smi))
+        print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []
@@ -1746,6 +2034,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": wq_library[fmt],
         })
 
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s after the card's name was read")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

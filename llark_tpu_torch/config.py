@@ -37,6 +37,7 @@ class ModelConfig:
     num_heads: int = 32
     num_kv_heads: int = 32  # < num_heads => GQA/MQA
     head_dim: Optional[int] = None  # default hidden/num_heads
+    max_seq_len: int = 2048  # max_position_embeddings of an HF config.json
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     # MPT-specific
@@ -113,6 +114,7 @@ class ModelConfig:
             num_layers=2,
             num_heads=4,
             num_kv_heads=4,
+            max_seq_len=256,
             mm_hidden_size=48,
             use_pallas_attention=False,
             remat=False,

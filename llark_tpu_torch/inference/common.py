@@ -155,9 +155,11 @@ def load_generator(args, bundle, cfg, params, device="cuda"):
     from llark_tpu_torch.generate import Generator
 
     if getattr(args, "num_beams", 1) > 1:
-        raise NotImplementedError("beam search comes with a later slice of the port")
+        raise NotImplementedError("beam search comes with a later slice of the port "
+                                  "(ROADMAP.md Queue A item 6)")
     if getattr(args, "speculative", "off") != "off":
-        raise NotImplementedError("speculative decoding comes with a later slice of the port")
+        raise NotImplementedError("speculative decoding comes with a later slice of the port "
+                                  "(ROADMAP.md Queue A item 6)")
     return Generator(
         cfg, params, audio_patch_id=bundle.audio_patch_id, gen_cfg=make_gen_cfg(args),
         max_cache_len=args.max_cache_len, device=device,

@@ -1,1 +1,2 @@
-"""Interop with the JAX package's parameter layout."""
+"""Interop: the JAX package's parameter layout (`from_jax`), HF checkpoints
+(`hf`) and weight deltas (`delta`)."""

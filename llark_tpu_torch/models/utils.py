@@ -22,13 +22,22 @@ from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 
 
 def save_model_metadata(output_dir: str, cfg: ModelConfig, bundle: TokenizerBundle) -> None:
-    """Write model_config.json next to the checkpoints. The port's only
-    tokenizer is the word-level one (HF tokenizers come with checkpoint
-    import), written in the JAX package's "word" format."""
+    """Write model_config.json next to the checkpoints, in the JAX
+    package's format: a word-level tokenizer whole ("word"), an HF one
+    by its directory ("hf")."""
     os.makedirs(output_dir, exist_ok=True)
+    tok = bundle.tokenizer
+    if isinstance(tok, WordTokenizer):
+        tok_meta: Dict[str, Any] = {"type": "word", **tok.to_dict()}
+    else:
+        tok_meta = {
+            "type": "hf",
+            "path": getattr(tok, "name_or_path", None),
+            "model_max_length": bundle.model_max_length,
+        }
     payload = {
         "model_config": dataclasses.asdict(cfg),
-        "tokenizer": {"type": "word", **bundle.tokenizer.to_dict()},
+        "tokenizer": tok_meta,
     }
     with open(os.path.join(output_dir, "model_config.json"), "w") as f:
         json.dump(payload, f, indent=2)
@@ -38,17 +47,19 @@ def load_model_metadata(checkpoint_dir: str) -> Tuple[ModelConfig, TokenizerBund
     """(ModelConfig, TokenizerBundle) of a run directory. Fields of a
     configuration written by the JAX package that the port's ModelConfig
     does not have are left out; the decoder raises on the features they
-    describe (LoRA factors, MoE) when it meets their weights."""
+    describe (LoRA factors, MoE) when it meets their weights. An "hf"
+    tokenizer loads through `transformers`, imported only here."""
     with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
         payload = json.load(f)
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     cfg = ModelConfig(**{k: v for k, v in payload["model_config"].items() if k in known})
     tok_meta = payload["tokenizer"]
-    if tok_meta["type"] != "word":
-        raise NotImplementedError(
-            "HF tokenizers come with the checkpoint-import slice of the port"
-        )
-    tok = WordTokenizer.from_dict(tok_meta)
+    if tok_meta["type"] == "word":
+        tok = WordTokenizer.from_dict(tok_meta)
+    else:
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(tok_meta["path"], use_fast=False)
     return cfg, TokenizerBundle.from_tokenizer(tok, tok_meta["model_max_length"])
 
 
@@ -70,9 +81,9 @@ def load_pretrained_model(
 
     if not os.path.exists(os.path.join(checkpoint_dir, "model_config.json")):
         raise NotImplementedError(
-            f"{checkpoint_dir} has no model_config.json: HF checkpoint directories "
-            "come with the checkpoint-import slice of the port (ROADMAP.md Queue A "
-            "item 6)"
+            f"{checkpoint_dir} has no model_config.json: this reads run directories of "
+            "the port's train(); import an HF checkpoint directory through train() "
+            "(model_name_or_path=<the directory>) and serve its output_dir"
         )
     cfg, bundle = load_model_metadata(checkpoint_dir)
     dev = resolve_device(device)
@@ -82,8 +93,10 @@ def load_pretrained_model(
     if step is None or not os.path.exists(path):
         raise NotImplementedError(
             f"{checkpoint_dir} holds no checkpoint-N/state.pt of the port's train(): "
-            "Orbax run directories of the JAX package come with the checkpoint-"
-            "import slice of the port (ROADMAP.md Queue A item 6)"
+            "an Orbax run directory of the JAX package needs JAX to read, which the "
+            "port does not import (a divergence kept on purpose, ROADMAP.md Queue C); "
+            "export it with the JAX package's save_hf_checkpoint and import that "
+            "directory through train()"
         )
     saved = torch.load(path, map_location="cpu", weights_only=True)["params"]
     pdt = torch_dtype(cfg.param_dtype)

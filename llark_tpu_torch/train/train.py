@@ -11,14 +11,18 @@ Reference-parity orchestration (m2t/train.py:53-284):
   periodic + final save (projector side-save) ........... trainer.py:35-65
 
 One process on one card (the GPU unless the caller passes device="cpu").
-Not in this slice of the port, each raising before any work: importing an
-HF checkpoint directory, LoRA, a 4- or 8-bit base, MoE, multihost and a
-mesh larger than one device.
+A local HF checkpoint directory as `model_name_or_path` gives the
+architecture (its config.json), the tokenizer (where `transformers` is
+installed and the directory holds one) and the backbone weights
+(`interop/hf.py`). Not in this slice of the port, each raising before any
+work: LoRA, a 4- or 8-bit base, MoE (a Mixtral directory too), multihost
+and a mesh larger than one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
 import os
@@ -39,6 +43,7 @@ from llark_tpu_torch.config import (
 )
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.interop.hf import load_pretrained_backbone
 from llark_tpu_torch.models.fusion import init_llark_params
 from llark_tpu_torch.models.utils import save_model_metadata
 from llark_tpu_torch.special_tokens import IGNORE_INDEX
@@ -63,13 +68,42 @@ log = logging.getLogger("llark_tpu_torch.train")
 
 
 def model_config_from_name(name: str, model_args: ModelArguments) -> ModelConfig:
-    """Select the architecture by model name (reference: m2t/train.py:62-75)."""
-    if os.path.isdir(name):
-        raise NotImplementedError(
-            f"{name!r} is a directory: importing HF checkpoints comes with the "
-            "checkpoint-I/O slice of the port; pass a model name (llama2-7b, mpt, tiny)"
-        )
+    """Select the architecture by model name (reference: m2t/train.py:62-75).
+    A local directory with a config.json takes its dims from that file
+    (llark_tpu/train/train.py:57-113); a Mixtral one raises."""
     kw: Dict[str, Any] = {"mm_hidden_size": model_args.mm_hidden_size}
+    cfg_path = os.path.join(name, "config.json")
+    if os.path.isdir(name) and os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            hf = json.load(f)
+        if hf.get("num_local_experts") or hf.get("model_type") == "mixtral":
+            raise NotImplementedError(
+                f"{name} is a Mixtral (MoE) checkpoint: MoE layers come with a later slice "
+                "of the port (ROADMAP.md Queue A item 9)"
+            )
+        if hf.get("model_type") == "mpt":
+            return ModelConfig.mpt_1b(
+                vocab_size=hf.get("vocab_size", 50368),
+                hidden_size=hf.get("d_model", 2048),
+                intermediate_size=hf.get("d_model", 2048) * hf.get("expansion_ratio", 4),
+                num_layers=hf.get("n_layers", 24),
+                num_heads=hf.get("n_heads", 16),
+                num_kv_heads=hf.get("n_heads", 16),
+                max_seq_len=hf.get("max_seq_len", 2048),
+                **kw,
+            )
+        return ModelConfig(
+            vocab_size=hf.get("vocab_size", 32000),
+            hidden_size=hf.get("hidden_size", 4096),
+            intermediate_size=hf.get("intermediate_size", 11008),
+            num_layers=hf.get("num_hidden_layers", 32),
+            num_heads=hf.get("num_attention_heads", 32),
+            num_kv_heads=hf.get("num_key_value_heads", hf.get("num_attention_heads", 32)),
+            max_seq_len=hf.get("max_position_embeddings", 2048),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            **kw,
+        )
     lname = name.lower()
     if "mpt" in lname:
         if "tiny" in lname:  # test-scale MPT: same arch family, tiny dims
@@ -80,10 +114,30 @@ def model_config_from_name(name: str, model_args: ModelArguments) -> ModelConfig
     return ModelConfig.llama2_7b(**kw)
 
 
+# files one of which a directory holding an HF tokenizer has
+_TOKENIZER_FILES = ("tokenizer_config.json", "tokenizer.json", "tokenizer.model",
+                    "spiece.model", "vocab.json", "vocab.txt")
+
+
 def build_tokenizer(model_args: ModelArguments, training_args: TrainingArguments) -> TokenizerBundle:
-    """The word-level tokenizer: this slice takes no pretrained tokenizer
-    files (they come with HF checkpoint import)."""
-    del model_args
+    """Local-path HF tokenizer if available, WordTokenizer otherwise (no
+    downloads; the reference used AutoTokenizer downloads,
+    m2t/tokenizer.py:22-38). `transformers` is imported only here, and only
+    for a directory that holds tokenizer files: from a directory without
+    them, newer `transformers` releases build an empty tokenizer instead of
+    raising. Without one, the word-level tokenizer, with a warning."""
+    path = model_args.model_name_or_path
+    if os.path.isdir(path):
+        if any(os.path.exists(os.path.join(path, name)) for name in _TOKENIZER_FILES):
+            try:
+                from transformers import AutoTokenizer
+
+                tok = AutoTokenizer.from_pretrained(path, use_fast=False, padding_side="right")
+                return TokenizerBundle.from_tokenizer(tok, training_args.model_max_length)
+            except Exception as e:  # noqa: BLE001 -- the reference's fallback
+                log.warning("failed to load HF tokenizer from %s: %s", path, e)
+        else:
+            log.warning("no tokenizer files under %s: the word-level tokenizer", path)
     return TokenizerBundle.from_tokenizer(WordTokenizer(training_args.model_max_length))
 
 
@@ -180,6 +234,15 @@ def train(
         cfg = dataclasses.replace(cfg, vocab_size=int(math.ceil(len(bundle.tokenizer) / 128) * 128))
 
     params = init_llark_params(cfg, seed=training_args.seed, device=dev)
+    if os.path.isdir(model_args.model_name_or_path):
+        # local HF checkpoint dir: import the backbone weights before the
+        # optimizer sees them (reference: from_pretrained, m2t/train.py:62-75)
+        try:
+            params.update(load_pretrained_backbone(model_args.model_name_or_path, cfg, dev))
+            log.info("imported HF backbone from %s", model_args.model_name_or_path)
+        except FileNotFoundError:
+            log.warning("no HF weights under %s; training from random init",
+                        model_args.model_name_or_path)
     if model_args.pretrain_mm_mlp_adapter:
         apply_pretrained_projector(params, load_projector_weights(model_args.pretrain_mm_mlp_adapter))
     save_model_metadata(training_args.output_dir, cfg, bundle)

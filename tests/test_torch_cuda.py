@@ -29,6 +29,11 @@ exact products in another order and read at most 2.9e-4 on an H100; the
 int4 kernel keeps the scales in fp32 where the plain version rounds
 nibble x scale to bf16, and read at most 3.7e-3. Each limit is about one
 bf16 ulp above its reading.
+
+Two cases drive checkpoint I/O on the card: an HF import from bf16
+safetensors shards must hold the bits of the import onto the CPU, and the
+WebDataset CLI must write the CSV rows of the in-process run, launching
+the flash kernels as the path runs them.
 """
 
 import numpy as np
@@ -651,3 +656,129 @@ def test_quantized_forward_on_the_card(dev, fmt):
                         "int4_cols": (0, 0)}[fmt]
     assert bool(torch.isfinite(got).all())
     assert _rel_to_max(got.cpu(), want) <= 5e-2
+
+
+def _write_safetensors(path, tensors):
+    # the format itself, as chip_smoke.py writes it (the port needs no
+    # package): the header's length as 8 little-endian bytes, a JSON
+    # header, then the raw data
+    import json
+    import struct
+
+    names = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().tobytes())
+
+
+@pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
+def test_load_pretrained_backbone_onto_the_card(dev, tmp_path, param_dtype):
+    # bf16 safetensors shards with an index, imported onto the card: the
+    # same bits as the import onto the CPU
+    import json
+
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.interop import hf
+    from llark_tpu_torch.models.fusion import init_llark_params
+
+    cfg = ModelConfig.tiny(num_kv_heads=2, param_dtype=param_dtype)
+    sd = hf.hf_state_dict_from_params(cfg, init_llark_params(cfg, seed=5, device="cpu"))
+    keys = sorted(sd)
+    shards = {"model-00001-of-00002.safetensors": keys[::2],
+              "model-00002-of-00002.safetensors": keys[1::2]}
+    for fname, part in shards.items():
+        _write_safetensors(tmp_path / fname, {k: sd[k].to(torch.bfloat16) for k in part})
+    (tmp_path / "model.safetensors.index.json").write_text(
+        json.dumps({"weight_map": {k: fn for fn, ks in shards.items() for k in ks}}))
+    got = hf.load_pretrained_backbone(str(tmp_path), cfg, device=dev)
+    want = hf.load_pretrained_backbone(str(tmp_path), cfg, device="cpu")
+    flat = [(k, v) for k, v in want.items() if k != "layers"] + [
+        (f"layers/{k}", v) for k, v in want["layers"].items()]
+    for name, w in flat:
+        g = got["layers"][name[7:]] if name.startswith("layers/") else got[name]
+        assert g.device.type == "cuda" and g.dtype == w.dtype, name
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("mode", ["one_at_a_time", "engine_paged_int8"])
+def test_from_webdataset_on_the_card(dev, tmp_path, mode):
+    # a 2-layer model of head_dim 128 trained one step on the card, served
+    # by the WebDataset CLI: the flash-prefill kernel once per layer per
+    # request one at a time, flash decode in the run's cache mode, and the
+    # CSV rows those of the in-process run
+    import csv
+    import dataclasses
+    import json
+
+    from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig
+    from llark_tpu_torch.config import TrainingArguments
+    from llark_tpu_torch.data.webdataset import TarShardWriter
+    from llark_tpu_torch.generate import GenerationConfig, Generator
+    from llark_tpu_torch.infer import batch_infer, batch_infer_continuous
+    from llark_tpu_torch.inference import from_webdataset
+    from llark_tpu_torch.models.utils import load_pretrained_model
+    from llark_tpu_torch.train.train import train
+
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_heads=2, num_kv_heads=2,
+                           mm_hidden_size=16, use_pallas_attention=True)
+    rng = np.random.RandomState(8)
+    writer = TarShardWriter(str(tmp_path / "mir-train-%05d.tar"), max_count=10)
+    for i in range(2):
+        writer.write({"__key__": f"t{i}", "json": {"response": [
+            {"question": "what is the tempo ?", "answer": "slow ."}]},
+            "audio_encoding.pyd": rng.randn(4, 16).astype(np.float32)})
+    writer.close()
+    run = tmp_path / "run"
+    train(ModelArguments(model_name_or_path="tiny", mm_hidden_size=16),
+          DataArguments(train_data_path=writer.written_paths[0], max_audio_frames=4,
+                        task_sample_probs={"mir": 1.0}),
+          TrainingArguments(output_dir=str(run), per_device_train_batch_size=2,
+                            model_max_length=64, max_steps=1, save_steps=1, seed=0),
+          model_cfg=cfg, device=dev)
+    meta = json.loads((run / "model_config.json").read_text())
+    meta["model_config"]["use_flash_decode"] = True  # the serving configuration's switch
+    (run / "model_config.json").write_text(json.dumps(meta))
+    writer = TarShardWriter(str(tmp_path / "eval-%05d.tar"), max_count=10)
+    for i in range(3):
+        writer.write({"__key__": f"clip{i}-start30_000-end60_000", "json": {"response": [
+            {"question": "what is the tempo ?"}]},
+            "audio_encoding.npy": rng.randn(4 + i, 16).astype(np.float32)})
+    writer.close()
+    flags = [] if mode == "one_at_a_time" else [
+        "--continuous-batching", "2", "--kv-block-size", "16", "--kv-cache-int8",
+        "--prefill-chunk", "64"]
+    tattn.flash_attention_fwd.launches = 0
+    tdec.reset_launch_counts()
+    out = tmp_path / "out.csv"
+    from_webdataset.main(["--checkpoint-dir", str(run), "--input", writer.written_paths[0],
+                          "--output", str(out), "--max-new-tokens", "6", "--max-cache-len",
+                          "256", *flags])
+    torch.cuda.synchronize()
+    k1 = tattn.flash_attention_fwd.launches
+    k2 = {k: v for k, v in tdec.flash_decode_attention.launches_by_mode.items() if v}
+    with open(out, newline="") as f:
+        got = list(csv.DictReader(f))
+    assert [r["example_id"] for r in got] == [f"clip{i}-start30.000-end60.000" for i in range(3)]
+    run_cfg, params, bundle = load_pretrained_model(str(run), device=dev)
+    rows = list(from_webdataset.iter_eval_rows(writer.written_paths))
+    gen_cfg = GenerationConfig(max_new_tokens=6, temperature=0.0, stop_text="###")
+    if mode == "one_at_a_time":
+        assert k1 == cfg.num_layers * 3 and set(k2) == {"dense_bf16"}, (k1, k2)
+        want = batch_infer(rows, Generator(run_cfg, params, bundle.audio_patch_id, gen_cfg,
+                                           max_cache_len=256, device=dev), bundle)
+    else:
+        assert set(k2) == {"paged_int8"}, k2
+        want = batch_infer_continuous(
+            rows, dataclasses.replace(run_cfg, kv_cache_quant=True), params, bundle,
+            gen_cfg=gen_cfg, max_batch=2, max_cache_len=256, kv_block_size=16,
+            prefill_chunk=64, device=dev)
+    assert got == [{k: str(v) for k, v in r.items()} for r in want]

@@ -395,6 +395,6 @@ def test_from_encodings_cli_reads_a_trained_checkpoint(tmp_path):
     assert len(got) == 4
     assert [r["model_completion"] for r in got] == [r["model_completion"] for r in want]
     assert [r["example_id"] for r in got] == [r["example_id"] for r in want]
-    # an Orbax or HF directory is refused with a pointer to the roadmap
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    # an HF directory is refused with a pointer to its import through train()
+    with pytest.raises(NotImplementedError, match="through train"):
         load_pretrained_model(str(tmp_path / "enc"), device="cpu")

@@ -420,6 +420,10 @@ def test_out_of_slice_options_raise(tmp_path, option):
     elif option == "mesh":
         training_args.mesh_shape = (1, 2, 1)
     elif option == "hf_dir":
+        # HF directories import since the checkpoint-I/O slice; a Mixtral
+        # (MoE) one does not
+        (tmp_path / "config.json").write_text(
+            json.dumps({"model_type": "mixtral", "num_local_experts": 8}))
         model_args.model_name_or_path = str(tmp_path)
     else:
         training_args.report_to = "tensorboard"
