@@ -25,7 +25,7 @@ Phases, in order; any failure exits non-zero before the final line:
      scaled_dot_product_attention as the library yardstick, and the bound
      from bytes and FLOPs at 3.35 TB/s and 989 TFLOP/s (H100 SXM, bf16);
      the flash-prefill kernel also at one-shot admission's [8,32,512,128]
-     (printed);
+     (printed); the flash-decode kernel's host enqueue time a call;
   6. (A) the flash-decode kernel in every cache mode against its plain
      version at 7B serving shapes: q [8,32,1,128], 2048-position caches,
      live lengths 300-340; dense bf16, dense int8, paged bf16 with 16- and
@@ -44,7 +44,8 @@ Phases, in order; any failure exits non-zero before the final line:
      one-shot admission. Each mode: wall time, tokens/s, mean TTFT, the
      flash-decode launches by cache mode (all in its own), the
      flash-prefill launches (one-shot admission runs it: (b) and (d)),
-     peak memory, and a decode round's device idle share (torch.profiler);
+     peak memory, and a decode round's device idle share and the
+     flash-decode kernel's part of its device time (torch.profiler);
      one decode step from an admitted state through the kernel route and
      the plain route, logits within LOGITS_TOL;
   8. the training kernels against their plain versions at the training
@@ -74,7 +75,7 @@ Phases, in order; any failure exits non-zero before the final line:
      the old wrapper's PyTorch delta alone; at kv_len [1024, 1024] against
      SDPA is_causal=True as a second reference, for the backward and for
      the forward with and without its log-sum-exp); and the
-     flash-decode kernel's int8 and paged modes at the phase-6 shape beside
+     flash-decode kernel's four cache modes at the phase-6 shape beside
      their plain version (no single PyTorch call reads an int8 or paged
      cache: SDPA over a dense bf16 view is printed beside them);
  13. the two weight-only quantized products (int8, int4 with 128-row groups)
@@ -201,8 +202,10 @@ SEED = 0
 # query row's |kernel - plain| / |plain| (L2 over the head dim). On an H100
 # 80GB HBM3 at 700 W the cases below read at most 4.9e-3 for the prefill
 # kernel, which rounds the probabilities to bf16 for the P.V product, and
-# 4.8e-4 for the decode kernel, which keeps them in fp32 (PERF.md); each
-# limit is about one bf16 ulp (2**-8 = 3.9e-3 relative) above its reading.
+# 1.6e-3 for the decode kernel, which keeps them to about fp32 precision (a
+# bf16 high part and the bf16 rest); P rounded to bf16 alone read 4.9e-3
+# there (PERF.md). The decode limit is about one bf16 ulp (2**-8 = 3.9e-3
+# relative) above the fp32 readings, the prefill limit above its own.
 # KERNEL_TOL bounds max |kernel - plain| / max |plain| over the output.
 # The quantized products are held per output row (L2 over the output
 # channels). The int8 kernel computes the plain version's exact products in
@@ -654,6 +657,17 @@ def time_flash_decode(gen, kv_len, b):
     return ms, plain_ms, lib_ms, bound(nbytes, flops), f"q [{b},{h},1,{d}], cache S={s}, kv_len {kv_len}"
 
 
+def k2_host_us(gen, kv_len) -> float:
+    """Host time to enqueue one flash-decode call at the one-request shape
+    (q [1,32,1,128], cache 2048): the least of five host_us runs, since the
+    host's speed varies with its other load."""
+    q = bf16_randn(gen, 1, 32, 1, 128)
+    k, v = bf16_randn(gen, 1, 32, 2048, 128), bf16_randn(gen, 1, 32, 2048, 128)
+    kv = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+    return min(host_us(lambda: dec_ops.flash_decode_attention(q, k, v, kv_lengths=kv))
+               for _ in range(5))
+
+
 # ---------------------------------------------------------------------------
 # phase 6 (A): the flash-decode kernel's int8 and paged modes (K2')
 # ---------------------------------------------------------------------------
@@ -669,7 +683,8 @@ def k2_inputs(gen, mode: str, hkv: int = 32, sq: int = 1, bs: int = 128, s: int 
     pool out."""
     b, h, d = len(SERVE_LENGTHS), 32, 128
     q = bf16_randn(gen, b, h, sq, d)
-    kw = dict(kv_lengths=torch.tensor(SERVE_LENGTHS, device="cuda"))
+    # int32 lengths and positions, as the decoder passes them
+    kw = dict(kv_lengths=torch.tensor(SERVE_LENGTHS, dtype=torch.int32, device="cuda"))
     kw["q_positions"] = kw["kv_lengths"] - sq
     if mode.startswith("paged"):
         max_blocks = s // bs
@@ -838,8 +853,13 @@ def profile_round(server: BatchedServer):
     if busy_ms <= 0:
         return wall_ms, None, "not measured (the profiler saw no device time)"
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    return wall_ms, busy_ms, "; ".join(
-        f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top)
+    # the flash-decode kernel's share: its split and combine kernels
+    k2 = [e for e in kernels if "decode_split" in e.key or "decode_combine" in e.key]
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
+    return wall_ms, busy_ms, (
+        f"flash decode {k2_ms:.2f} ms x{sum(e.count for e in k2)} "
+        f"({k2_ms / busy_ms:.1%} of the round's device time); " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top))
 
 
 def check_chunked_admission(server: BatchedServer, wq: str, label: str) -> None:
@@ -1982,6 +2002,8 @@ def main() -> int:
             print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"{bound_ms / ms:.1%} of bound")
+        if name == "flash_decode":
+            print(f"flash_decode host enqueue at {shape}: {k2_host_us(gen, length):.1f} us a call")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -1992,6 +2014,10 @@ def main() -> int:
     ms, plain_ms, lib_ms, (bound_ms, bound_by), shape = time_flash_fwd_at(gen, 512, admitted)
     print(f"flash_fwd at one-shot admission {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    # K2 in dense bf16 at the phase-6 shape (printed), beside the other modes
+    ms, plain_ms, sdpa_ms, (bound_ms, bound_by), shape = time_flash_decode_mode(gen, "bf16", 0)
+    print(f"flash_decode at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     # K2': each cache mode at the phase-6 shape, launches from the serving
     # mode that runs it
     for name, mode, bs, label, cache_mode in K2_ROWS:

@@ -91,6 +91,13 @@ def load_pretrained_model(
     step = ckpt_num if ckpt_num is not None else mgr.latest_step()
     path = os.path.join(mgr.directory, f"checkpoint-{step}", "state.pt")
     if step is None or not os.path.exists(path):
+        orbax_steps = [n for n in os.listdir(checkpoint_dir)
+                       if n.isdigit() and os.path.isdir(os.path.join(checkpoint_dir, n))]
+        if not orbax_steps:
+            # as the reference raises (llark_tpu/models/utils.py:74-75)
+            raise FileNotFoundError(
+                f"no checkpoints in {checkpoint_dir}" if step is None
+                else f"no checkpoint-{step} in {checkpoint_dir}")
         raise NotImplementedError(
             f"{checkpoint_dir} holds no checkpoint-N/state.pt of the port's train(): "
             "an Orbax run directory of the JAX package needs JAX to read, which the "

@@ -161,6 +161,18 @@ _DECODE_ARGTYPES = (
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+_entry_points = {}  # loaded library -> its two C entry points, typed once
+
+
+def _decode_entry_points():
+    lib = _build.load("flash_decode.cu")
+    fns = _entry_points.get(lib)
+    if fns is None:
+        splits, fn = lib.llark_flash_decode_splits, lib.llark_flash_decode
+        splits.argtypes, splits.restype = [ctypes.c_int], ctypes.c_int
+        fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
+        fns = _entry_points[lib] = (splits, fn)
+    return fns
 
 
 def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale, v_scale,
@@ -168,8 +180,9 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
     _check_decode_inputs(q, k_cache, v_cache, k_scale, v_scale, block_tables)
     b, h, sq, d = q.shape
     hkv = k_cache.shape[1]
-    if q.stride(-1) != 1:
-        q = q.contiguous()
+    if (q.stride(-1) != 1 or q.data_ptr() % 16
+            or any(st * q.element_size() % 16 for st in q.stride()[:3])):
+        q = q.contiguous()  # the kernel copies whole 16-byte chunks of q's rows
     dev = q.device
     kvl = kv_lengths.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
     if q_positions is None:
@@ -191,15 +204,11 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0 or s_len == 0:
         return out.zero_()
-    lib = _build.load("flash_decode.cu")
-    splits = lib.llark_flash_decode_splits
-    splits.argtypes, splits.restype = [ctypes.c_int], ctypes.c_int
+    splits, fn = _decode_entry_points()
     n_splits = splits(s_len)
     part_acc = torch.empty((b, h, sq, n_splits, d), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, h, sq, n_splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    fn = lib.llark_flash_decode
-    fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         _ptr(tables), kvl.data_ptr(), qpos.data_ptr(), _ptr(sl), part_acc.data_ptr(),

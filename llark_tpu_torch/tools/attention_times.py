@@ -10,7 +10,8 @@ this checkout), builds that checkout's kernels, and prints one line `TIMES
 launch, the host enqueue hidden): K1 at the serving prefill [1,32,384,128]
 (297 live keys) and with its log-sum-exp at the training shape
 [2,32,1024,128] (kv_len [1024, 700]), the flash backward (K3+K4) there, and
-K2 at q [1,32,1,128] over a 2048-position bf16 cache (313 live). To compare
+K2 at q [1,32,1,128] over a 2048-position bf16 cache (313 live), and K2's
+host enqueue time there in us (the least of five `chip_smoke.host_us`). To compare
 two checkouts, run it in turns, one process each (A, B, B, A), on one
 card: e.g. the parent unpacked by `git archive` into a
 git-ignored directory, beside this one.
@@ -63,6 +64,9 @@ def main() -> int:
     kvl = torch.tensor([313], dtype=torch.int32, device="cuda")
     times["K2 [1,32,1,128] cache 2048 kv 313"] = smoke.median_ms(
         lambda: dec_ops.flash_decode_attention(q, kc, vc, kv_lengths=kvl))
+    # the host's speed varies with its other load: the least of five runs
+    times["K2 host enqueue us"] = min(smoke.host_us(
+        lambda: dec_ops.flash_decode_attention(q, kc, vc, kv_lengths=kvl)) for _ in range(5))
     print("TIMES", json.dumps(times), flush=True)
     return 0
 

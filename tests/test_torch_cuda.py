@@ -10,11 +10,11 @@ nothing of JAX, so it also runs on a machine without it:
 Tolerance, for bf16 inputs with both outputs rounded to bf16: the worst
 query row's |kernel - plain| / |plain| (L2 over the head dim) stays within
 ROW_TOL, the limits of chip_smoke.py: about one bf16 ulp (2**-8 relative)
-above the errors its cases read on an H100 (4.9e-3 prefill, 4.8e-4 decode;
-PERF.md). The prefill kernel rounds the
-probabilities to bf16 for the P.V product and both kernels sum in another
-order than the plain versions, which compute in fp32. A row with no live
-key must be zeros.
+above the errors its cases read on an H100 (4.9e-3 prefill, 1.6e-3 decode;
+PERF.md). The prefill kernel rounds the probabilities to bf16 for the P.V
+product, the decode kernel keeps them to about fp32 precision (a bf16 high
+part and the bf16 rest), and both sum in another order than the plain
+versions, which compute in fp32. A row with no live key must be zeros.
 
 The flash backward (dq, dk, dv) is held as chip_smoke.py holds it:
 per row within 1e-2 with each row's norm floored at 1e-2 of the tensor's
@@ -231,13 +231,25 @@ def test_decode_attention_routes_by_head_dim(dev, d, dtype, paged):
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
-@pytest.mark.parametrize("sq", [1, 5])
-@pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
-def test_flash_decode_kernel_matches_plain(dev, sq, hkv, alibi):
-    b, h, s, d = 3, 8, 512, 128
+# (heads, kv heads, query window): group x window = 1, 5, 8, 17 and 40 query
+# rows a kv head, padded to one or two 16-row tiles of the kernel's products
+# (40: two blocks of at most 32 rows)
+DECODE_ROWS = [(8, 8, 1), (8, 8, 5), (8, 1, 1), (8, 8, 17), (16, 2, 5)]
+DECODE_ROW_IDS = ["rows1", "rows5", "rows8", "rows17", "rows40"]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv,sq", DECODE_ROWS, ids=DECODE_ROW_IDS)
+@pytest.mark.parametrize("alibi", [False, True], ids=["plain", "alibi"])
+@pytest.mark.parametrize("back", [0, 70], ids=["window_at_end", "window_70_back"])
+def test_flash_decode_kernel_matches_plain(dev, d, h, hkv, sq, alibi, back):
+    # live lengths 0 (a row that sees nothing), 1, 300 (ending mid-tile) and
+    # the whole cache; with the window 70 positions back from the live end,
+    # a live 64-key split lies wholly past every query of a window (Sq > 1)
+    b, s = 4, 512
     q, k, v = _qkv(dev, 10, b, h, hkv, sq, s, d)
-    kv_lengths = torch.tensor([1, 300, 512], device=dev)
-    q_positions = kv_lengths - sq
+    kv_lengths = torch.tensor([0, 1, 300, 512], device=dev)
+    q_positions = kv_lengths - sq - back
     slopes = tattn.alibi_slopes(h, dev) if alibi else None
     before = tdec.flash_decode_attention.launches
     got = tdec.flash_decode_attention(
@@ -266,14 +278,20 @@ def test_flash_decode_kernel_many_rows(dev):
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq", [1, 5])
 @pytest.mark.parametrize("hkv,alibi", [(8, False), (2, True)])
-def test_flash_decode_kernel_int8_matches_plain(dev, sq, hkv, alibi):
+@pytest.mark.parametrize("zero_scales", [False, True], ids=["scaled", "zero_scales"])
+def test_flash_decode_kernel_int8_matches_plain(dev, d, sq, hkv, alibi, zero_scales):
     # the dense int8 cache: both sides dequantize the same int8 values and
-    # scales in fp32
-    b, h, s, d = 3, 8, 512, 128
+    # scales in fp32; with zero_scales some live positions have K and V
+    # scales of 0 (scores of 0, no share in the output)
+    b, h, s = 3, 8, 512
     q, k, v = _qkv(dev, 18, b, h, hkv, sq, s, d)
     (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+    if zero_scales:
+        ks[:, :, 40:100] = 0.0
+        vs[:, :, 90:150] = 0.0
     kv_lengths = torch.tensor([1, 300, 512], device=dev)
     q_positions = kv_lengths - sq
     slopes = tattn.alibi_slopes(h, dev) if alibi else None
@@ -289,14 +307,16 @@ def test_flash_decode_kernel_int8_matches_plain(dev, sq, hkv, alibi):
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bs", [16, 64, 128])
 @pytest.mark.parametrize("sq", [1, 5])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-def test_flash_decode_kernel_paged_matches_plain(dev, bs, sq, quant):
+def test_flash_decode_kernel_paged_matches_plain(dev, d, bs, sq, quant):
     # GQA 4 + ALiBi over a pool whose blocks are scattered: each row's
     # table is a random permutation of pool blocks, so a 64-position split
-    # spans several blocks (bs 16), one (bs 64) or half of one (bs 128)
-    b, h, hkv, d, span = 3, 8, 2, 128, 512
+    # spans several blocks (bs 16), one (bs 64) or half of one (bs 128);
+    # live lengths 0, 1, 300 (mid-tile and mid-block) and the whole span
+    b, h, hkv, span = 4, 8, 2, 512
     max_blocks = span // bs
     n_blocks = b + b * max_blocks  # parking blocks first, as the server lays them out
     rng = np.random.RandomState(19 + bs)
@@ -305,7 +325,7 @@ def test_flash_decode_kernel_paged_matches_plain(dev, bs, sq, quant):
     v = torch.from_numpy(rng.randn(n_blocks, hkv, bs, d).astype(np.float32)).to(dev, torch.bfloat16)
     perm = rng.permutation(np.arange(b, n_blocks)).reshape(b, max_blocks).astype(np.int32)
     tables = torch.from_numpy(perm).to(dev)
-    kv_lengths = torch.tensor([1, 300, 512], device=dev)
+    kv_lengths = torch.tensor([0, 1, 300, 512], device=dev)
     q_positions = kv_lengths - sq
     kw = dict(kv_lengths=kv_lengths, q_positions=q_positions,
               slopes=tattn.alibi_slopes(h, dev), block_tables=tables)
@@ -338,6 +358,55 @@ def test_flash_decode_kernel_clips_bad_tables_and_lengths(dev):
         q, k, v, kv_lengths=kv_lengths.clamp_max(max_blocks * bs), q_positions=None,
         k_scale=None, v_scale=None, slopes=None, block_tables=tables.clamp(0, n_blocks - 1))
     assert _row_err(got, want) <= ROW_TOL["flash_decode"]
+
+
+@pytest.mark.parametrize("mode", ["dense_bf16", "paged_int8"])
+def test_flash_decode_replays_in_a_cuda_graph(dev, mode):
+    # the kernel's grid and scratch follow from shapes alone, and the
+    # wrapper reads nothing back to the host: one call captured on static
+    # buffers, then live lengths, query positions and block tables changed
+    # in place, must replay bit for bit as an eager call on the same buffers
+    b, h, hkv, sq, d, bs, span = 4, 8, 2, 3, 128, 16, 512
+    rng = np.random.RandomState(22)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    q = randn(b, h, sq, d)
+    kv_lengths = torch.tensor([5, 64, 300, 512], dtype=torch.int32, device=dev)
+    q_positions = kv_lengths - sq
+    kw = dict(kv_lengths=kv_lengths, q_positions=q_positions, slopes=tattn.alibi_slopes(h, dev))
+    n_blocks = b * span // bs
+    tables = None
+    if mode == "paged_int8":
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = (_quantize_kv(randn(n_blocks, hkv, bs, d))
+                                                  for _ in range(2))
+        tables = torch.from_numpy(rng.permutation(n_blocks).reshape(b, -1).astype(np.int32)).to(dev)
+        kw["block_tables"] = tables
+    else:
+        k, v = randn(b, hkv, span, d), randn(b, hkv, span, d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # load the library before capture
+        tdec.flash_decode_attention(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.flash_decode_attention(q, k, v, **kw)
+    for lengths in ([1, 300, 77, 0], [512, 129, 64, 2]):
+        kv_lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+        q_positions.copy_(kv_lengths - sq)
+        if tables is not None:
+            tables.copy_(torch.from_numpy(
+                rng.permutation(n_blocks).reshape(b, -1).astype(np.int32)))
+        graph.replay()
+        want = tdec.flash_decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        plain = tdec._flash_decode_plain(
+            q, k, v, k_scale=kw.get("k_scale"), v_scale=kw.get("v_scale"),
+            **{n: kw.get(n) for n in ("kv_lengths", "q_positions", "slopes", "block_tables")})
+        assert _row_err(out, plain) <= ROW_TOL["flash_decode"]
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -730,3 +730,21 @@ def test_load_pretrained_model_points_hf_and_orbax_directories_elsewhere(tmp_pat
     os.makedirs(tmp_path / "orbax" / "1")
     with pytest.raises(NotImplementedError, match="Orbax"):
         load_pretrained_model(str(tmp_path / "orbax"), device="cpu")
+
+
+def test_load_pretrained_model_without_checkpoints_raises_as_the_reference(tmp_path):
+    # a run stopped before its first save: model_config.json and no
+    # checkpoint. Both packages raise FileNotFoundError.
+    from llark_tpu.models.utils import load_pretrained_model as jload_pretrained_model
+    from llark_tpu.models.utils import save_model_metadata as jsave_model_metadata
+    from llark_tpu.tokenization import TokenizerBundle as JBundle
+    from llark_tpu.tokenization import WordTokenizer as JWordTokenizer
+    from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
+
+    tcfg, jcfg = _cfgs("llama")
+    jsave_model_metadata(str(tmp_path / "jax"), jcfg, JBundle.from_tokenizer(JWordTokenizer(64)))
+    with pytest.raises(FileNotFoundError) as want:
+        jload_pretrained_model(str(tmp_path / "jax"))
+    save_model_metadata(str(tmp_path / "torch"), tcfg, TokenizerBundle.from_tokenizer(WordTokenizer(64)))
+    with pytest.raises(type(want.value), match="no checkpoints in"):
+        load_pretrained_model(str(tmp_path / "torch"), device="cpu")
