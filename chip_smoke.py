@@ -133,7 +133,33 @@ Phases, in order; any failure exits non-zero before the final line:
      process, the flash-prefill kernel once per layer per request in the
      first run, flash decode only in each run's cache mode (dense bf16, then
      paged int8); export and import seconds and GB/s and the CLI's seconds
-     per request beside the card's name and power limit.
+     per request beside the card's name and power limit;
+ 18. LoRA and QLoRA at Llama-2-7B width (fp32 parameters, bf16 compute,
+     remat; rank 64, alpha 16, dropout 0.05, 512 positions, batch 2 x 2,
+     phase 10's shard), each run through `train()` (`run_lora`): (a) QLoRA
+     on an int8 base, 32 layers, 4 steps; (b) on an int4 base (rows layout,
+     group 128), 32 layers, 3 steps; (c) LoRA on the float base, 32 layers,
+     3 steps, then `merge_lora`; (d) one micro-batch under each remat policy
+     ("full", "dots", "dots_narrow"), 4 layers, int8 base; (e) (a)'s run
+     directory through `load_pretrained_model` -> `batch_infer`, factors
+     unmerged, flash decode on. Gates: the loss falls; K5 (K6 in (b)) 448
+     times a micro-batch (224 in the forward, 224 in remat's recompute),
+     the other format's never; K1 twice and the flash backward once per
+     layer per micro-batch; the base bit for bit the quantized seeded init;
+     every LoRA-B moved; the adapter files written; one more step against
+     every product on its plain version (loss 1e-2 absolute; the LoRA-B
+     gradient 3e-2 relative to max with attention plain on both sides, so
+     that it reads K5 / K6 and their dx; no kernel launches inside); the dots
+     policies' LoRA gradients within 1e-2 of full's, with K5 once per
+     product; in (e) K1 once per layer per request, dense K2, 224 K5
+     launches per decode step, one decode step's logits against the plain
+     products and (c)'s merged tree's prefill logits against its unmerged
+     tree's within 5e-2 relative to max, every request 32 tokens. Printed:
+     step ms, tokens/s, MFU (frozen-base accounting with the LoRA term),
+     peak memory, idle share and the top kernels of each run, the device
+     time of the dx products read from the profiled step's trace, one
+     decode step through the quantized operator and called directly, and
+     each part's seconds.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -182,6 +208,7 @@ from llark_tpu_torch.infer import (
 from llark_tpu_torch.inference import from_webdataset
 from llark_tpu_torch.inference.server import BatchedServer, Request
 from llark_tpu_torch.interop import hf
+from llark_tpu_torch.models import lora as lora_mod
 from llark_tpu_torch.models import quant
 from llark_tpu_torch.models.decoder import _quantize_kv, decoder_forward
 from llark_tpu_torch.models.fusion import build_inputs_embeds, init_llark_params
@@ -1477,16 +1504,20 @@ def write_shards(directory: str, cfg: ModelConfig) -> str:
     return writer.written_paths[0]
 
 
-def train_args(directory: str, shard: str, steps: int, lr: float = 1e-3, **flags):
+def train_args(directory: str, shard: str, steps: int, lr: float = 1e-3, seq: int = 1024,
+               train_flags=None, **flags):
+    """`train()`'s arguments: batch 2 x 2 of `seq` positions, the last
+    step profiled; `flags` are ModelArguments, `train_flags`
+    TrainingArguments."""
     model_args = ModelArguments(model_name_or_path="llama2-7b", **flags)
     data_args = DataArguments(train_data_path=shard, max_audio_frames=256,
                               task_sample_probs={"mir": 1.0})
     training_args = TrainingArguments(
         output_dir=os.path.join(directory, "out"), per_device_train_batch_size=2,
-        gradient_accumulation_steps=2, model_max_length=1024, learning_rate=lr,
+        gradient_accumulation_steps=2, model_max_length=seq, learning_rate=lr,
         max_steps=steps, save_steps=10**6, logging_steps=1, seed=SEED,
         profile_dir=os.path.join(directory, "profile"), profile_start_step=steps - 1,
-        profile_num_steps=1, checkpoint_on_preemption=False,
+        profile_num_steps=1, checkpoint_on_preemption=False, **(train_flags or {}),
     )
     return model_args, data_args, training_args
 
@@ -1523,9 +1554,12 @@ def check_gradient_through_kernels(cfg: ModelConfig, directory: str, shard: str)
     torch.cuda.empty_cache()
 
 
-def device_split(trace_path: str, wall_ms: float, top: int = 6) -> None:
+def device_split(trace_path: str, wall_ms: float, top: int = 6, span: str = None) -> None:
     """Device kernel time of one profiled train step (its chrome trace)
-    beside the unprofiled median step time: the card's idle share."""
+    beside the unprofiled median step time: the card's idle share. With
+    `span`, also the device time of the kernels launched inside the CPU
+    ranges of that name (an autograd node's backward: the host calls that
+    launched them lie inside the range, on its thread)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     kernels = {}
@@ -1542,15 +1576,47 @@ def device_split(trace_path: str, wall_ms: float, top: int = 6) -> None:
           f"idle share {1 - busy / wall_ms:.1%}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+    if span is not None:
+        span_kernels(events, span)
+
+
+def span_kernels(events: list, span: str) -> None:
+    """Device ms of the kernels whose launch lies inside a CPU range named
+    `span`; a quantized-product kernel among them would mean the range also
+    held a recomputed forward, and fails."""
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e.get("name") == span:
+            ranges.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"]))
+    inside = set()
+    for e in events:
+        # the launch calls: the runtime and lower-level API categories
+        if e.get("cat", "").startswith("cuda_") and any(
+                a <= e["ts"] <= b for a, b in ranges.get(e.get("tid"), ())):
+            inside.add(e.get("args", {}).get("correlation"))
+    hit = [e for e in events if e.get("cat") == "kernel" and e["args"].get("correlation") in inside]
+    n = sum(len(r) for r in ranges.values())
+    ms = sum(e.get("dur", 0.0) for e in hit) / 1e3
+    print(f"  dx products (kernels launched in {n} {span} ranges): {ms:.2f} ms of device time, "
+          f"{len(hit)} kernels")
+    check(n > 0 and hit, f"the trace holds no kernel launched in {span}")
+    check(not any("wq_matmul_kernel" in e["name"] for e in hit),
+          f"a quantized-product kernel launched inside {span}")
 
 
 def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps: int,
-                 frozen_base: bool, lr: float, **flags):
+                 frozen_base: bool, lr: float, seq: int = 1024, train_flags=None,
+                 keep: bool = False, span: str = None, **flags):
     """Drive `train()` on the card; check and print what the path did.
-    Returns the launches of the two training kernel wrappers in the run."""
-    model_args, data_args, training_args = train_args(directory, shard, steps, lr, **flags)
+    Returns the launches in the run of the two training kernel wrappers and
+    of the two quantized products, and with `keep` train()'s result (the
+    run directory is then left on disk). `span` names a CPU range whose
+    kernels the profiled step's trace reads (see `span_kernels`)."""
+    model_args, data_args, training_args = train_args(directory, shard, steps, lr, seq,
+                                                      train_flags, **flags)
     torch.cuda.reset_peak_memory_stats()
-    counters = (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd)
+    counters = (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd,
+                int8_ops.int8_matmul, int4_ops.int4_matmul)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1566,18 +1632,21 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
     tokens = (training_args.per_device_train_batch_size * training_args.gradient_accumulation_steps
               * training_args.model_max_length)
     tok_s = tokens / (step_ms / 1e3)
-    mfu = flops.train_mfu(cfg, training_args.model_max_length, tok_s, frozen_base=frozen_base)
+    # the run's cfg: with LoRA it carries the rank, and the flops its term
+    mfu = flops.train_mfu(result["cfg"], training_args.model_max_length, tok_s,
+                          frozen_base=frozen_base)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label}: {steps} steps in {wall:.1f} s; losses {[round(x, 4) for x in losses]}; "
           f"grad norms {[round(r['grad_norm'], 4) for r in records]}")
-    print(f"  median step {step_ms:.1f} ms, {tok_s:.0f} tokens/s (batch 2 x 2 x 1024 positions), "
+    print(f"  median step {step_ms:.1f} ms, {tok_s:.0f} tokens/s (batch 2 x 2 x {seq} positions), "
           f"MFU {mfu:.1%}, peak memory {peak_gb:.2f} GiB, launches per step "
           f"{ {k: v / steps for k, v in launches.items()} }")
-    device_split(os.path.join(training_args.profile_dir, "trace.json"), step_ms)
+    device_split(os.path.join(training_args.profile_dir, "trace.json"), step_ms, span=span)
     check(result["final_step"] == steps, f"{label}: stopped at step {result['final_step']}")
     check(all(np.isfinite(r["grad_norm"]) for r in records), f"{label}: a non-finite grad norm")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
-    check(all(n > 0 for n in launches.values()), f"{label}: a training kernel never launched: {launches}")
+    check(launches["flash_attention_fwd"] > 0 and launches["flash_attention_bwd"] > 0,
+          f"{label}: a training kernel never launched: {launches}")
     # one backward per layer per micro-batch
     per_step = training_args.gradient_accumulation_steps * cfg.num_layers
     check(launches["flash_attention_bwd"] == steps * per_step,
@@ -1587,6 +1656,8 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
     fwd_per_step = per_step * (2 if cfg.remat else 1)
     check(launches["flash_attention_fwd"] == steps * fwd_per_step,
           f"{label}: {launches['flash_attention_fwd']} flash forward launches, not {steps} x {fwd_per_step}")
+    if keep:
+        return launches, result
     del result
     shutil.rmtree(directory)  # the checkpoint: 27 GB at 32 layers
     torch.cuda.empty_cache()
@@ -1928,6 +1999,329 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LoRA and QLoRA training at Llama-2-7B width, and serving the run
+# ---------------------------------------------------------------------------
+
+# the JAX package's QLoRA configuration (README.md): rank 64, alpha 16,
+# dropout 0.05, remat, 512 positions; batch 2 x 2
+LORA_SEQ = 512
+LORA_FLAGS = dict(lora_enable=True, lora_r=64, lora_alpha=16, lora_dropout=0.05)
+# one step against plain products and plain attention (bf16 both): the
+# phase-9 gates (loss 1e-2 absolute, the gradient 3e-2 relative to max) on
+# the loss and the LoRA-B gradient (see check_plain_step). The remat
+# policies recompute the same ops: their LoRA gradients differ by dq's
+# atomics' order alone (1e-2 relative to max)
+REMAT_GRAD_TOL = 1e-2
+
+
+def lora_batch(cfg: ModelConfig, shard: str):
+    """One micro-batch (2 rows of LORA_SEQ positions) of the phase-10 shard
+    on the card, and its tokenizer bundle."""
+    _, data_args, _ = train_args("unused", shard, 1)
+    bundle = TokenizerBundle.from_tokenizer(WordTokenizer(LORA_SEQ))
+    batch = next(iter(make_data_module(
+        bundle, data_args, batch_size=2, max_seq_len=LORA_SEQ,
+        mm_hidden_size=cfg.mm_hidden_size, seed=SEED)["train_iterator"]()))
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+            if isinstance(v, np.ndarray)}, bundle
+
+
+def lora_grads(cfg: ModelConfig, params, batch, patch_id: int, names):
+    """(loss, gradients of the named layer leaves) of one micro-batch, LoRA
+    dropout drawn from seed 1."""
+    loss, _ = make_loss_fn(cfg, audio_patch_id=patch_id)(params, batch, 1)
+    return loss.item(), torch.autograd.grad(loss, [params["layers"][n] for n in names])
+
+
+def kernel_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in (
+        attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd,
+        int8_ops.int8_matmul, int4_ops.int4_matmul)}
+
+
+def check_plain_step(label: str, cfg: ModelConfig, params, batch, patch_id: int) -> None:
+    """The trained run's next step three ways: every kernel (K); the
+    quantized products' kernels beside plain attention (Q); every product
+    on its plain version (P), where no kernel launches. The loss holds K
+    against P. The LoRA-B gradient holds Q against P, so that it reads the
+    quantized products and their dx alone; K against Q, the attention
+    routes alone, is printed beside it as the gate's lower reading."""
+    names = [k for k in lora_mod.lora_keys(params) if k.endswith("_lora_b")]
+    plain_attention = dataclasses.replace(cfg, use_pallas_attention=False)
+    lk, gk = lora_grads(cfg, params, batch, patch_id, names)
+    before = kernel_counts()
+    lq, gq = lora_grads(plain_attention, params, batch, patch_id, names)
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    ran = {k: after[k] - before[k] for k in after}
+    check(ran["flash_attention_fwd"] == ran["flash_attention_bwd"] == 0
+          and ran["int8_matmul"] + ran["int4_matmul"] > 0,
+          f"{label}: the step on plain attention launched {ran}")
+    with plain_products():
+        lp, gp = lora_grads(plain_attention, params, batch, patch_id, names)
+    torch.cuda.synchronize()
+    check(kernel_counts() == after, f"{label}: a kernel launched in the plain step")
+
+    def worst(got, want):
+        return max(rel_err(a, b)[0] for a, b in zip(got, want))
+
+    rel, rel_all, rel_attention = worst(gq, gp), worst(gk, gp), worst(gk, gq)
+    print(f"  one more step: loss {lk:.5f} (kernels) vs {lq:.5f} (quantized kernels, plain "
+          f"attention) vs {lp:.5f} (plain); LoRA-B gradient rel-to-max, worst of {len(names)} "
+          f"leaves: quantized routes alone {rel:.3e}, attention routes alone {rel_attention:.3e}, "
+          f"every kernel against every plain version {rel_all:.3e}")
+    check(abs(lk - lp) <= TRAIN_ABS_LOSS_TOL, f"{label}: loss differs by {abs(lk - lp):.3e}")
+    check(rel <= TRAIN_GRAD_TOL, f"{label}: LoRA-B gradient rel err {rel:.3e} > {TRAIN_GRAD_TOL}")
+
+
+def check_qlora_run(label: str, result, fmt: str, steps: int, launches: dict,
+                    run_dir: str) -> None:
+    """A QLoRA run: its format's kernel 448 times per micro-batch (224 in
+    the forward, 224 in remat's recompute), the other's never; the base
+    still the quantized seeded init, bit for bit; every LoRA-B moved; the
+    adapter files written."""
+    cfg, params = result["cfg"], result["state"].params
+    per_micro = 2 * PRODUCTS_PER_FORWARD
+    own, other = (("int8_matmul", "int4_matmul") if fmt == "int8" else ("int4_matmul", "int8_matmul"))
+    check(launches[own] == steps * 2 * per_micro,
+          f"{label}: {launches[own]} {own} launches, not {steps} x 2 x {per_micro}")
+    check(launches[other] == 0, f"{label}: {launches[other]} {other} launches")
+    fresh = init_llark_params(cfg, seed=SEED, device="cuda")
+    if fmt == "int8":
+        fresh = quant.quantize_params_int8_incremental(cfg, fresh)
+    else:
+        fresh = quant.quantize_params_int4_incremental(
+            cfg, fresh, group=min(128, cfg.hidden_size), layout="rows")
+    for name in lora_mod.LORA_TARGETS:
+        for key, t in params["layers"][name].items():
+            check(t.dtype == fresh["layers"][name][key].dtype and torch.equal(
+                t, fresh["layers"][name][key]), f"{label}: the base {name}/{key} changed")
+    del fresh
+    moved = [k for k in lora_mod.lora_keys(params)
+             if k.endswith("_lora_b") and params["layers"][k].abs().max().item() > 0]
+    check(len(moved) == 7, f"{label}: only {moved} of the LoRA-B leaves moved")
+    adapter = os.path.join(run_dir, "adapter")
+    check(sorted(os.listdir(adapter)) == ["adapter.npz", "non_lora_trainables.npz"],
+          f"{label}: adapter files {os.listdir(adapter)}")
+    print(f"  {fmt} base bit for bit the quantized seeded init; all 7 LoRA-B leaves moved; "
+          f"{own} launches {launches[own]} ({launches[own] // (2 * steps)} a micro-batch)")
+
+
+def check_remat_policies(cfg: ModelConfig, batch, patch_id: int) -> None:
+    """One micro-batch under "full", "dots" and "dots_narrow", 4 layers,
+    int8 base, rank-64 factors with B != 0: the LoRA gradients of the dots
+    policies against full's; K5 launched once per product under the dots
+    policies (their output kept, not recomputed) and twice under full; K1
+    twice either way (recomputed: a kernel, not a product); peak memory."""
+    small = dataclasses.replace(cfg, num_layers=4, lora_rank=64, lora_alpha=16.0,
+                                lora_dropout=0.05)
+    params = init_llark_params(small, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    params = lora_mod.init_lora_params(small, gen, params)
+    for name in lora_mod.lora_keys(params):
+        if name.endswith("_lora_b"):
+            params["layers"][name].normal_(0.0, 0.01, generator=gen)
+    params = quant.quantize_params_int8_incremental(small, params)
+    names = lora_mod.lora_keys(params)
+    for name in names:
+        params["layers"][name].requires_grad_()
+    grads = {}
+    for policy in ("full", "dots", "dots_narrow"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for fn in WQ_KERNELS.values():
+            fn.launches = 0
+        attn_ops.flash_attention_fwd.launches = 0
+        loss, grads[policy] = lora_grads(dataclasses.replace(small, remat_policy=policy), params,
+                                         batch, patch_id, names)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        n8, k1 = int8_ops.int8_matmul.launches, attn_ops.flash_attention_fwd.launches
+        rel = max(rel_err(a, b)[0] for a, b in zip(grads[policy], grads["full"]))
+        print(f"  remat {policy!r}, 4 layers: loss {loss:.5f}, K5 launches {n8}, K1 {k1}, peak "
+              f"above the weights {peak:.2f} GiB, LoRA gradients vs full rel-to-max {rel:.3e}")
+        want = 7 * 4 * (2 if policy == "full" else 1)
+        check(n8 == want, f"remat {policy!r}: {n8} K5 launches, not {want}")
+        check(k1 == 2 * 4, f"remat {policy!r}: {k1} K1 launches, not 8")
+        check(rel <= REMAT_GRAD_TOL, f"remat {policy!r}: gradients rel err {rel:.3e}")
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def check_merged(label: str, result, rows) -> None:
+    """A LoRA run on the float base: the merged tree's prefill logits
+    against the unmerged tree's, one request."""
+    cfg, params = result["cfg"], result["state"].params
+    result["state"].opt_state = None  # room for the merged copies
+    torch.cuda.empty_cache()
+    merged = lora_mod.merge_lora(cfg, params)
+    check(not lora_mod.lora_keys(merged), f"{label}: factors left after merge_lora")
+    bundle = result["bundle"]
+    ids = build_prompt_ids(rows[0]["prompt"], 256, bundle)
+    s = int(np.ceil(len(ids) / 128) * 128)
+    input_ids = np.full((1, s), bundle.pad_token_id, np.int32)
+    input_ids[0, :len(ids)] = ids
+    args = (input_ids, np.array([len(ids)], np.int32), rows[0]["audio_encoding"][None],
+            np.array([256], np.int32))
+    gen_cfg = GenerationConfig(max_new_tokens=32)
+    with torch.no_grad():
+        got = Generator(cfg, merged, bundle.audio_patch_id, gen_cfg, max_cache_len=512).prefill(*args)[0]
+        want = Generator(cfg, params, bundle.audio_patch_id, gen_cfg, max_cache_len=512).prefill(*args)[0]
+    rel, diff = rel_err(got, want)
+    print(f"  merge_lora: prefill logits of the merged tree vs the unmerged tree max|d| {diff:.3e}, "
+          f"rel-to-max {rel:.3e}")
+    check(rel <= LOGITS_TOL, f"{label}: merged logits rel err {rel:.3e} > {LOGITS_TOL}")
+    del merged
+
+
+def serve_lora_run(run_dir: str, rows) -> dict:
+    """(e): the QLoRA run's directory through load_pretrained_model ->
+    batch_infer, the int8 base with its factors unmerged, flash decode on:
+    K1 once per layer per request, dense K2, 224 K5 launches per decode
+    step and none of K6; one decode step's logits against the plain
+    products; every request 32 tokens. Returns the run's launches."""
+    cfg, params, bundle = load_pretrained_model(run_dir, device="cuda")
+    check(cfg.lora_rank == 64 and len(lora_mod.lora_keys(params)) == 14,
+          f"the run directory rebuilt rank {cfg.lora_rank}, {len(lora_mod.lora_keys(params))} leaves")
+    cfg = dataclasses.replace(cfg, use_flash_decode=True)
+    gen_cfg = GenerationConfig(max_new_tokens=32, stop_text="")
+    generator = Generator(cfg, params, bundle.audio_patch_id, gen_cfg, max_cache_len=2048)
+    attn_ops.flash_attention_fwd.launches = 0
+    dec_ops.flash_decode_attention.launches = 0
+    reset_wq_counts()
+    results, wall = seconds(lambda: batch_infer(rows, generator, bundle))
+    launches = {"flash_fwd": attn_ops.flash_attention_fwd.launches,
+                "flash_decode": dec_ops.flash_decode_attention.launches,
+                "int8_matmul": int8_ops.int8_matmul.launches,
+                "int4_matmul": int4_ops.int4_matmul.launches}
+    print(f"  (e) batch_infer from the QLoRA run: {len(results)} requests in {wall:.2f} s, "
+          f"launches {launches}")
+    check(len(results) == len(rows), "batch_infer lost a row")
+    check(launches["flash_fwd"] == cfg.num_layers * len(rows),
+          f"(e): {launches['flash_fwd']} flash-prefill launches")
+    check(launches["flash_decode"] > 0, "(e): flash decode never launched")
+    check_wq_counts("(e) batch_infer from the QLoRA run", "int8")
+    # the 4 requests as one batch: every request runs 32 tokens
+    prompts = [build_prompt_ids(row["prompt"], 256, bundle) for row in rows]
+    s = int(np.ceil(max(map(len, prompts)) / 128) * 128)
+    input_ids = np.full((len(rows), s), bundle.pad_token_id, np.int32)
+    for i, ids in enumerate(prompts):
+        input_ids[i, :len(ids)] = ids
+    args = (input_ids, np.array(list(map(len, prompts)), np.int32),
+            np.stack([row["audio_encoding"] for row in rows]), np.full(len(rows), 256, np.int32))
+    lengths = [len(t) for t in generator.generate(*args)]
+    check(lengths == [32] * len(rows), f"(e): tokens per request {lengths}")
+    logits, cache = generator.prefill(*args)
+    token, pos = logits.argmax(-1), torch.from_numpy(args[1]).cuda()
+    reset_wq_counts()
+    with torch.inference_mode():
+        step_k = decode_step(cfg, params, token, cache, pos)[0]
+    own = check_wq_counts("(e) one decode step", "int8")
+    check(own == PRODUCTS_PER_FORWARD, f"(e): one decode step launched {own} K5 products")
+    with torch.inference_mode(), plain_products():
+        step_p = decode_step(dataclasses.replace(cfg, use_flash_decode=False), params, token,
+                             cache, pos)[0]
+    rel, diff = rel_err(step_k, step_p)
+    print(f"  (e) one decode step: {own} K5 launches; logits vs plain products max|d| {diff:.3e}, "
+          f"rel-to-max {rel:.3e}; every request {lengths[0]} tokens")
+    check(rel <= LOGITS_TOL, f"(e): decode logits rel err {rel:.3e} > {LOGITS_TOL}")
+    time_operator_dispatch(cfg, params, token, cache, pos)
+    del params, generator, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_operator_dispatch(cfg: ModelConfig, params, token, cache, pos, n: int = 15) -> None:
+    """One decode step (224 K5 products) with every product called through
+    the operator `torch.ops.llark.int8_matmul`, as autograd needs it, and
+    called directly, as `int8_matmul` does with grad mode off: host time to
+    enqueue the step and its wall time, medians of `n` alternated steps."""
+    def operator(x, q, scale):
+        return torch.ops.llark.int8_matmul(x, q, scale.reshape(-1))
+
+    def direct(x, q, scale):
+        return int8_ops._int8_product(x, q, scale.reshape(-1))
+
+    # the product counts its launches on whatever `int8_matmul` names
+    operator.launches = direct.launches = 0
+    routes = {"operator": operator, "direct": direct}
+    times = {name: ([], []) for name in routes}
+    saved = int8_ops.int8_matmul
+    try:
+        with torch.inference_mode():
+            for i in range(n + 2):
+                for name, product in routes.items():
+                    int8_ops.int8_matmul = product
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    decode_step(cfg, params, token, cache, pos)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    if i >= 2:  # two warm-up rounds
+                        times[name][0].append((t1 - t0) * 1e3)
+                        times[name][1].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        int8_ops.int8_matmul = saved
+    (oe, ow), (de, dw) = ([statistics.median(v) for v in times[name]] for name in routes)
+    print(f"  (e) one decode step, {PRODUCTS_PER_FORWARD} K5 products: through the operator "
+          f"enqueue {oe:.3f} ms, wall {ow:.3f} ms; called directly enqueue {de:.3f} ms, wall "
+          f"{dw:.3f} ms; the operator's cost {(ow - dw) / PRODUCTS_PER_FORWARD * 1e3:.2f} us a "
+          f"product (medians of {n})")
+
+
+def run_lora(directory: str, shard: str, smi: str) -> dict:
+    """Phase 18, at Llama-2-7B width (fp32 parameters, bf16 compute, remat),
+    LORA_FLAGS, batch 2 x 2 x 512 positions, random weights from the seed:
+    (a) QLoRA on an int8 base, 32 layers, 4 steps through `train()`, then
+    (e) serving its run directory; (b) QLoRA on an int4 base (rows layout,
+    group 128), 32 layers, 3 steps; (c) LoRA on the float base, 32 layers,
+    3 steps, then `merge_lora`; (d) one micro-batch under each remat policy,
+    4 layers. The 3-step runs' first update runs at the warmup's lr of 0,
+    so the third loss is the first after a real update. Returns the QLoRA
+    runs' launches by format."""
+    cfg = ModelConfig.llama2_7b()
+    batch, bundle = lora_batch(cfg, shard)
+    _, rows, _ = requests(cfg)
+    out = {}
+    print(f"phase 18 on {smi}: rank 64, alpha 16, dropout 0.05, remat, {LORA_SEQ} positions, "
+          "batch 2 x 2")
+    for label, fmt, steps in (("(a) QLoRA int8, Llama-2-7B, 32 layers", "int8", 4),
+                              ("(b) QLoRA int4 rows, group 128, 32 layers", "int4", 3)):
+        t0 = time.perf_counter()
+        path = os.path.join(directory, fmt)
+        launches, result = run_training(
+            label, cfg, path, shard, steps, frozen_base=True, lr=2e-3, seq=LORA_SEQ,
+            train_flags=dict(LORA_FLAGS, bits=8 if fmt == "int8" else 4), keep=True,
+            span=f"GeneratedBackwardFor_llark_{fmt}_matmul_defaultBackward")
+        check_qlora_run(label, result, fmt, steps, launches, os.path.join(path, "out"))
+        check_plain_step(label, result["cfg"], result["state"].params, batch, bundle.audio_patch_id)
+        out[fmt] = launches
+        del result
+        torch.cuda.empty_cache()
+        print(f"  {label[:3]}: {time.perf_counter() - t0:.1f} s")
+        if fmt == "int8":
+            _, e_s = seconds(lambda: out.update(serve=serve_lora_run(os.path.join(path, "out"), rows)))
+            print(f"  (e): {e_s:.1f} s")
+        shutil.rmtree(path)
+    t0 = time.perf_counter()
+    label = "(c) LoRA on the float base, 32 layers"
+    path = os.path.join(directory, "float")
+    launches, result = run_training(label, cfg, path, shard, 3, frozen_base=True, lr=2e-3,
+                                    seq=LORA_SEQ, train_flags=LORA_FLAGS, keep=True)
+    check(launches["int8_matmul"] == launches["int4_matmul"] == 0,
+          f"{label}: a quantized product launched")
+    check_merged(label, result, rows)
+    del result
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    print(f"  (c): {time.perf_counter() - t0:.1f} s")
+    _, d_s = seconds(lambda: check_remat_policies(cfg, batch, bundle.audio_patch_id))
+    print(f"  (d): {d_s:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -1985,6 +2379,8 @@ def main() -> int:
             tune_mm_mlp_adapter=True)
         _, phase_s = seconds(lambda: run_checkpoint_io(os.path.join(tmp, "ckpt"), shard, smi))
         print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s")
+        _, phase_s = seconds(lambda: run_lora(os.path.join(tmp, "lora"), shard, smi))
+        print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

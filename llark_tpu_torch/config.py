@@ -2,7 +2,7 @@
 
 Own copy of the JAX package's `ModelConfig`, cut to the fields the port
 reads, with the same names and defaults: the architecture, the numerics,
-two kernel switches and activation recomputation. `use_pallas_attention`
+two kernel switches, activation recomputation and LoRA. `use_pallas_attention`
 switches the hand-written Hopper flash-attention kernels (forward, and the
 backward when training) and `use_flash_decode` the flash-decode kernel; the
 names are the JAX package's so that the same keyword arguments build the
@@ -60,24 +60,25 @@ class ModelConfig:
     # the serving stack turns it on.
     use_flash_decode: Optional[bool] = None
     # Training: recompute each layer's activations in the backward
-    # (torch.utils.checkpoint per layer). "full" is the only policy of this
-    # slice; the JAX package's "dots" policies raise.
+    # (torch.utils.checkpoint per layer). "full" recomputes the whole layer;
+    # "dots" keeps the outputs of its non-batched products (the JAX
+    # package's dots_with_no_batch_dims_saveable), "dots_narrow" only those
+    # narrower than 3 x hidden_size (models/decoder.py `_remat_context`).
     remat: bool = True
     remat_policy: str = "full"
     # from-scratch init scheme: kaiming | xavier | small
     init_scheme: str = "kaiming"
+    # LoRA (0 = disabled; see models/lora.py)
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_dropout: float = 0.0
     # MoE (not in this slice of the port: the decoder raises)
     moe_num_experts: int = 0
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
-        if self.remat_policy in ("dots", "dots_narrow"):
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} comes with a later slice of the "
-                "port; this one recomputes whole layers (\"full\")"
-            )
-        if self.remat_policy != "full":
+        if self.remat_policy not in ("full", "dots", "dots_narrow"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
     @classmethod
@@ -183,9 +184,9 @@ class DataArguments:
 class TrainingArguments:
     """Training hyperparameters (reference: m2t/arguments.py:81-109 and the
     hyperparameters-of-record in scripts/training/train_llark.sh:24-44).
-    The same fields as the JAX package's; the trainer of this slice raises
-    on the ones it does not run (LoRA, bits 4/8, multihost, a mesh larger
-    than one device, tensorboard)."""
+    The same fields as the JAX package's; the trainer raises on the ones
+    the port does not run yet (MoE, multihost, a mesh larger than one
+    device)."""
 
     output_dir: str = "/tmp/llark_tpu"
     cache_dir: Optional[str] = None
@@ -228,7 +229,8 @@ class TrainingArguments:
     multihost: bool = False
     # on SIGTERM/SIGINT finish the in-flight step, checkpoint, exit cleanly
     checkpoint_on_preemption: bool = True
-    # "jsonl" appends <output_dir>/metrics.jsonl per logged step; "none"
+    # "jsonl" appends <output_dir>/metrics.jsonl per logged step;
+    # "tensorboard" also writes event files under <output_dir>/tb; "none"
     # disables tracking
     report_to: str = "jsonl"
 

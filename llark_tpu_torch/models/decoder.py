@@ -21,22 +21,31 @@ pool[tables[b, p // bs], :, p % bs].
 Training runs the no-cache branch with autograd: attention goes through the
 flash forward and backward kernels (`ops/attention.py` `_FlashAttention`),
 and with `cfg.remat` each layer is a `torch.utils.checkpoint` segment whose
-activations are recomputed in the backward (the JAX package's "full"
-policy).
+activations are recomputed in the backward: all of them under the "full"
+policy, all but the outputs of the non-batched products under "dots" and
+"dots_narrow" (`_remat_context`).
 
 Weight-only quantized trees (`models/quant.py`: int8, int4 in the rows or
 cols layout) serve through the same forward: a quantized leaf is a dict
 whose tensors are stacked [L, ...] like any other, `_dense` routes it to
 `quantized_dense` / `quantized_dense_int4`, and the LM head keeps its fp32
-accumulator. The quantized products carry no gradient.
+accumulator. The rows-layout and int8 products carry dx (QLoRA training).
 
-Not in this slice of the port, each raising a clear error: LoRA factors and
-MoE layers.
+LoRA factors (`models/lora.py`) ride in the layer tree as stacked
+`{name}_lora_a` [L, in, r] / `{name}_lora_b` [L, r, out] beside a float or
+quantized base weight; `_lora_dense` adds their delta to every projection.
+LoRA dropout draws each mask from a generator seeded by an integer that
+`fold_seed` derives from (dropout seed, layer, target), so the recompute
+of a checkpointed layer draws the same mask (torch.utils.checkpoint restores
+the default generator's state, not a generator of the caller's).
+
+Not in this slice of the port, raising a clear error: MoE layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -45,6 +54,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from llark_tpu_torch.config import ModelConfig
+from llark_tpu_torch.models.lora import lora_scale
 from llark_tpu_torch.models.quant import (
     dequantize_weight_int4,
     quantized_dense,
@@ -52,6 +62,7 @@ from llark_tpu_torch.models.quant import (
 )
 from llark_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
 from llark_tpu_torch.ops.decode_attention import _dense_view, decode_attention
+from llark_tpu_torch.ops.int8_matmul import matmul_f32
 
 Params = Dict[str, Any]
 
@@ -276,6 +287,48 @@ def _dense(x, w, b, dtype):
     return y
 
 
+# deterministic per-target salt for LoRA-dropout seeds
+# (llark_tpu/models/decoder.py:264-266)
+_LORA_TARGET_SALT = {
+    "wq": 0, "wk": 1, "wv": 2, "wo": 3, "w_gate": 4, "w_up": 5, "w_down": 6,
+}
+_U64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A new 63-bit seed from `seed` and each integer of `data` in turn
+    (splitmix64's finaliser): the port's counterpart of folding a JAX key.
+    The streams it seeds are not JAX's."""
+    for d in data:
+        z = (seed + 0x9E3779B97F4A7C15 * (int(d) + 1)) & _U64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
+        seed = z ^ (z >> 31)
+    return seed >> 1
+
+
+def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed: Optional[int]):
+    """Base dense + optional low-rank delta: y = xW + scale * ((drop(x) A) B)
+    (llark_tpu/models/decoder.py:270-294); each product keeps an fp32
+    accumulator and is rounded to `dtype`. Without `{name}_lora_a` in the
+    layer tree it is `_dense`. `dropout_seed` (this layer's; None in
+    evaluation and serving) seeds the dropout mask of this target."""
+    y = _dense(x, lp[name], lp.get("b" + name[1:]), dtype)  # wq->bq, w_up->b_up
+    a = lp.get(f"{name}_lora_a")
+    if a is None:
+        return y
+    xl = x
+    if dropout_seed is not None and cfg.lora_dropout > 0.0:
+        keep = 1.0 - cfg.lora_dropout
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(fold_seed(dropout_seed, _LORA_TARGET_SALT[name]))
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        xl = torch.where(mask, x / keep, 0.0)
+    z = torch.matmul(xl, a.to(dtype))
+    delta = torch.matmul(z, lp[f"{name}_lora_b"].to(dtype))
+    return y + lora_scale(cfg) * delta
+
+
 @dataclasses.dataclass
 class _CacheStep:
     """Where one forward writes into the KV cache and what its queries
@@ -396,15 +449,19 @@ def _layer_forward(
     step: Optional[_CacheStep],
     prefix_lengths: Optional[torch.Tensor] = None,
     prefill_from_empty: bool = False,
+    dropout_seed: Optional[int] = None,  # this layer's LoRA-dropout seed
 ) -> torch.Tensor:
     dtype = x.dtype
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
+    def dense(name, z):
+        return _lora_dense(cfg, lp, name, z, dtype, dropout_seed)
+
     y = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
-    q = _dense(y, lp["wq"], lp.get("bq"), dtype).reshape(b, s, nh, hd).transpose(1, 2)
-    k = _dense(y, lp["wk"], lp.get("bk"), dtype).reshape(b, s, nkv, hd).transpose(1, 2)
-    v = _dense(y, lp["wv"], lp.get("bv"), dtype).reshape(b, s, nkv, hd).transpose(1, 2)
+    q = dense("wq", y).reshape(b, s, nh, hd).transpose(1, 2)
+    k = dense("wk", y).reshape(b, s, nkv, hd).transpose(1, 2)
+    v = dense("wv", y).reshape(b, s, nkv, hd).transpose(1, 2)
 
     if rope is not None:
         q = _rotate(q, *rope)
@@ -467,16 +524,16 @@ def _layer_forward(
         )
 
     attn = attn.transpose(1, 2).reshape(b, s, nh * hd)
-    x = x + _dense(attn, lp["wo"], lp.get("bo"), dtype)
+    x = x + dense("wo", attn)
 
     y = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-    up = _dense(y, lp["w_up"], lp.get("b_up"), dtype)
     if cfg.mlp_activation == "silu":
-        gate = _dense(y, lp["w_gate"], lp.get("b_gate"), dtype)
+        gate = dense("w_gate", y)
+        up = dense("w_up", y)
         z = F.silu(gate.float()).to(dtype) * up
     else:
-        z = F.gelu(up.float(), approximate="tanh").to(dtype)
-    return x + _dense(z, lp["w_down"], lp.get("b_down"), dtype)
+        z = F.gelu(dense("w_up", y).float(), approximate="tanh").to(dtype)
+    return x + dense("w_down", z)
 
 
 # ---------------------------------------------------------------------------
@@ -495,11 +552,44 @@ def _layer_slice(w, l: int):
     return w[l]
 
 
-def _check_slice(cfg: ModelConfig, params: Params) -> None:
+def _check_slice(cfg: ModelConfig) -> None:
     if cfg.moe_num_experts > 0:
         raise NotImplementedError("MoE layers come with a later slice of the port")
-    if any(name.endswith(("_lora_a", "_lora_b")) for name in params["layers"]):
-        raise NotImplementedError("LoRA factors come with a later slice of the port")
+
+
+_QUANTIZED_PRODUCTS = (torch.ops.llark.int8_matmul.default, torch.ops.llark.int4_matmul.default)
+
+
+def _product_width(op, args) -> Optional[int]:
+    """Output features of a non-batched product the remat policies keep
+    (dot_general without batch dims in the JAX package): a 2-D GEMM, or one
+    of the quantized products' operators (x, weight [K or K/2, N], scale);
+    None for anything else, the batched attention products among them."""
+    if op is torch.ops.aten.mm.default or op in _QUANTIZED_PRODUCTS:
+        return args[1].shape[-1]
+    if op is torch.ops.aten.addmm.default:
+        return args[2].shape[-1]
+    return None
+
+
+def _remat_context(cfg: ModelConfig):
+    """`context_fn` of a layer's checkpoint under the "dots" policies
+    (llark_tpu/models/decoder.py:661-688), None under "full": selective
+    activation checkpointing saves the outputs of the non-batched products
+    -- under "dots_narrow" only those narrower than 3 x hidden_size, so the
+    wide MLP up-projections are recomputed -- and recomputes everything
+    else, the flash forward too (a kernel launch, not a product)."""
+    if cfg.remat_policy == "full":
+        return None
+    wide = 3 * cfg.hidden_size if cfg.remat_policy == "dots_narrow" else None
+    save, recompute = (torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE,
+                       torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def policy(ctx, op, *args, **kwargs):
+        n = _product_width(op, args)
+        return save if n is not None and (wide is None or n < wide) else recompute
+
+    return functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
 
 
 def decoder_forward(
@@ -518,6 +608,8 @@ def decoder_forward(
     trainable_token_start: Optional[int] = None,  # tied-LM-head freeze boundary
     paged_chunk: bool = False,  # block-aligned prefill chunk straight into a
     # paged pool (cache_positions and S multiples of the block size)
+    dropout_seed: Optional[int] = None,  # LoRA dropout on (training): the
+    # micro-batch's seed, folded with each layer's index
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder (llark_tpu/models/decoder.py:579-778). Returns
     (logits_or_hidden, kv_cache|None); logits are fp32.
@@ -529,7 +621,7 @@ def decoder_forward(
     decode and paged writes. The returned cache shares the given tensors
     (block tables and scales included) with "index" advanced by S.
     """
-    _check_slice(cfg, params)
+    _check_slice(cfg)
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(cfg, params, input_ids)
@@ -553,12 +645,16 @@ def decoder_forward(
     slopes = alibi_slopes(cfg.num_heads, device=dev) if cfg.use_alibi else None
     # remat: only where autograd records a training forward
     remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
+    context_fn = _remat_context(cfg) if remat else None
+    remat_kw = {} if context_fn is None else {"context_fn": context_fn}
+    use_dropout = dropout_seed is not None and cfg.lora_dropout > 0.0
     for l in range(cfg.num_layers):
         lp = {name: _layer_slice(w, l) for name, w in params["layers"].items()}
+        layer_seed = fold_seed(dropout_seed, l) if use_dropout else None
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None,
-                prefix_lengths, use_reentrant=False,
+                prefix_lengths, False, layer_seed, use_reentrant=False, **remat_kw,
             )
             continue
         layer_cache = None
@@ -566,7 +662,7 @@ def decoder_forward(
             layer_cache = {n: kv_cache[n][l] for n in CACHE_TENSORS if n in kv_cache}
         x = _layer_forward(
             cfg, lp, x, rope, seq_lengths, slopes, layer_cache, step, prefix_lengths,
-            prefill_from_empty,
+            prefill_from_empty, layer_seed,
         )
     new_cache = None
     if kv_cache is not None:
@@ -580,34 +676,6 @@ def decoder_forward(
 
 def embed_tokens(cfg: ModelConfig, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids.long()].to(torch_dtype(cfg.dtype))
-
-
-class _LowPrecisionLogits(torch.autograd.Function):
-    """[N, H] x [H, V] in bf16/fp16 with an fp32 result: one tensor-core
-    GEMM that keeps its fp32 accumulator (`torch.mm(..., out_dtype=)`, which
-    has no derivative of its own). The backward rounds the fp32 cotangent to
-    the operands' dtype and runs two GEMMs there."""
-
-    @staticmethod
-    def forward(ctx, h, w):
-        ctx.save_for_backward(h, w)
-        return torch.mm(h, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.saved_tensors
-        g = g.to(h.dtype)
-        return torch.mm(g, w.t()), torch.mm(h.t(), g)
-
-
-def _logits_matmul(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """hidden [..., H] x w [H, V] -> fp32 logits [..., V] from operands in
-    hidden's dtype, accumulated in fp32 and never rounded to that dtype
-    (the JAX package's preferred_element_type=float32)."""
-    if hidden.dtype == torch.float32 or hidden.device.type != "cuda":
-        return torch.matmul(hidden.float(), w.float())
-    h2 = hidden.reshape(-1, hidden.shape[-1])
-    return _LowPrecisionLogits.apply(h2, w).reshape(*hidden.shape[:-1], w.shape[-1])
 
 
 def compute_logits(
@@ -628,7 +696,7 @@ def compute_logits(
         w = params["embed"]  # [V, H]
         if trainable_token_start is not None:
             w = torch.cat([w[:trainable_token_start].detach(), w[trainable_token_start:]])
-        return _logits_matmul(hidden, w.to(dtype).t())
+        return matmul_f32(hidden, w.to(dtype).t())
     w = params["lm_head"]  # [H, V]
     if isinstance(w, dict):
         # a quantized head never reaches a kernel (nor does it in the JAX
@@ -636,7 +704,7 @@ def compute_logits(
         if "q4c" in w:  # int4 cols layout
             return quantized_dense_int4(hidden, w, None, dtype).float()
         if "q4" in w:  # int4 rows layout: dequantize in the compute dtype
-            return _logits_matmul(hidden, dequantize_weight_int4(w, dtype))
+            return matmul_f32(hidden, dequantize_weight_int4(w, dtype))
         # int8: the scale goes onto the fp32 product
-        return _logits_matmul(hidden, w["q"].to(dtype)) * w["scale"].reshape(-1).float()
-    return _logits_matmul(hidden, w.to(dtype))
+        return matmul_f32(hidden, w["q"].to(dtype)) * w["scale"].reshape(-1).float()
+    return matmul_f32(hidden, w.to(dtype))

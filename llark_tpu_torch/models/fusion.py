@@ -124,6 +124,7 @@ def llark_forward(
     kv_cache: Optional[Params] = None,
     trainable_token_start: Optional[int] = None,
     return_hidden: bool = False,
+    dropout_seed: Optional[int] = None,  # LoRA dropout (training)
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full multimodal forward (reference: WrappedLlamav2ForCausalLM.forward)."""
     inputs_embeds = build_inputs_embeds(
@@ -133,7 +134,7 @@ def llark_forward(
     return decoder_forward(
         cfg, params, inputs_embeds=inputs_embeds, seq_lengths=seq_lengths,
         kv_cache=kv_cache, return_hidden=return_hidden,
-        trainable_token_start=trainable_token_start,
+        trainable_token_start=trainable_token_start, dropout_seed=dropout_seed,
     )
 
 

@@ -29,7 +29,11 @@ are about shape alone: the kernels take bfloat16 or float32 activations
 another compute dtype on the card with a leaf inside a contract raises.
 There is no
 environment switch.
-The quantized products carry no gradient in this slice of the port.
+The products carry dx, as the JAX package's expressions do under autograd
+(QLoRA training on a frozen base): through the kernels' operators
+(`ops/int8_matmul.py`, `ops/int4_matmul.py`), and through autograd of the
+plain expressions elsewhere, but for the cols layout's batched product in
+bf16 on the card.
 """
 
 from __future__ import annotations

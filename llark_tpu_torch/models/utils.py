@@ -46,9 +46,10 @@ def save_model_metadata(output_dir: str, cfg: ModelConfig, bundle: TokenizerBund
 def load_model_metadata(checkpoint_dir: str) -> Tuple[ModelConfig, TokenizerBundle]:
     """(ModelConfig, TokenizerBundle) of a run directory. Fields of a
     configuration written by the JAX package that the port's ModelConfig
-    does not have are left out; the decoder raises on the features they
-    describe (LoRA factors, MoE) when it meets their weights. An "hf"
-    tokenizer loads through `transformers`, imported only here."""
+    does not have are left out; the decoder raises on the feature they
+    describe (MoE) when it meets its weights. The LoRA fields (`lora_rank`,
+    `lora_alpha`, `lora_dropout`) round-trip. An "hf" tokenizer loads
+    through `transformers`, imported only here."""
     with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
         payload = json.load(f)
     known = {f.name for f in dataclasses.fields(ModelConfig)}
@@ -72,7 +73,10 @@ def load_pretrained_model(
     of the port's `train()`: model_config.json and checkpoint-N/state.pt
     (the latest N unless `ckpt_num` is given). Parameters come to `device`
     in `cfg.param_dtype`, the leaves of a weight-only quantized tree in their
-    own dtypes; the optimizer state is not read into them.
+    own dtypes; the optimizer state is not read into them. A LoRA run's
+    factors (`layers/*_lora_a`, `*_lora_b`) come with the rest and serve
+    unmerged (`models/decoder.py` `_lora_dense`; `models/lora.py`
+    `merge_lora` folds them into a float base).
     Counterpart of llark_tpu/models/utils.py:63-89, which reads Orbax
     directories instead."""
     from llark_tpu_torch.models.decoder import torch_dtype

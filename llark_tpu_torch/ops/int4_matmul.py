@@ -18,6 +18,11 @@ to that dtype before the product, as in the TPU kernel); on CUDA tensors it
 launches the kernel or raises. The kernel keeps one fp32 accumulator per
 scale group and applies the fp32 scale to it at the group's end instead, so
 it differs from the plain version by the rounding of the scaled weights.
+
+With grad mode on, the product goes through the operator
+`torch.ops.llark.int4_matmul` (see `ops/int8_matmul.py`): the same forward,
+and dx = g dequant(q4, scale)^T in the backward, dequantized in g's dtype
+one layer's weight at a time (llark_tpu/models/quant.py:193-237).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from llark_tpu_torch.ops.int8_matmul import (
     _check_operands,
     _launch,
-    _refuse_gradient,
+    _save_weight,
     matmul_f32,
 )
 
@@ -103,7 +108,7 @@ def int4_matmul(
     `int4_kernel_takes`; a contiguous weight, never copied) or raise; CPU
     tensors run the plain version. `int4_matmul.launches` counts kernel
     launches."""
-    m, h = x.shape
+    h = x.shape[1]
     hp, d = q4.shape
     if hp * 2 != h:
         raise ValueError(f"packed rows {hp} != H/2 ({h}/2)")
@@ -112,19 +117,45 @@ def int4_matmul(
     n_groups = h // group
     if tuple(scale.shape) != (n_groups, d):
         raise ValueError(f"scale shape {tuple(scale.shape)} != {(n_groups, d)}")
-    _refuse_gradient("int4_matmul", x)
+    if x.device.type != "cpu":
+        if not int4_kernel_takes(q4, scale):
+            raise ValueError(
+                f"int4_matmul: the CUDA kernel takes a packed [H/2, D] weight with "
+                f"group % 16 == 0 and D % 8 == 0, got {tuple(q4.shape)}, group {group}"
+            )
+        _check_operands("int4_matmul", x, q4, scale)
+    # the operator with grad mode on, else a direct call: see int8_matmul
+    if torch.is_grad_enabled():
+        return torch.ops.llark.int4_matmul(x, q4, scale)
+    return _int4_product(x, q4, scale)
+
+
+int4_matmul.launches = 0
+
+
+def _int4_product(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The product of checked operands, its group read off the scale's
+    rows: the plain version for CPU tensors, the kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return _int4_matmul_plain(x, q4, scale)
-    if not int4_kernel_takes(q4, scale):
-        raise ValueError(
-            f"int4_matmul: the CUDA kernel takes a packed [H/2, D] weight with "
-            f"group % 16 == 0 and D % 8 == 0, got {tuple(q4.shape)}, group {group}"
-        )
-    _check_operands("int4_matmul", x, q4, scale)
-    unit = h // scale.shape[0]  # == group, from the scale the kernel reads
-    out = _launch("int4_matmul.cu", "llark_int4_matmul", x, q4, scale, m, h, d, unit, (unit,))
+    m, h = x.shape
+    d = q4.shape[1]
+    group = h // scale.shape[0]
+    out = _launch("int4_matmul.cu", "llark_int4_matmul", x, q4, scale, m, h, d, group, (group,))
     int4_matmul.launches += 1
     return out
 
 
-int4_matmul.launches = 0
+@torch.library.custom_op("llark::int4_matmul", mutates_args=())
+def _int4_matmul_op(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return _int4_product(x, q4, scale)
+
+
+def _int4_matmul_dx(ctx, g):
+    """dx = g dequant(q4, scale)^T in g's dtype, with an fp32 accumulator;
+    the packed weight and its scales get no gradient."""
+    q4, scale = ctx.saved_tensors
+    return matmul_f32(g, dequantize_int4(q4, scale, g.dtype).t()).to(g.dtype), None, None
+
+
+_int4_matmul_op.register_autograd(_int4_matmul_dx, setup_context=_save_weight)

@@ -13,8 +13,17 @@ copy of the weight at every use, so the kernel is the serving route for
 every 2-D int8 projection on the card.
 
 For CPU tensors the wrapper runs the plain PyTorch version; on CUDA
-tensors it launches the kernel or raises. The products carry no gradient in
-this slice of the port: the wrapper raises when autograd would record one.
+tensors it launches the kernel or raises. Where autograd may record the
+call (grad mode on: QLoRA training, where x carries a gradient and the
+frozen weight does not), the product goes through the operator
+`torch.ops.llark.int8_matmul`, whose forward is the same kernel (or plain
+version) and whose backward returns dx alone, dx = (g * scale) q^T, the
+derivative of the JAX package's XLA expression
+(llark_tpu/models/quant.py:302-336). The JAX package computes
+that derivative in XLA, in no Pallas kernel, so dx is a plain product on
+a converted copy of one layer's weight. Being an operator, the product is
+visible to selective activation checkpointing (`models/decoder.py`
+`_remat_context`), which can keep its output instead of launching it again.
 """
 
 from __future__ import annotations
@@ -28,16 +37,34 @@ import torch
 from llark_tpu_torch.ops import _build
 
 
+class _MatmulF32(torch.autograd.Function):
+    """[M, K] x [K, N] in bf16/fp16 with an fp32 result: one tensor-core
+    GEMM that keeps its fp32 accumulator (`torch.mm(..., out_dtype=)`, which
+    has no derivative of its own). The backward rounds the fp32 cotangent to
+    the operands' dtype and runs two GEMMs there."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return torch.mm(g, b.t()), torch.mm(a.t(), g)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., M, K] x b [(G,) K, N] -> fp32, from operands in their own
     dtype with an fp32 accumulator that is never rounded to it (the JAX
-    package's preferred_element_type=float32)."""
+    package's preferred_element_type=float32). Differentiable, but for a
+    batched b in bf16 on the card."""
     if a.dtype == torch.float32 or a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
     if b.dim() == 3:
         return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32).reshape(
-        *a.shape[:-1], b.shape[-1])
+    return _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b).reshape(*a.shape[:-1], b.shape[-1])
 
 
 def _int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -60,15 +87,6 @@ def int8_kernel_takes(q: torch.Tensor) -> bool:
     tensors it launches the kernel (bfloat16 or float32 activations) or
     raises, never stepping down to the plain expression."""
     return q.dim() == 2 and q.shape[0] % 16 == 0 and q.shape[1] % 8 == 0
-
-
-def _refuse_gradient(name: str, x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"{name}: the quantized products carry no gradient yet (training on "
-            "int8/int4 weights, --bits 8/4 with LoRA, comes with the next slice of "
-            "the port); call under torch.no_grad() or detach x"
-        )
 
 
 def _check_operands(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> None:
@@ -173,28 +191,63 @@ def int8_matmul(
     K % 16 == 0 and N % 8 == 0, see `int8_kernel_takes`; a contiguous
     weight, never copied) or raise; CPU tensors run the plain version.
     `int8_matmul.launches` counts kernel launches, one per product."""
-    m, k = x.shape
+    k = x.shape[1]
     kq, n = q.shape
     if kq != k:
         raise ValueError(f"weight rows {kq} != activation cols {k}")
     scale = scale.reshape(-1)
     if tuple(scale.shape) != (n,):
         raise ValueError(f"scale size {tuple(scale.shape)} != out dim {n}")
-    _refuse_gradient("int8_matmul", x)
+    if x.device.type != "cpu":
+        if not int8_kernel_takes(q):
+            raise ValueError(
+                f"int8_matmul: the CUDA kernel takes a [K, N] weight with K % 16 == 0 and "
+                f"N % 8 == 0, got {tuple(q.shape)}"
+            )
+        _check_operands("int8_matmul", x, q, scale)
+    # Autograd may record the call only with grad mode on: the operator then
+    # carries dx. Serving calls the kernel directly, because the operator's
+    # dispatch costs the host 21-46 us a product, 4.8-10.2 ms of a decode
+    # step of 224 products that takes 67-92 ms called directly, on an H100
+    # 80GB HBM3 at 700 W (chip_smoke.py phase 18 (e), three runs).
+    if torch.is_grad_enabled():
+        return torch.ops.llark.int8_matmul(x, q, scale)
+    return _int8_product(x, q, scale)
+
+
+int8_matmul.launches = 0
+
+
+def _int8_product(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The product of checked operands (scale [N]): the plain version for
+    CPU tensors, the kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return _int8_matmul_plain(x, q, scale)
-    if not int8_kernel_takes(q):
-        raise ValueError(
-            f"int8_matmul: the CUDA kernel takes a [K, N] weight with K % 16 == 0 and "
-            f"N % 8 == 0, got {tuple(q.shape)}"
-        )
-    _check_operands("int8_matmul", x, q, scale)
+    m, k = x.shape
+    n = q.shape[1]
     out = _launch("int8_matmul.cu", "llark_int8_matmul", x, q, scale, m, k, n, 16)
     int8_matmul.launches += 1
     return out
 
 
-int8_matmul.launches = 0
+@torch.library.custom_op("llark::int8_matmul", mutates_args=())
+def _int8_matmul_op(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return _int8_product(x, q, scale)
+
+
+def _int8_matmul_dx(ctx, g):
+    """dx = (g * scale) q^T in g's dtype, with an fp32 accumulator; q and
+    the scales are frozen integer payloads and get no gradient."""
+    q, scale = ctx.saved_tensors
+    gs = (g.float() * scale).to(g.dtype)
+    return matmul_f32(gs, q.to(g.dtype).t()).to(g.dtype), None, None
+
+
+def _save_weight(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[1:])
+
+
+_int8_matmul_op.register_autograd(_int8_matmul_dx, setup_context=_save_weight)
 
 
 def quantized_dense_kernel(

@@ -8,7 +8,9 @@ Accounting follows the PaLM-appendix convention:
   * attention score/value FLOPs (fwd+bwd) = 6 * L * T * d_attn per token
     for a causal mask (T / 2 keys on average, two products);
   * a frozen base counts 4 * N instead of 6 * N: the backward still takes
-    dL/dx through every frozen product but no dL/dW.
+    dL/dx through every frozen product but no dL/dW; rank-r LoRA adds
+    6 * N_lora for the adapters on the attention projections, as the JAX
+    package counts them.
 
 MFU = achieved model FLOP/s / the card's dense bf16 peak.
 """
@@ -57,9 +59,18 @@ def matmul_param_count(cfg: ModelConfig, multimodal: bool = True) -> int:
 def train_flops_per_token(
     cfg: ModelConfig, seq_len: int, multimodal: bool = True, frozen_base: bool = False
 ) -> float:
-    """Model FLOPs per trained token, forward + backward."""
+    """Model FLOPs per trained token, forward + backward
+    (llark_tpu/train/flops.py:78-105)."""
     factor = 4.0 if frozen_base else 6.0
     matmul = factor * matmul_param_count(cfg, multimodal)
+    if frozen_base and cfg.lora_rank:
+        # adapters on the attention projections: (in x r + r x out) each
+        h = cfg.hidden_size
+        d_attn = cfg.num_heads * cfg.head_dim
+        d_kv = cfg.num_kv_heads * cfg.head_dim
+        r = cfg.lora_rank
+        per_layer = r * (h + d_attn) + 2 * r * (h + d_kv) + r * (d_attn + h)
+        matmul += 6.0 * cfg.num_layers * per_layer
     attn = 6.0 * cfg.num_layers * seq_len * cfg.num_heads * cfg.head_dim
     return matmul + attn
 

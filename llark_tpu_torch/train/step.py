@@ -9,7 +9,8 @@ llark_tpu/train/step.py).
     adamw(schedule, 0.9, 0.999, 1e-8, weight_decay)) with optax's
     arithmetic, on the trainable tensors only, in place;
   * make_train_step: gradient accumulation as the mean of the micro-batch
-    gradients, then one optimizer update; make_eval_step: loss sums.
+    gradients, then one optimizer update, LoRA dropout seeded per step and
+    micro-batch; make_eval_step: loss sums.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from llark_tpu_torch.config import ModelConfig, TrainingArguments
+from llark_tpu_torch.models.decoder import fold_seed
 from llark_tpu_torch.models.fusion import causal_lm_loss, chunked_causal_lm_loss, llark_forward
 from llark_tpu_torch.train.state import TrainState, iter_leaves, trainable_leaves
 
@@ -89,25 +91,29 @@ def trainable_mask(
     """True = trainable, in the params' nested-dict shape
     (llark_tpu/train/step.py:65-103). Adapter stage (frozen backbone + tune
     flag): the projector and the embedding table (new-token rows gated in
-    the model by trainable_token_start). freeze_backbone alone: the
-    projector only. Neither: everything. freeze_mm_mlp_adapter pins the
-    projector."""
-    if lora:
-        raise NotImplementedError("LoRA comes with a later slice of the port")
+    the model by trainable_token_start). LoRA stage: the low-rank factors
+    of the layer tree, the projector and the embedding table (the
+    reference's adapter + non_lora_trainables split, m2t/train.py:264-273).
+    freeze_backbone alone: the projector only. None of these: everything.
+    freeze_mm_mlp_adapter pins the projector."""
 
     def mark(value, trainable):
         if isinstance(value, dict):
             return {k: mark(v, trainable) for k, v in value.items()}
         return trainable
 
-    def entry(name):
+    def entry(name, value):
         if name == "mm_projector":
-            return not freeze_mm_mlp_adapter
+            return mark(value, not freeze_mm_mlp_adapter)
+        if lora:
+            if name == "layers":
+                return {k: mark(v, "_lora_" in k) for k, v in value.items()}
+            return mark(value, name == "embed")
         if tune_mm_mlp_adapter:
-            return name == "embed"
-        return not freeze_backbone
+            return mark(value, name == "embed")
+        return mark(value, not freeze_backbone)
 
-    return {name: mark(value, entry(name)) for name, value in params.items()}
+    return {name: entry(name, value) for name, value in params.items()}
 
 
 class ParamPartition:
@@ -206,9 +212,10 @@ def make_loss_fn(
     trainable_token_start: Optional[int] = None,
     loss_chunk: Optional[int] = None,
 ) -> Callable[[Dict[str, Any], Batch], Tuple[torch.Tensor, torch.Tensor]]:
-    """(params, batch) -> (mean token loss, number of valid tokens)."""
+    """(params, batch[, dropout_seed]) -> (mean token loss, number of valid
+    tokens); a dropout seed turns LoRA dropout on."""
 
-    def loss_fn(params, micro):
+    def loss_fn(params, micro, dropout_seed=None):
         out, _ = llark_forward(
             cfg, params, micro["input_ids"],
             audio_encodings=micro.get("audio_encodings"),
@@ -217,6 +224,7 @@ def make_loss_fn(
             seq_lengths=micro.get("seq_lengths"),
             trainable_token_start=trainable_token_start,
             return_hidden=loss_chunk is not None,
+            dropout_seed=dropout_seed,
         )
         if loss_chunk is not None:
             return chunked_causal_lm_loss(
@@ -236,6 +244,7 @@ def make_train_step(
     grad_accum_steps: int = 1,
     trainable_token_start: Optional[int] = None,
     loss_chunk: Optional[int] = None,
+    dropout_seed: Optional[int] = None,  # enables LoRA dropout when set
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step (llark_tpu/train/step.py:169-308).
 
@@ -248,18 +257,25 @@ def make_train_step(
     with B = grad_accum_steps * micro_batch. Gradients are taken for the
     params with requires_grad only; the step updates them and the optimizer
     state in place and returns the state with its step advanced, plus
-    device-side metrics (loss, num_tokens, grad_norm before clipping)."""
+    device-side metrics (loss, num_tokens, grad_norm before clipping).
+    With `dropout_seed` and cfg.lora_dropout > 0, micro-batch i of the
+    step at `state.step` draws its LoRA-dropout masks from
+    fold_seed(fold_seed(dropout_seed, step), i), as the JAX package folds
+    its key (llark_tpu/train/step.py:224-268; the masks differ from JAX's)."""
     loss_fn = make_loss_fn(
         cfg, audio_patch_id=audio_patch_id, trainable_token_start=trainable_token_start,
         loss_chunk=loss_chunk,
     )
     n_micro = max(grad_accum_steps, 1)
+    use_dropout = dropout_seed is not None and cfg.lora_dropout > 0.0
 
     def train_step(state: TrainState, batch: Batch):
         leaves = trainable_leaves(state.params)
+        step_seed = fold_seed(dropout_seed, state.step) if use_dropout else None
         grads, loss_sum, tokens = None, 0.0, 0
-        for micro in _split(batch, n_micro):
-            loss, n_tok = loss_fn(state.params, micro)
+        for i, micro in enumerate(_split(batch, n_micro)):
+            seed = fold_seed(step_seed, i) if use_dropout else None
+            loss, n_tok = loss_fn(state.params, micro, seed)
             # a leaf the loss does not reach (no audio in the batch) gets zeros
             g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]

@@ -6,6 +6,7 @@ Reference-parity orchestration (m2t/train.py:53-284):
   freeze / adapter-tuning flags ......................... :79-106, 143-164
   tokenizer + audio special tokens ...................... :108-126, 176-182
   adapter (projector) init, optional pretrained load .... :128-137
+  LoRA / QLoRA (a frozen int8 or int4 base) ............. :79-106
   sample-batch smoke test before training ............... :240-253
   auto-resume from existing checkpoints ................. :255-260
   periodic + final save (projector side-save) ........... trainer.py:35-65
@@ -14,9 +15,14 @@ One process on one card (the GPU unless the caller passes device="cpu").
 A local HF checkpoint directory as `model_name_or_path` gives the
 architecture (its config.json), the tokenizer (where `transformers` is
 installed and the directory holds one) and the backbone weights
-(`interop/hf.py`). Not in this slice of the port, each raising before any
-work: LoRA, a 4- or 8-bit base, MoE (a Mixtral directory too), multihost
-and a mesh larger than one device.
+(`interop/hf.py`). With `lora_enable` the decoder's projections get
+rank-`lora_r` factors that train with the projector and the embedding
+table, and the run ends by writing `<output_dir>/adapter/` in the JAX
+package's adapter format; `bits` 8 or 4 quantizes the frozen base on the
+card (int8, or int4 in the rows layout of the int4 kernel, group
+min(128, hidden)). Not in this slice of the port, each raising before any
+work: MoE (a Mixtral directory too), multihost and a mesh larger than one
+device.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.interop.hf import load_pretrained_backbone
 from llark_tpu_torch.models.fusion import init_llark_params
+from llark_tpu_torch.models.lora import init_lora_params, load_lora_adapter, save_lora_adapter
+from llark_tpu_torch.models.quant import (
+    quantize_params_int4_incremental,
+    quantize_params_int8_incremental,
+)
 from llark_tpu_torch.models.utils import save_model_metadata
 from llark_tpu_torch.special_tokens import IGNORE_INDEX
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
@@ -142,12 +153,9 @@ def build_tokenizer(model_args: ModelArguments, training_args: TrainingArguments
 
 
 def _check_slice(model_args: ModelArguments, training_args: TrainingArguments) -> None:
-    """Raise on the options this slice of the port does not run."""
+    """Raise, before any work, on the options the port does not run and on
+    the settings the JAX package refuses (llark_tpu/train/train.py:259-302)."""
     later = []
-    if training_args.lora_enable:
-        later.append("LoRA (lora_enable)")
-    if training_args.bits in (4, 8):
-        later.append(f"a {training_args.bits}-bit quantized base (bits)")
     if model_args.moe_num_experts:
         later.append("MoE (moe_num_experts)")
     if training_args.multihost:
@@ -156,10 +164,22 @@ def _check_slice(model_args: ModelArguments, training_args: TrainingArguments) -
         later.append(f"mesh_shape {tuple(training_args.mesh_shape)} (more than one device)")
     if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: not in this slice of the port (one card, full "
-            "or adapter training); each comes with a later slice"
+            f"{', '.join(later)}: not in this slice of the port (one card: full, "
+            "adapter or LoRA training); each comes with a later slice"
         )
-    if training_args.bits != 16:
+    if training_args.lora_enable and training_args.lora_bias not in ("", "none"):
+        raise NotImplementedError(
+            "lora_bias != 'none' is not supported (our LoRA has no bias terms)"
+        )
+    if training_args.bits in (4, 8):
+        # the quantized base is frozen (reference: bnb 4/8-bit,
+        # m2t/arguments.py:112-133)
+        if not (training_args.lora_enable or model_args.freeze_backbone
+                or model_args.tune_mm_mlp_adapter):
+            raise ValueError(f"--bits {training_args.bits} requires lora_enable"
+                             " / freeze_backbone / tune_mm_mlp_adapter "
+                             "(the quantized base is frozen)")
+    elif training_args.bits != 16:
         raise ValueError(f"--bits {training_args.bits} unsupported (16/8/4)")
 
 
@@ -224,8 +244,6 @@ def train(
     """Run training; returns a summary dict (for tests and callers)."""
     _check_slice(model_args, training_args)
     dev = resolve_device(device)
-    if training_args.report_to == "tensorboard":
-        MetricsWriter(training_args.output_dir, "tensorboard")  # raises before any work
     write_args_to_file([model_args, data_args, training_args], training_args.output_dir)
 
     cfg = model_cfg or model_config_from_name(model_args.model_name_or_path, model_args)
@@ -245,18 +263,44 @@ def train(
                         model_args.model_name_or_path)
     if model_args.pretrain_mm_mlp_adapter:
         apply_pretrained_projector(params, load_projector_weights(model_args.pretrain_mm_mlp_adapter))
+    if training_args.lora_enable:
+        cfg = dataclasses.replace(
+            cfg, lora_rank=training_args.lora_r, lora_alpha=float(training_args.lora_alpha),
+            lora_dropout=float(training_args.lora_dropout))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(training_args.seed + 1)
+        params = init_lora_params(cfg, gen, params)
+        if training_args.lora_weight_path:
+            # warm-start factors from a saved adapter
+            # (reference: m2t/llava/train/train.py:90)
+            params, meta = load_lora_adapter(training_args.lora_weight_path, params)
+            log.info("warm-started LoRA from %s (%s)", training_args.lora_weight_path, meta)
+    if training_args.bits in (4, 8):
+        if training_args.bits == 8:
+            params = quantize_params_int8_incremental(cfg, params)
+        else:
+            # the rows layout, which the int4 kernel takes (the JAX trainer
+            # packs cols, its XLA layout; ROADMAP.md Queue C); the group
+            # divides every fan-in: 128 at production widths, the hidden
+            # size below
+            params = quantize_params_int4_incremental(
+                cfg, params, group=min(128, cfg.hidden_size), layout="rows")
+        log.info("quantized frozen base weights to int%d", training_args.bits)
+    # written after every change of cfg (lora_*), so load_pretrained_model
+    # rebuilds the architecture the run trains
     save_model_metadata(training_args.output_dir, cfg, bundle)
 
     # Reference flag semantics (m2t/train.py:143-164): tune_mm_mlp_adapter
     # alone does NOT freeze the backbone -- the run of record sets tune=True
     # freeze=False and trains the full model, with the projector side-saved
     # and original embedding rows detached (trainable_token_start below).
-    # Freezing comes from freeze_backbone only.
-    if model_args.freeze_backbone:
+    # Freezing comes from freeze_backbone, LoRA or a quantized base.
+    if model_args.freeze_backbone or training_args.lora_enable or training_args.bits in (4, 8):
         mask = trainable_mask(
             params,
-            freeze_backbone=True,
+            freeze_backbone=model_args.freeze_backbone,
             tune_mm_mlp_adapter=model_args.tune_mm_mlp_adapter,
+            lora=training_args.lora_enable,
             freeze_mm_mlp_adapter=training_args.freeze_mm_mlp_adapter,
         )
     else:
@@ -274,6 +318,7 @@ def train(
         cfg, optimizer, audio_patch_id=bundle.audio_patch_id,
         grad_accum_steps=training_args.gradient_accumulation_steps,
         trainable_token_start=trainable_start, loss_chunk=loss_chunk,
+        dropout_seed=training_args.seed if training_args.lora_enable else None,
     )
 
     ckpt = CheckpointManager(
@@ -390,6 +435,10 @@ def train(
     # re-save metadata now that the tokenizer has seen the data: the lazy
     # WordTokenizer interns word ids during training
     save_model_metadata(training_args.output_dir, cfg, bundle)
+    if training_args.lora_enable:
+        save_lora_adapter(os.path.join(training_args.output_dir, "adapter"), cfg, state.params,
+                          extra_non_lora={"embed": state.params["embed"]})
+        log.info("saved LoRA adapter to %s/adapter", training_args.output_dir)
     return {
         "final_step": final_step,
         "losses": history,

@@ -635,8 +635,8 @@ def test_quantized_matmul_kernels_match_plain(dev, fmt, k, n, group, m, dtype):
 def test_quantized_dispatch_on_the_card(dev):
     # a 2-D leaf inside the contract launches its kernel, in bf16 or fp32; a
     # stacked leaf and the cols layout take the plain expression; a float16
-    # compute dtype and a direct call outside the contract raise; autograd is
-    # refused
+    # compute dtype and a direct call outside the contract raise; under
+    # autograd the forward launches the kernel once and dx comes back
     from llark_tpu_torch.models import quant
     from llark_tpu_torch.ops.int4_matmul import int4_matmul
     from llark_tpu_torch.ops.int8_matmul import int8_matmul
@@ -688,9 +688,10 @@ def test_quantized_dispatch_on_the_card(dev):
     with pytest.raises(ValueError, match="aligned weight"):
         int8_matmul(x, torch.zeros(256 * 128 + 1, dtype=torch.int8, device=dev)[1:].view(256, 128),
                     w8["scale"])
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        int8_matmul(x.clone().requires_grad_(), w8["q"], w8["scale"])
-    assert counts() == (n8 + 2, n4 + 2)
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(int8_matmul(xg, w8["q"], w8["scale"]).float().sum(), [xg])
+    assert counts() == (n8 + 3, n4 + 2)
+    assert dx.dtype == torch.bfloat16 and tuple(dx.shape) == tuple(x.shape)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4_rows", "int4_cols"])
@@ -725,6 +726,116 @@ def test_quantized_forward_on_the_card(dev, fmt):
                         "int4_cols": (0, 0)}[fmt]
     assert bool(torch.isfinite(got).all())
     assert _rel_to_max(got.cpu(), want) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# QLoRA: dx through the quantized products, LoRA on the card, remat policies
+# ---------------------------------------------------------------------------
+
+
+# dx of the quantized products goes through one plain product on a converted
+# copy of the weight (as the JAX package's XLA derivative does), the same
+# expression autograd takes through the plain version: held per row to the
+# int8 product's gate
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("k,n", [(4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_products_dx_match_plain_autograd(dev, fmt, k, n, m):
+    from llark_tpu_torch.models import quant
+    from llark_tpu_torch.ops import int4_matmul as tint4
+    from llark_tpu_torch.ops import int8_matmul as tint8
+
+    x, w = _wq_inputs(dev, 23, m, k, n)
+    g = torch.from_numpy(np.random.RandomState(24).randn(m, n).astype(np.float32)).to(dev, torch.bfloat16)
+    if fmt == "int8":
+        wq = quant.quantize_weight(w)
+        fn = tint8.int8_matmul
+        call = lambda x: fn(x, wq["q"], wq["scale"])  # noqa: E731
+        plain = lambda x: tint8._int8_matmul_plain(x, wq["q"], wq["scale"])  # noqa: E731
+    else:
+        wq = quant.quantize_weight_int4(w, 128)
+        fn = tint4.int4_matmul
+        call = lambda x: fn(x, wq["q4"], wq["scale"], group=128)  # noqa: E731
+        plain = lambda x: tint4._int4_matmul_plain(x, wq["q4"], wq["scale"])  # noqa: E731
+    before = fn.launches
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yk = call(xk)
+    (got,) = torch.autograd.grad(yk, [xk], g)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1  # the forward's kernel; dx launches none
+    (want,) = torch.autograd.grad(plain(xp), [xp], g)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, k)
+    assert _row_err(got, want) <= WQ_ROW_TOL["int8_matmul"]
+    assert _row_err(yk.detach(), plain(x)) <= WQ_ROW_TOL[fmt + "_matmul"]
+
+
+@pytest.mark.parametrize("base", ["float", "int8"])
+def test_lora_dense_on_the_card_matches_the_cpu(dev, base):
+    # one projection with rank-64 factors at Llama-2-7B width, bf16 on the
+    # card (the int8 kernel for the base product) against the same call in
+    # fp32 on the CPU; dropout masks drawn from the same seed on each device
+    # differ, so it runs without dropout
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models import quant
+    from llark_tpu_torch.models.decoder import _lora_dense
+
+    cfg = ModelConfig.llama2_7b(lora_rank=64, lora_alpha=16.0)
+    rng = np.random.RandomState(25)
+    lp = {"w_up": torch.from_numpy((rng.randn(4096, 11008) * 0.02).astype(np.float32)),
+          "w_up_lora_a": torch.from_numpy((rng.randn(4096, 64) / 64).astype(np.float32)),
+          "w_up_lora_b": torch.from_numpy((rng.randn(64, 11008) * 0.02).astype(np.float32))}
+    if base == "int8":
+        lp["w_up"] = quant.quantize_weight(lp["w_up"])
+    x = torch.from_numpy(rng.randn(2, 16, 4096).astype(np.float32))
+    on_card = {k: ({a: b.to(dev) for a, b in v.items()} if isinstance(v, dict) else v.to(dev))
+               for k, v in lp.items()}
+    got = _lora_dense(cfg, on_card, "w_up", x.to(dev, torch.bfloat16), torch.bfloat16, None)
+    want = _lora_dense(cfg, lp, "w_up", x, torch.float32, None)
+    assert got.dtype == torch.bfloat16
+    assert _rel_to_max(got.float().cpu(), want) <= 2e-2
+    assert _row_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_narrow"])
+def test_remat_policies_on_an_int8_base(dev, policy):
+    # a tiny bf16 model with an int8 base and LoRA factors: under "dots" no
+    # K5 launches in the recompute (the operator's output is kept), under
+    # "full" each product launches again; "dots_narrow" (intermediate 256 >
+    # 3 x hidden 64) recomputes the gate and up projections; the gradients
+    # agree with the policy-free reference within bf16 rounding
+    import dataclasses
+
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models import lora, quant
+    from llark_tpu_torch.models.decoder import decoder_forward
+    from llark_tpu_torch.models.fusion import init_llark_params
+    from llark_tpu_torch.ops.int8_matmul import int8_matmul
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", intermediate_size=256, lora_rank=8, lora_dropout=0.05)
+    params = init_llark_params(cfg, seed=3, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    params = lora.init_lora_params(cfg, gen, params)
+    for k in lora.lora_keys(params):
+        if k.endswith("_lora_b"):
+            params["layers"][k].normal_(0.0, 0.05, generator=gen)
+    params = quant.quantize_params_int8_incremental(cfg, params)
+    leaves = [params["layers"][k].requires_grad_() for k in lora.lora_keys(params)]
+    ids = torch.from_numpy(np.random.RandomState(5).randint(4, 200, (2, 32))).to(dev)
+
+    def grads(c):
+        logits, _ = decoder_forward(c, params, input_ids=ids, dropout_seed=9)
+        return torch.autograd.grad(logits.float().square().mean(), leaves)
+
+    want = grads(cfg)  # no recompute
+    before = int8_matmul.launches
+    got = grads(dataclasses.replace(cfg, remat=True, remat_policy=policy))
+    torch.cuda.synchronize()
+    per_forward = 7 * cfg.num_layers
+    recomputed = {"full": per_forward, "dots": 0, "dots_narrow": 2 * cfg.num_layers}[policy]
+    assert int8_matmul.launches - before == per_forward + recomputed
+    for a, b in zip(got, want):
+        assert _rel_to_max(a.float(), b.float()) <= 1e-2
 
 
 def _write_safetensors(path, tensors):

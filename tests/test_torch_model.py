@@ -8,6 +8,7 @@ layouts equal.) Inputs come from a numpy seed. Tolerance: 1e-5 relative to
 max |JAX| -- both sides compute in fp32 and differ only in summation order.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -235,19 +236,26 @@ def test_out_of_slice_features_raise():
         tdecoder.init_decoder_params(moe, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         tdecoder.decoder_forward(moe, tparams, input_ids=torch.tensor([[1, 2]]))
-    lora = dict(tparams, layers=dict(tparams["layers"], wq_lora_a=tparams["layers"]["wq"]))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tdecoder.decoder_forward(tcfg, lora, input_ids=torch.tensor([[1, 2]]))
+    # LoRA factors came into the port: zero-delta factors (B = 0) serve the
+    # base model's logits (tests/test_torch_lora.py holds the values)
+    from llark_tpu_torch.models.lora import init_lora_params
+
+    lcfg = dataclasses.replace(tcfg, lora_rank=4)
+    lora = init_lora_params(lcfg, torch.Generator().manual_seed(0), tparams)
+    ids = torch.tensor([[1, 2]])
+    torch.testing.assert_close(tdecoder.decoder_forward(lcfg, lora, input_ids=ids)[0],
+                               tdecoder.decoder_forward(tcfg, tparams, input_ids=ids)[0],
+                               rtol=0, atol=0)
     # quantized weights came into the slice: a quantized leaf is served, and
-    # only its gradient is refused (tests/test_torch_quant.py holds the values)
+    # carries dx since LoRA (tests/test_torch_quant.py holds the values)
     from llark_tpu_torch.models.quant import quantize_weight
 
     wq = quantize_weight(tparams["lm_head"])
     hidden = torch.ones(1, 1, 64)
     assert tuple(tdecoder._dense(hidden, wq, None, torch.float32).shape) == (1, 1, tcfg.vocab_size)
     assert tdecoder.compute_logits(tcfg, {"lm_head": wq}, hidden).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        tdecoder._dense(hidden.requires_grad_(), wq, None, torch.float32)
+    out = tdecoder._dense(hidden.requires_grad_(), wq, None, torch.float32)
+    assert tuple(torch.autograd.grad(out.sum(), [hidden])[0].shape) == (1, 1, 64)
     # the serving engine's speculation and mesh arguments
     for kw in (dict(draft_cfg=tcfg, draft_params=tparams), dict(spec_mode="ngram"),
                dict(mesh=object())):

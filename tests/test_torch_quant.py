@@ -353,16 +353,25 @@ def test_kernel_contracts(case):
 
 @pytest.mark.parametrize("fmt", ["int8", "int4_rows"])
 def test_wrappers_refuse_gradient(fmt):
-    x = torch.zeros(4, 64, requires_grad=True)
+    # the wrappers once refused autograd; they now carry dx through their
+    # operators (QLoRA): dx equals autograd through the plain expression,
+    # the frozen payloads get none, and without a recorded gradient the
+    # wrapper runs its product directly
+    x = torch.from_numpy(np.random.RandomState(4).randn(4, 64).astype(np.float32))
     w = torch.from_numpy(_weight(False)[:64])
     if fmt == "int8":
         wq = tquant.quantize_weight(w)
         call = lambda x: tint8.int8_matmul(x, wq["q"], wq["scale"])  # noqa: E731
+        plain = lambda x: tint8._int8_matmul_plain(x, wq["q"], wq["scale"])  # noqa: E731
     else:
         wq = tquant.quantize_weight_int4(w, GROUP)
         call = lambda x: tint4.int4_matmul(x, wq["q4"], wq["scale"], group=GROUP)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        call(x)
+        plain = lambda x: tint4._int4_matmul_plain(x, wq["q4"], wq["scale"])  # noqa: E731
+    g = torch.from_numpy(np.random.RandomState(5).randn(4, 48).astype(np.float32))
+    (got,) = torch.autograd.grad(call(x.requires_grad_()), [x], g)
+    (want,) = torch.autograd.grad(plain(x), [x], g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5 * want.abs().max().item())
+    assert not any(t.requires_grad for t in wq.values())
     with torch.no_grad():
         assert tuple(call(x).shape) == (4, 48)
     assert tuple(call(x.detach()).shape) == (4, 48)
@@ -656,7 +665,11 @@ def test_server_tokens_match_jax(jax_slice, case):
 
 @pytest.mark.parametrize("bits", [4, 8])
 def test_training_on_quantized_weights_still_raises(bits, tmp_path):
+    # a quantized base trains only frozen (LoRA, a frozen backbone or the
+    # adapter stage): without one the port raises the JAX package's
+    # ValueError (llark_tpu/train/train.py:277-282), before any work
     args = TrainingArguments(output_dir=str(tmp_path / "out"), bits=bits)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    with pytest.raises(ValueError, match=f"--bits {bits} requires lora_enable"):
         train(ModelArguments(model_name_or_path="tiny"),
               DataArguments(train_data_path=str(tmp_path / "none.tar")), args, device="cpu")
+    assert not (tmp_path / "out" / "model_config.json").exists()

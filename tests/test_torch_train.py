@@ -406,13 +406,19 @@ def test_model_metadata_round_trip(tmp_path):
     ["lora", "bits8", "bits4", "moe", "multihost", "mesh", "hf_dir", "tensorboard"],
 )
 def test_out_of_slice_options_raise(tmp_path, option):
+    # each option the port has no slice for, or whose setting the JAX
+    # package refuses (llark_tpu/train/train.py:259-302), raises before any
+    # work; report_to="tensorboard" came into the port with LoRA and writes
+    # TensorBoard events beside the JSONL stream
     model_args, data_args, training_args = _train_args(tmp_path, "unused.tar", 1)
+    error, match = NotImplementedError, "later slice|checkpoint-I/O slice"
     if option == "lora":
-        training_args.lora_enable = True
-    elif option == "bits8":
-        training_args.bits = 8
-    elif option == "bits4":
-        training_args.bits = 4
+        training_args.lora_enable, training_args.lora_bias = True, "all"
+        match = "lora_bias"
+    elif option in ("bits8", "bits4"):
+        # a quantized base is frozen: it needs LoRA or a frozen backbone
+        training_args.bits = int(option[-1])
+        error, match = ValueError, "requires lora_enable"
     elif option == "moe":
         model_args.moe_num_experts = 4
     elif option == "multihost":
@@ -426,21 +432,34 @@ def test_out_of_slice_options_raise(tmp_path, option):
             json.dumps({"model_type": "mixtral", "num_local_experts": 8}))
         model_args.model_name_or_path = str(tmp_path)
     else:
-        training_args.report_to = "tensorboard"
-    with pytest.raises(NotImplementedError, match="later slice|checkpoint-I/O slice"):
+        _write_shards(str(tmp_path))
+        model_args, data_args, training_args = _train_args(
+            tmp_path, str(tmp_path / "mir-train-00000.tar"), 1, freeze_backbone=True)
+        training_args.report_to, training_args.eval_steps = "tensorboard", 0
+        cfg = ModelConfig.tiny(mm_hidden_size=16, dtype="float32")
+        assert train(model_args, data_args, training_args, model_cfg=cfg,
+                     device="cpu")["final_step"] == 1
+        assert [n for n in os.listdir(tmp_path / "out" / "tb") if "tfevents" in n]
+        return
+    with pytest.raises(error, match=match):
         train(model_args, data_args, training_args, device="cpu")
     assert not (tmp_path / "out" / "checkpoint-1").exists()
 
 
 def test_out_of_slice_settings_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ModelConfig.tiny(remat_policy="dots")
+    # the "dots" remat policies and the LoRA mask came into the port with
+    # LoRA; an unknown policy and remote storage still raise
+    for policy in ("dots", "dots_narrow"):
+        assert ModelConfig.tiny(remat_policy=policy).remat_policy == policy
     with pytest.raises(ValueError, match="remat_policy"):
         ModelConfig.tiny(remat_policy="everything")
     with pytest.raises(NotImplementedError, match="remote storage"):
         storage.fopen("gs://bucket/shard-00000.tar")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tstep.trainable_mask({"embed": torch.zeros(1)}, lora=True)
+    tree = {"embed": torch.zeros(1), "lm_head": torch.zeros(1), "mm_projector": {"kernel": torch.zeros(1)},
+            "layers": {"wq": torch.zeros(1), "wq_lora_a": torch.zeros(1), "wq_lora_b": torch.zeros(1)}}
+    assert tstep.trainable_mask(tree, lora=True) == {
+        "embed": True, "lm_head": False, "mm_projector": {"kernel": True},
+        "layers": {"wq": False, "wq_lora_a": True, "wq_lora_b": True}}
 
 
 def test_flops_match_jax():
