@@ -159,7 +159,44 @@ Phases, in order; any failure exits non-zero before the final line:
      peak memory, idle share and the top kernels of each run, the device
      time of the dx products read from the profiled step's trace, one
      decode step through the quantized operator and called directly, and
-     each part's seconds.
+     each part's seconds;
+ 19. speculative decoding, beam search and the online HTTP engine at full
+     Llama-2-7B width, 32 layers, random weights from the seed, gamma 4,
+     32 new tokens, greedy (`run_speculation`): (a) an fp32 target (tf32
+     off) on the 4 requests of phase 4: plain `Generator` greedy tokens and
+     each step's top-2 logit margin; `SpeculativeGenerator` by n-gram, with
+     the target's own tensors as draft (fused, 4 rounds) and with an
+     MPT-1B-width draft (24 layers, ALiBi, the target's vocab; fused); one
+     verify window [4, 5] against 5 sequential decode steps and one draft
+     proposal call; `BeamSearcher` with K = 1, K = 4 (every beam's score
+     against a teacher-forced log-prob of its tokens through the plain
+     attention route) and K = 4 over an int8 cache, and the device split of
+     one K = 4 beam step (the cache gather's part); (b) `BatchedServer`
+     with bf16 weights (8 slots, cache 2048, allow_divergent_spec), 16
+     requests of phase 7: n-gram in mode (a) and mode (b), the MPT-1B-width
+     draft with spec_rounds 2 in mode (a), n-gram in mode (a) with
+     spec_force_accept 0.8 and n-gram in mode (a) from int8 weights; each
+     with a verify window from 8 admitted slots against sequential steps
+     and a speculative round's device split; (c) mode (a) without
+     speculation behind `OnlineEngine` + `serve_http` on 127.0.0.1: 16
+     requests from 8 client threads (base64 .npy encodings), a body with
+     the wrong encoding width, one more request. Gates: every stream equal
+     to plain greedy up to its first step with a margin below NEAR_TIE;
+     n-gram acceptance equal to `simulate_ngram_acceptance` replayed on the
+     emitted tokens (`replayed_acceptance`); verify-window logits within
+     WINDOW_TOL of the steps' (LOGITS_TOL from int8 weights); K2 once a layer at Sq = 5 in a verify window
+     (32 launches, in the cache's mode alone), once a layer at Sq = 2 then
+     at Sq = 1 in a draft call (24 launches each for the MPT draft), the
+     target's launches only in its run's cache mode and the draft's only
+     in dense mode; K1 once a layer per prefill; 224 K5 launches in a
+     verify window from int8 weights and no K6 launch; beams K = 1 equal
+     to greedy, K = 4 scores within 1e-3 relative; every request 32 tokens;
+     HTTP 200 for each valid request, 400 for the malformed body, /health
+     back at 8 free slots and an empty queue, `stop()` joining the engine
+     thread, no request with its error set. Printed: acceptance, seconds,
+     tokens/s, mean TTFT, streams equal to phase 7's plain tokens, a
+     speculative round's device time and idle share beside phase 7's
+     decode round, HTTP TTFT p50/p90.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -184,6 +221,7 @@ import subprocess
 import sys
 import shutil
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -197,6 +235,7 @@ from llark_tpu_torch.generate import (
     Generator,
     decode_step,
     paged_prefill_chunk,
+    prefill,
     prefill_last,
 )
 from llark_tpu_torch.infer import (
@@ -205,7 +244,9 @@ from llark_tpu_torch.infer import (
     batch_infer_continuous,
     build_prompt_ids,
 )
+from llark_tpu_torch.inference import beam as beam_mod
 from llark_tpu_torch.inference import from_webdataset
+from llark_tpu_torch.inference import speculative as spec_mod
 from llark_tpu_torch.inference.server import BatchedServer, Request
 from llark_tpu_torch.interop import hf
 from llark_tpu_torch.models import lora as lora_mod
@@ -257,6 +298,12 @@ ROW_FLOOR = {"flash_bwd": 1e-2}
 # most 3.1e-5 on the cases below
 LSE_TOL = 1e-4
 LOGITS_TOL = 5e-2  # prefill logits, kernel path vs plain attention path
+# one verify window's logits against gamma + 1 sequential decode steps
+# (phase 19), relative to max. From float weights both sides run the same
+# products and read 2.97e-6 to 3.89e-6 (fp32 and bf16, H100 80GB HBM3 at
+# 700 W). From int8 weights K5 splits the contraction at M = 8 and not at
+# M = 40, and that rounding read 1.29e-2: held at LOGITS_TOL.
+WINDOW_TOL = 1e-4
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 N_TIMED = 30
@@ -418,19 +465,21 @@ def check_flash_decode(gen: torch.Generator, plen: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+PROMPTS = ["Describe the audio.", "What is the tempo?", "Which instruments play?",
+           "What is the key of this piece?"]
+
+
 def requests(cfg: ModelConfig):
     """The main path's 4 requests: a question and a random [256, 4800]
     encoding each, made from the seed; and their longest prompt, in tokens."""
     bundle = TokenizerBundle.from_tokenizer(WordTokenizer(2048))
     rng = np.random.RandomState(SEED)
-    prompts = ["Describe the audio.", "What is the tempo?", "Which instruments play?",
-               "What is the key of this piece?"]
     rows = [
         {"example_id": str(i), "prompt": p,
          "audio_encoding": rng.randn(256, cfg.mm_hidden_size).astype(np.float32)}
-        for i, p in enumerate(prompts)
+        for i, p in enumerate(PROMPTS)
     ]
-    plen = max(len(build_prompt_ids(p, 256, bundle)) for p in prompts)
+    plen = max(len(build_prompt_ids(p, 256, bundle)) for p in PROMPTS)
     return bundle, rows, plen
 
 
@@ -851,11 +900,9 @@ def serving_requests(cfg: ModelConfig, bundle: TokenizerBundle, n: int, seed: in
     """n requests: the four prompts of requests() in turn, each with a
     random [256, 4800] encoding made from `seed`."""
     rng = np.random.RandomState(seed)
-    prompts = ["Describe the audio.", "What is the tempo?", "Which instruments play?",
-               "What is the key of this piece?"]
     out = []
     for i in range(n):
-        ids = np.asarray(build_prompt_ids(prompts[i % 4], 256, bundle), np.int32)
+        ids = np.asarray(build_prompt_ids(PROMPTS[i % 4], 256, bundle), np.int32)
         out.append(Request(ids, rng.randn(256, cfg.mm_hidden_size).astype(np.float32)))
     return out
 
@@ -934,6 +981,11 @@ def check_chunked_admission(server: BatchedServer, wq: str, label: str) -> None:
     check(rel <= LOGITS_TOL, f"serving ({label}): {wq} admission logits rel err {rel:.3e}")
 
 
+# the engine's geometry in phases 7, 14 and 19
+SERVING_BASE = dict(max_batch=8, max_cache_len=2048, prompt_buckets=(512,), max_audio_frames=256,
+                    decode_chunk=8)
+
+
 @torch.inference_mode()
 def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle, params=None, modes="abcd",
                        wq=None):
@@ -942,13 +994,13 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle, params=None, m
     format `wq` ("int8" or "int4"; default: bf16 weights made here).
     Returns the flash-decode launches by cache mode of each mode's serve()
     run (plus that run's launches of the format's product under its name),
-    and each mode's figures."""
+    and each mode's figures; from bf16 weights these include the 16
+    requests' tokens, which phase 19 counts its streams against."""
     weights = "bf16 weights" if wq is None else f"{wq} weights"
     if params is None:
         params = init_llark_params(cfg, seed=SEED, device="cuda")
     gen_cfg = GenerationConfig(max_new_tokens=32, stop_text="")
-    base = dict(max_batch=8, max_cache_len=2048, prompt_buckets=(512,), max_audio_frames=256,
-                decode_chunk=8, tokenizer=bundle.tokenizer)
+    base = dict(SERVING_BASE, tokenizer=bundle.tokenizer)
     launches, figures = {}, {}
     for label, name, own_mode, quant_kv, extra in SERVER_MODES:
         if label not in modes:
@@ -1042,6 +1094,8 @@ def run_serving_engine(cfg: ModelConfig, bundle: TokenizerBundle, params=None, m
         figures[label] = dict(wall_s=wall, tokens_per_sec=stats["tokens_per_sec"],
                               mean_ttft_s=stats["mean_ttft_s"], peak_gib=peak_gb,
                               round_wall_ms=wall_ms, round_device_ms=busy_ms)
+        if wq is None:
+            figures[label]["tokens"] = [r.tokens for r in reqs]
         del server
         torch.cuda.empty_cache()
     del params
@@ -2322,6 +2376,540 @@ def run_lora(directory: str, shard: str, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: speculative decoding, beam search and the online HTTP engine
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+SPEC_NEW = 32
+# A speculative stream must equal plain greedy decode up to the first step
+# whose reference top-2 logit margin is below NEAR_TIE: the verify window
+# (Sq = gamma + 1) and a decode step (Sq = 1) sum their products in another
+# order, which can flip an argmax only where two logits nearly tie. At fp32
+# (tf32 off) the window's logits read within ~1e-5 of the steps' (the
+# window check below prints it), so 1e-3 leaves two orders of magnitude.
+NEAR_TIE = 1e-3
+BEAM_SCORE_TOL = 1e-3  # relative, beam score vs a teacher-forced log-prob
+
+
+def window_counts() -> dict:
+    return dict(dec_ops.flash_decode_attention.launches_by_window)
+
+
+def spec_batch(bundle: TokenizerBundle, rows):
+    """The 4 requests of requests() as one right-padded batch: (input_ids
+    [4, S], prompt lengths, encodings [4, 256, 4800], frame counts), S the
+    longest prompt rounded up to 128 positions as batch_infer pads."""
+    ids = [build_prompt_ids(r["prompt"], 256, bundle) for r in rows]
+    plens = np.array([len(x) for x in ids], np.int32)
+    s = int(np.ceil(plens.max() / 128) * 128)
+    input_ids = np.full((len(rows), s), bundle.pad_token_id, np.int32)
+    for i, x in enumerate(ids):
+        input_ids[i, : len(x)] = x
+    audio = np.stack([r["audio_encoding"] for r in rows])
+    return input_ids, plens, audio, np.full((len(rows),), audio.shape[1], np.int32)
+
+
+def greedy_reference(cfg: ModelConfig, params, patch_id: int, batch, cache_len: int):
+    """Plain `Generator` greedy tokens [4 x 32], and the same decode replayed
+    step by step (prefill, then `decode_step`, as `decode_n` runs it) for
+    each step's top-2 logit margin. Returns (tokens, margins [4, 32], the
+    first near-tie step of each row, 32 where there is none)."""
+    exact = GenerationConfig(max_new_tokens=SPEC_NEW, stop_text="")
+    gen = Generator(cfg, params, patch_id, exact, max_cache_len=cache_len)
+    ref = gen.generate(*batch)
+    logits, cache = gen.prefill(*batch)
+    pos = torch.as_tensor(batch[1], dtype=torch.int64, device="cuda")
+    margins, toks = [], []
+    for t in range(SPEC_NEW):
+        top2 = logits.topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        token = logits.argmax(-1)
+        toks.append(token)
+        if t < SPEC_NEW - 1:
+            logits, cache = decode_step(cfg, params, token, cache, pos + t)
+    margins = np.stack(margins, axis=1)
+    near = [int(np.argmax(m < NEAR_TIE)) if (m < NEAR_TIE).any() else SPEC_NEW for m in margins]
+    print(f"  plain greedy, fp32: {len(ref)} streams x {SPEC_NEW} tokens; smallest top-2 margin "
+          f"{margins.min():.3e}; first step below NEAR_TIE {NEAR_TIE:g} per row {near}")
+    check_streams("the step-by-step replay of greedy decode", torch.stack(toks, dim=1).tolist(),
+                  ref, near, margins)
+    return ref, margins, near
+
+
+def check_streams(label: str, got, ref, near, margins) -> int:
+    """Each stream equals the reference up to its first near tie; returns
+    the count of streams equal to it throughout."""
+    equal = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        same = next((t for t, (a, b) in enumerate(zip(g, r)) if a != b), min(len(g), len(r)))
+        if g == r:
+            equal += 1
+        elif same < len(r):
+            print(f"  {label}: stream {i} leaves plain greedy at step {same} (reference margin "
+                  f"there {margins[i, same]:.3e}; first near tie {near[i]})")
+        check(same >= min(near[i], len(r)),
+              f"{label}: stream {i} differs from plain greedy at step {same}, before its first "
+              f"near tie ({near[i]})")
+        check(len(g) == SPEC_NEW, f"{label}: stream {i} has {len(g)} tokens")
+    return equal
+
+
+def replayed_acceptance(prompts, rows, gamma: int) -> float:
+    """The acceptance rate a speculative generator reports for streams cut
+    by the token budget, from `simulate_ngram_acceptance` over each prompt +
+    stream with its last token masked (-1). The generator credits a round
+    with the tokens it emitted less the one the target emits anyway; the
+    replay credits every match, so in a final round that matched every
+    token left in the budget it counts one more. The mask stops the
+    replay's final round one short there and changes no other round (no
+    round's proposals read the last token)."""
+    accepted = proposed = 0
+    for prompt, row in zip(prompts, rows):
+        seq = list(map(int, prompt)) + list(row[:-1]) + [-1]
+        rate, rounds = spec_mod.simulate_ngram_acceptance(seq, len(prompt), gamma)
+        accepted += round(rate * rounds * gamma)
+        proposed += rounds * gamma
+    return accepted / proposed
+
+
+def check_window(label: str, cfg: ModelConfig, params, tokens_in, cache, pos, mode: str,
+                 wq: str = None, draft=None) -> float:
+    """One verify forward over tokens_in [B, gamma+1] at `pos` against
+    gamma + 1 sequential `decode_step`s on the same cache (each step
+    rewrites the position it attends last, so the window's writes past it
+    are never read): logits within WINDOW_TOL (LOGITS_TOL from quantized
+    weights); K2 once a layer at Sq =
+    gamma + 1 in the window and at Sq = 1 in the steps, in `mode` alone; with
+    `wq`, 224 products in the window. With `draft` (cfg, params, cache,
+    prev tokens): one proposal call of the draft from the same state, its
+    K2 launches once a layer at Sq = 2, then at Sq = 1 per step, in its own
+    cache's dense mode."""
+    n = tokens_in.shape[1]
+    dec_ops.reset_launch_counts()
+    reset_wq_counts()
+    win = decoder_forward(cfg, params, input_ids=tokens_in, kv_cache=cache,
+                          cache_positions=pos)[0]
+    torch.cuda.synchronize()
+    win_counts = window_counts()
+    products = {name: fn.launches for name, fn in WQ_KERNELS.items()}
+    dec_ops.reset_launch_counts()
+    steps = torch.stack([decode_step(cfg, params, tokens_in[:, j], cache, pos + j)[0]
+                         for j in range(n)], dim=1)
+    step_counts = window_counts()
+    rel, diff = rel_err(win, steps)
+    agree = float((win.argmax(-1) == steps.argmax(-1)).float().mean())
+    print(f"  {label}: one verify window {tuple(win.shape)} vs {n} sequential decode steps: "
+          f"max|d| {diff:.3e}, rel-to-max {rel:.3e}, argmax agreement {agree:.1%}; K2 launches "
+          f"{win_counts} in the window, {step_counts} in the steps; products {products}")
+    check(bool(torch.isfinite(win).all()), f"{label}: non-finite verify logits")
+    tol = WINDOW_TOL if wq is None else LOGITS_TOL
+    check(rel <= tol, f"{label}: verify-window logits rel err {rel:.3e} > {tol}")
+    layers = cfg.num_layers
+    check(win_counts == {(mode, n): layers},
+          f"{label}: K2 launched {win_counts} in one verify window, not {layers} at Sq = {n}")
+    check(step_counts == {(mode, 1): n * layers}, f"{label}: the steps launched K2 {step_counts}")
+    want_products = {name: (PRODUCTS_PER_FORWARD if name == wq else 0) for name in WQ_KERNELS}
+    check(products == want_products, f"{label}: products {products} in one verify window, "
+          f"not {want_products}")
+    if draft is not None:
+        d_cfg, d_params, d_cache, prev = draft
+        dec_ops.reset_launch_counts()
+        last2 = torch.stack([prev, tokens_in[:, 0]], dim=1)
+        props, _ = spec_mod.draft_propose(d_cfg, d_params, last2, d_cache, pos - 1, n - 1)
+        torch.cuda.synchronize()
+        d_counts = window_counts()
+        d_mode = "dense_fp32" if d_cfg.dtype == "float32" else "dense_bf16"
+        want = {(d_mode, 2): d_cfg.num_layers, (d_mode, 1): (n - 2) * d_cfg.num_layers}
+        print(f"  {label}: one draft proposal call {tuple(props.shape)}: K2 launches {d_counts}")
+        check(d_counts == want, f"{label}: the draft launched K2 {d_counts}, not {want}")
+    return rel
+
+
+def teacher_forced_logprobs(cfg: ModelConfig, params, patch_id: int, batch, beams) -> list:
+    """Each beam's tokens scored through the plain attention route: one
+    full forward over prompt + beam per beam (no cache) and the sum of the
+    beam tokens' log-probabilities."""
+    plain = dataclasses.replace(cfg, use_pallas_attention=False, use_flash_decode=False)
+    input_ids, plens, audio, counts = batch
+    k = len(beams[0])
+    width = input_ids.shape[1] + SPEC_NEW
+    ids = np.zeros((len(beams) * k, width), np.int64)
+    lens = np.zeros((len(beams) * k,), np.int32)
+    for i, row in enumerate(beams):
+        for j, (seq, _) in enumerate(row):
+            r, p = i * k + j, int(plens[i])
+            ids[r, :p] = input_ids[i, :p]
+            ids[r, p : p + len(seq)] = seq
+            lens[r] = p + len(seq)
+    t = lambda x, dtype: torch.as_tensor(x, dtype=dtype, device="cuda")
+    embeds = build_inputs_embeds(plain, params, t(ids, torch.int64),
+                                 t(np.repeat(audio, k, axis=0), torch.float32), patch_id,
+                                 t(np.repeat(counts, k), torch.int32))
+    logp = torch.log_softmax(
+        decoder_forward(plain, params, inputs_embeds=embeds, seq_lengths=t(lens, torch.int32))[0],
+        dim=-1)
+    out = []
+    for i, row in enumerate(beams):
+        for j, (seq, _) in enumerate(row):
+            p = int(plens[i])
+            picked = logp[i * k + j, p - 1 : p - 1 + len(seq)].gather(
+                1, t(seq, torch.int64)[:, None])
+            out.append(float(picked.sum()))
+    return out
+
+
+def beam_gather_share(cfg: ModelConfig, params, patch_id: int, batch, k: int, cache_len: int):
+    """torch.profiler over one beam step at K beams from the prefilled
+    state: the step's device time and the cache gather's part of it (the
+    index_select kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = lambda x, dtype: torch.as_tensor(x, dtype=dtype, device="cuda")
+    input_ids, plens, audio, counts = batch
+    logits, cache = prefill(cfg, params, t(input_ids, torch.int64), t(plens, torch.int32),
+                            t(audio, torch.float32), t(counts, torch.int32), patch_id, cache_len)
+    scores, tokens = beam_mod._top_k(torch.log_softmax(logits.float(), dim=-1), k)
+    cache = {n: v.repeat_interleave(k, dim=1) if n in ("k", "v", "k_scale", "v_scale") else v
+             for n, v in cache.items()}
+    alive = torch.ones_like(tokens, dtype=torch.bool)
+    step = lambda: beam_mod.beam_step(cfg, k, -1, params, tokens, cache,
+                                      t(plens, torch.int64), scores, alive)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    gather = sum(e.self_device_time_total for e in kernels
+                 if "indexSelect" in e.key or "index_select" in e.key) / 1e3
+    cache_gb = sum(v.numel() * v.element_size() for n, v in cache.items()
+                   if torch.is_tensor(v)) / 1e9
+    if busy <= 0:
+        print("  beam step device time: not measured (the profiler saw no device time)")
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"  one beam step at K = {k} ({tuple(tokens.shape)[0] * k} rows, a {cache_gb:.2f} GB "
+          f"cache): device {busy:.2f} ms, the cache gather {gather:.2f} ms ({gather / busy:.1%}); "
+          + "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:50]}"
+                      for e in top))
+    return busy, gather
+
+
+@torch.inference_mode()
+def run_spec_fp32(cfg: ModelConfig, bundle: TokenizerBundle, rows) -> dict:
+    """Phase 19 (a): an fp32 Llama-2-7B (32 layers, random weights from the
+    seed, tf32 off): plain greedy with margins; speculation at gamma 4 by
+    n-gram, self-draft (fused, 4 rounds) and an MPT-1B-width draft (fused);
+    verify-window and draft-call launch gates; beams K = 1, K = 4 (scores vs
+    teacher-forced log-probs) and K = 4 over an int8 cache."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    patch = bundle.audio_patch_id
+    batch = spec_batch(bundle, rows)
+    spec_len = batch[0].shape[1] + SPEC_NEW + SPEC_GAMMA + 2  # fused rounds' position clamp
+    beam_len = batch[0].shape[1] + SPEC_NEW
+    t0 = time.perf_counter()
+    params = init_llark_params(cfg32, seed=SEED, device="cuda")
+    draft_cfg = ModelConfig.mpt_1b(vocab_size=cfg.vocab_size, mm_hidden_size=cfg.mm_hidden_size,
+                                   dtype="float32", param_dtype="float32", use_flash_decode=True)
+    draft = init_llark_params(draft_cfg, seed=SEED + 1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  fp32 7B target ({param_bytes(params) / 1e9:.2f} GB) and MPT-1B-width draft "
+          f"({draft_cfg.num_layers} layers, ALiBi, {param_bytes(draft) / 1e9:.2f} GB) made on the "
+          f"card in {time.perf_counter() - t0:.1f} s; prompts {batch[1].tolist()} padded to "
+          f"{batch[0].shape[1]}")
+    ref, margins, near = greedy_reference(cfg32, params, patch, batch, spec_len)
+    out = {}
+    prompts = [batch[0][i, : batch[1][i]] for i in range(len(rows))]
+    gen_cfg = GenerationConfig(max_new_tokens=SPEC_NEW, stop_text="")
+    for label, kw, want_fwd in (
+            ("n-gram", {}, cfg32.num_layers),
+            ("self-draft, fused 4", dict(draft_cfg=cfg32, draft_params=params, fused_rounds=4),
+             2 * cfg32.num_layers),
+            ("MPT-1B-width draft, fused 4", dict(draft_cfg=draft_cfg, draft_params=draft,
+                                                 fused_rounds=4),
+             cfg32.num_layers + draft_cfg.num_layers)):
+        spec = spec_mod.SpeculativeGenerator(cfg32, params, patch, gen_cfg, max_cache_len=spec_len,
+                                             gamma=SPEC_GAMMA, **kw)
+        dec_ops.reset_launch_counts()
+        attn_ops.flash_attention_fwd.launches = 0
+        got, secs = seconds(lambda: spec.generate(*batch))
+        counts, fwd = window_counts(), attn_ops.flash_attention_fwd.launches
+        equal = check_streams(f"speculation ({label})", got, ref, near, margins)
+        rate = spec.last_acceptance_rate
+        print(f"  speculation ({label}), gamma {SPEC_GAMMA}: {secs:.2f} s, acceptance {rate:.3f}, "
+              f"streams equal to plain greedy {equal}/{len(ref)}; K2 launches {counts}, "
+              f"K1 launches {fwd}")
+        check(fwd == want_fwd, f"speculation ({label}): {fwd} K1 launches, not {want_fwd}")
+        verify_n = counts.get(("dense_fp32", SPEC_GAMMA + 1), 0)
+        check(verify_n > 0 and verify_n % cfg32.num_layers == 0,
+              f"speculation ({label}): {verify_n} K2 launches at Sq = {SPEC_GAMMA + 1}")
+        check(all(mode == "dense_fp32" for mode, _ in counts),
+              f"speculation ({label}): K2 launched outside dense_fp32: {counts}")
+        if not kw:
+            want = replayed_acceptance(prompts, got, SPEC_GAMMA)
+            print(f"  n-gram acceptance {rate:.6f}, replayed on the emitted tokens {want:.6f}")
+            check(rate == want, f"n-gram acceptance {rate} is not the replay's {want}")
+            check(set(counts) == {("dense_fp32", SPEC_GAMMA + 1)},
+                  f"n-gram speculation launched K2 {counts}")
+        out[label] = dict(seconds=secs, acceptance=rate, equal=equal)
+    # the verify-window contract at this width, from the prefilled state:
+    # [first token, 4 reference tokens] at each row's prompt length, and
+    # the MPT draft's proposal call from its own prefilled state
+    gen = Generator(cfg32, params, patch, gen_cfg, max_cache_len=spec_len)
+    logits, cache = gen.prefill(*batch)
+    t = lambda x: torch.as_tensor(x, dtype=torch.int64, device="cuda")
+    tokens_in = t([r[: SPEC_GAMMA + 1] for r in ref])
+    _, d_cache = prefill(draft_cfg, draft, t(batch[0]), t(batch[1]).int(),
+                         torch.as_tensor(batch[2], device="cuda"), t(batch[3]).int(), patch,
+                         spec_len)
+    prev = t([p[-1] for p in prompts])
+    out["window_rel"] = check_window("fp32 target", cfg32, params, tokens_in, cache,
+                                     t(batch[1]).int(), "dense_fp32",
+                                     draft=(draft_cfg, draft, d_cache, prev))
+    del cache, d_cache, draft, logits
+    torch.cuda.empty_cache()
+
+    # beams on the same fp32 tree
+    def beams(k, bcfg=cfg32):
+        searcher = beam_mod.BeamSearcher(
+            bcfg, params, patch, beam_mod.BeamSearchConfig(num_beams=k, max_new_tokens=SPEC_NEW,
+                                                           stop_text=""),
+            max_cache_len=beam_len)
+        dec_ops.reset_launch_counts()
+        got, secs = seconds(lambda: searcher.generate(*batch, return_all_beams=True))
+        return got, secs, {m: n for m, n in dec_ops.flash_decode_attention.launches_by_mode.items()
+                           if n}
+
+    got, secs, by_mode = beams(1)
+    equal = check_streams("beams K = 1", [row[0][0] for row in got], ref, near, margins)
+    print(f"  beams K = 1: {secs:.2f} s, streams equal to plain greedy {equal}/{len(ref)}; "
+          f"K2 by mode {by_mode}")
+    got, secs, by_mode = beams(4)
+    forced = teacher_forced_logprobs(cfg32, params, patch, batch, got)
+    scores = [sc for row in got for _, sc in row]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(scores, forced))
+    print(f"  beams K = 4: {secs:.2f} s; K2 by mode {by_mode}; scores {[round(s, 3) for s in scores[:4]]}"
+          f"...; worst |score - teacher-forced log-prob| / |log-prob| {worst:.3e}")
+    check(all(len(seq) == SPEC_NEW for row in got for seq, _ in row), "a beam is short")
+    check(worst <= BEAM_SCORE_TOL, f"beam scores off the teacher-forced log-probs: {worst:.3e}")
+    check(set(by_mode) == {"dense_fp32"}, f"beams K = 4 launched K2 by mode {by_mode}")
+    best_fp = [row[0][0] for row in got]
+    step = beam_gather_share(cfg32, params, patch, batch, 4, beam_len)
+    got, secs, by_mode = beams(4, dataclasses.replace(cfg32, kv_cache_quant=True))
+    same = sum(row[0][0] == b for row, b in zip(got, best_fp))
+    print(f"  beams K = 4, int8 cache: {secs:.2f} s; K2 by mode {by_mode}; best beams equal to "
+          f"the fp32 cache's {same}/{len(got)}")
+    check(set(by_mode) == {"dense_int8"},
+          f"beams over an int8 cache launched K2 by mode {by_mode}")
+    check(all(len(seq) == SPEC_NEW and np.isfinite(sc) for row in got for seq, sc in row),
+          "an int8-cache beam is short or its score is not finite")
+    out["beam_step"] = step
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+SPEC_SERVING = (
+    # (label, what, phase-7 mode it is counted against, target cache mode,
+    #  kv_cache_quant, server keywords, weights)
+    ("a-ngram", "n-gram, mode (a): paged 128-token blocks, int8 KV, prefill_chunk 256", "a",
+     "paged_int8", True, dict(kv_block_size=128, prefill_chunk=256, spec_mode="ngram"), None),
+    ("b-ngram", "n-gram, mode (b): dense bf16 cache", "b", "dense_bf16", False,
+     dict(spec_mode="ngram"), None),
+    ("a-draft", "MPT-1B-width draft, spec_rounds 2, mode (a)", "a", "paged_int8", True,
+     dict(kv_block_size=128, prefill_chunk=256, draft=True, spec_rounds=2), None),
+    ("a-force", "n-gram, mode (a), spec_force_accept 0.8", "a", "paged_int8", True,
+     dict(kv_block_size=128, prefill_chunk=256, spec_mode="ngram", spec_force_accept=0.8), None),
+    ("a-int8w", "n-gram, mode (a), int8 weights", "a", "paged_int8", True,
+     dict(kv_block_size=128, prefill_chunk=256, spec_mode="ngram"), "int8"),
+)
+
+
+@torch.inference_mode()
+def run_spec_serving(cfg: ModelConfig, bundle: TokenizerBundle, bf16_serving: dict) -> dict:
+    """Phase 19 (b): `BatchedServer` at 7B width, bf16 weights from the seed
+    (phase 7's), 16 requests x 32 tokens, gamma 4, allow_divergent_spec, in
+    each SPEC_SERVING run; (c) then serves mode (a) without speculation over
+    HTTP. Returns the runs' figures."""
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    draft_cfg = ModelConfig.mpt_1b(vocab_size=cfg.vocab_size, mm_hidden_size=cfg.mm_hidden_size,
+                                   param_dtype="bfloat16", use_flash_decode=True)
+    draft = init_llark_params(draft_cfg, seed=SEED + 1, device="cuda")
+    gen_cfg = GenerationConfig(max_new_tokens=SPEC_NEW, stop_text="")
+    figures = {}
+    for label, what, plain_mode, own, quant_kv, extra, wq in SPEC_SERVING:
+        kw = dict(SERVING_BASE, tokenizer=bundle.tokenizer, gamma=SPEC_GAMMA,
+                  allow_divergent_spec=True, **extra)
+        if kw.pop("draft", False):
+            kw.update(draft_cfg=draft_cfg, draft_params=draft)
+        if wq == "int8":
+            del draft
+            params = quant.quantize_params_int8_incremental(cfg, params)
+        mcfg = dataclasses.replace(cfg, kv_cache_quant=quant_kv)
+        server = BatchedServer(mcfg, params, bundle.audio_patch_id, gen_cfg, **kw)
+        reqs = serving_requests(cfg, bundle, 16, SEED)
+        dec_ops.reset_launch_counts()
+        reset_wq_counts()
+        _, wall = seconds(lambda: server.serve(reqs))
+        by_mode = {m: n for m, n in dec_ops.flash_decode_attention.launches_by_mode.items() if n}
+        counts, products = window_counts(), {n: fn.launches for n, fn in WQ_KERNELS.items()}
+        stats = server.stats(reqs)
+        equal = sum(r.tokens == p for r, p in zip(reqs, bf16_serving[plain_mode]["tokens"]))
+        print(f"serving ({label}) {what}: 16 requests x {SPEC_NEW} tokens in {wall:.2f} s, "
+              f"{stats['tokens_per_sec']:.1f} tokens/s, mean TTFT {stats['mean_ttft_s']:.3f} s, "
+              f"spec_acceptance {stats.get('spec_acceptance')}, streams equal to phase 7's plain "
+              f"tokens in mode ({plain_mode}) {equal}/16; K2 launches {counts}; products "
+              f"{products}")
+        check(all(r.done and r.error is None and len(r.tokens) == SPEC_NEW for r in reqs),
+              f"serving ({label}): a request did not finish with {SPEC_NEW} tokens")
+        allowed = {own, "dense_bf16"} if "draft_cfg" in kw else {own}
+        check(set(by_mode) <= allowed and by_mode.get(own, 0) > 0,
+              f"serving ({label}): K2 launched by cache mode {by_mode}, not in {allowed} alone")
+        verify_n = counts.get((own, SPEC_GAMMA + 1), 0)
+        check(verify_n > 0 and verify_n % cfg.num_layers == 0,
+              f"serving ({label}): {verify_n} K2 launches at Sq = {SPEC_GAMMA + 1}")
+        if "draft_cfg" in kw:
+            check(counts.get(("dense_bf16", 2), 0) > 0,
+                  f"serving ({label}): the draft never launched K2 at Sq = 2")
+        if wq is None:
+            check(products == {n: 0 for n in WQ_KERNELS}, f"serving ({label}): products {products}")
+        else:
+            check(products["int4"] == 0, f"serving ({label}): K6 launched {products['int4']} times")
+            check_wq_counts(f"serving ({label})", wq)
+
+        # 8 admitted slots: one verify window against sequential steps (the
+        # draft's proposal call too), then a speculative round's device split
+        server._queue = serving_requests(cfg, bundle, 8, SEED + 1)
+        for r in server._queue:
+            r.submitted_at = time.time()
+        server._admit()
+        server._refresh_tables()
+        t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64, device="cuda")
+        props = [spec_mod.ngram_propose(list(map(int, r.input_ids)) + r.tokens, SPEC_GAMMA)
+                 for r in server._slot_req]
+        tokens_in = t([[int(server._tokens_in_flight[i])] + props[i] for i in range(8)])
+        pos = t(server._write_pos).int()
+        d = None
+        if "draft_cfg" in kw:
+            d = (server.draft_cfg, server.draft_params, server._d_cache, t(server._prev_tok))
+        rel = check_window(f"serving ({label})", server.cfg, server.params, tokens_in,
+                           server._cache, pos, own, wq=wq, draft=d)
+        wall_ms, busy_ms, top = profile_round(server)
+        plain = bf16_serving[plain_mode]
+        idle = None if busy_ms is None else 1 - busy_ms / wall_ms
+        print(f"  one speculative round (8 slots): wall {wall_ms:.1f} ms, device "
+              f"{'not measured' if busy_ms is None else f'{busy_ms:.1f} ms'}, idle share "
+              f"{'not measured' if idle is None else f'{idle:.1%}'}; {top}")
+        device = plain["round_device_ms"]
+        print(f"  beside phase 7 mode ({plain_mode}) plain: {plain['tokens_per_sec']:.1f} tokens/s, "
+              f"mean TTFT {plain['mean_ttft_s']:.3f} s, a decode round of 8 tokens: wall "
+              f"{plain['round_wall_ms']:.1f} ms, device "
+              f"{'not measured' if device is None else f'{device:.1f} ms'}")
+        figures[label] = dict(wall_s=wall, tokens_per_sec=stats["tokens_per_sec"],
+                              mean_ttft_s=stats["mean_ttft_s"],
+                              acceptance=stats.get("spec_acceptance"), equal=equal,
+                              window_rel=rel, round_wall_ms=wall_ms, round_device_ms=busy_ms)
+        del server
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    figures["http"] = run_http(cfg, bundle, bf16_serving["a"]["tokens"])
+    return figures
+
+
+def run_http(cfg: ModelConfig, bundle: TokenizerBundle, plain_tokens: list) -> dict:
+    """Phase 19 (c): mode (a) of phase 7 (bf16 weights, no speculation)
+    behind `OnlineEngine` + `serve_http` on 127.0.0.1 (port 0) in this
+    process: 16 requests from 8 client threads with base64 .npy encodings,
+    then one body whose encoding has the wrong width, then one more valid
+    request. `plain_tokens` are phase 7's mode (a) tokens of the 16."""
+    import base64
+    import concurrent.futures
+    import io
+    import urllib.error
+    import urllib.request
+
+    from llark_tpu_torch.inference.http_server import serve_http
+
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    server = BatchedServer(dataclasses.replace(cfg, kv_cache_quant=True), params,
+                           bundle.audio_patch_id,
+                           GenerationConfig(max_new_tokens=SPEC_NEW, stop_text=""),
+                           tokenizer=bundle.tokenizer, kv_block_size=128, prefill_chunk=256,
+                           **SERVING_BASE)
+    httpd, engine = serve_http(server, bundle, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    listener = threading.Thread(target=httpd.serve_forever, daemon=True)
+    listener.start()
+    def body(i, enc):
+        buf = io.BytesIO()
+        np.save(buf, enc)
+        return json.dumps({"prompt": PROMPTS[i % 4],
+                           "audio_encoding": base64.b64encode(buf.getvalue()).decode()}).encode()
+
+    def post(data):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=data,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    reqs = serving_requests(cfg, bundle, 16, SEED)
+    bodies = [body(i, r.audio_encoding) for i, r in enumerate(reqs)]
+    try:
+        dec_ops.reset_launch_counts()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            replies, wall = seconds(lambda: list(pool.map(post, bodies)))
+        by_mode = {m: n for m, n in dec_ops.flash_decode_attention.launches_by_mode.items() if n}
+        bad_code, bad = post(body(0, np.zeros((3, cfg.mm_hidden_size + 2), np.float32)))
+        last_code, last = post(bodies[1])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        listener.join(timeout=30)
+    ttft = [out.get("ttft_s", float("nan")) for _, out in replies]
+    p50, p90 = np.percentile(ttft, 50), np.percentile(ttft, 90)
+    tokens = sum(len(out.get("tokens", [])) for _, out in replies)
+    equal = sum(out.get("tokens") == p for (_, out), p in zip(replies, plain_tokens))
+    print(f"http (mode (a), bf16, no speculation): 16 requests from 8 threads in {wall:.2f} s, "
+          f"{tokens / wall:.1f} tokens/s, TTFT p50 {p50:.3f} s, p90 {p90:.3f} s; "
+          f"malformed body -> {bad_code} ({bad.get('error', '')[:60]}), next request -> "
+          f"{last_code}; /health {health}; K2 by mode {by_mode}; streams equal to phase 7's "
+          f"mode (a) {equal}/16")
+    check(all(code == 200 and len(out["tokens"]) == SPEC_NEW for code, out in replies),
+          f"http: a request failed: {[(c, o.get('error')) for c, o in replies if c != 200]}")
+    check(bad_code == 400, f"http: the malformed body got {bad_code}, not 400")
+    check(last_code == 200 and len(last["tokens"]) == SPEC_NEW,
+          f"http: the request after the malformed one got {last_code}")
+    check(health == {"status": "ok", "slots_free": 8, "queued": 0}, f"http: /health {health}")
+    check(not engine._thread.is_alive() and server.driver is None,
+          "http: stop() did not join the engine thread")
+    check(set(by_mode) == {"paged_int8"}, f"http: K2 launched by cache mode {by_mode}")
+    del server, params
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, tokens_per_sec=tokens / wall, ttft_p50_s=p50, ttft_p90_s=p90)
+
+
+def run_speculation(cfg: ModelConfig, bundle: TokenizerBundle, rows, bf16_serving: dict,
+                    smi: str) -> dict:
+    """Phase 19: (a) fp32 speculation and beams, (b) bf16 speculative
+    serving, (c) the HTTP engine, each part's seconds printed."""
+    print(f"phase 19 on {smi}: gamma {SPEC_GAMMA}, {SPEC_NEW} new tokens, greedy")
+    fp32, a_s = seconds(lambda: run_spec_fp32(cfg, bundle, rows))
+    print(f"  (a): {a_s:.1f} s")
+    serving, b_s = seconds(lambda: run_spec_serving(cfg, bundle, bf16_serving))
+    print(f"  (b) and (c): {b_s:.1f} s")
+    return dict(fp32=fp32, serving=serving)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -2381,6 +2969,8 @@ def main() -> int:
         print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s")
         _, phase_s = seconds(lambda: run_lora(os.path.join(tmp, "lora"), shard, smi))
         print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s")
+    _, phase_s = seconds(lambda: run_speculation(cfg, bundle, rows, bf16_serving, smi))
+    print(f"phase 19 (speculative decoding, beam search, the HTTP engine): {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

@@ -155,8 +155,10 @@ def batch_infer_continuous(
     prefill_chunk: Optional[int] = None,
     draft_cfg=None,
     draft_params=None,
+    gamma: int = 4,
+    spec_rounds: int = 2,
     prefix_cache: bool = False,
-    spec_mode: Optional[str] = None,
+    spec_mode: Optional[str] = None,  # "ngram": draft-free host proposals
     kv_block_size: Optional[int] = None,
     kv_pool_blocks: Optional[int] = None,
     admit_batch: Optional[int] = None,
@@ -167,6 +169,7 @@ def batch_infer_continuous(
     decode_chunk: int = 8,
     decode_chunk_drain: Optional[int] = None,
     drain_max_active: Optional[int] = None,
+    allow_divergent_spec: bool = False,  # opt into sub-fp32 speculation
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> List[Dict]:
@@ -177,9 +180,9 @@ def batch_infer_continuous(
 
     prefix_cache: the longest common token prefix of all prompts (every
     LLark prompt opens with the same conversation header) is prefilled
-    once and admission computes only each request's suffix. Speculative
-    decoding (`draft_cfg`, `spec_mode`) comes with a later slice and
-    raises."""
+    once and admission computes only each request's suffix. `draft_cfg` /
+    `draft_params` or `spec_mode="ngram"` serve speculatively
+    (inference/speculative.py)."""
     from llark_tpu_torch.generate import GenerationConfig
     from llark_tpu_torch.inference.server import BatchedServer, Request
 
@@ -203,6 +206,7 @@ def batch_infer_continuous(
         max_batch=max_batch, max_cache_len=max_cache_len, prompt_buckets=prompt_buckets,
         max_audio_frames=max_audio_frames, prefill_chunk=prefill_chunk,
         tokenizer=bundle.tokenizer, draft_cfg=draft_cfg, draft_params=draft_params,
+        gamma=gamma, spec_rounds=spec_rounds, allow_divergent_spec=allow_divergent_spec,
         shared_prefix_ids=shared_prefix, spec_mode=spec_mode, kv_block_size=kv_block_size,
         kv_pool_blocks=kv_pool_blocks, admit_batch=admit_batch,
         admit_min_fill=admit_min_fill, admit_max_wait_s=admit_max_wait_s,

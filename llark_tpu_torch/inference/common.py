@@ -1,7 +1,5 @@
 """Shared CLI plumbing for batch inference (counterpart of
-llark_tpu/inference/common.py). Beam search and speculative decoding come
-with later slices of the port: `--num-beams` above 1 and `--speculative`
-other than "off" parse, and raise; their tuning flags are left out."""
+llark_tpu/inference/common.py)."""
 
 from __future__ import annotations
 
@@ -32,8 +30,19 @@ def add_generation_args(p) -> None:
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--max-cache-len", type=int, default=2048)
     p.add_argument("--speculative", choices=("off", "ngram", "draft"), default="off",
-                   help="speculative decoding (a later slice of the port: "
-                        "anything but 'off' is refused)")
+                   help="speculative decoding: 'ngram' = prompt-lookup drafting (no "
+                        "extra weights), 'draft' = a small draft checkpoint "
+                        "(--draft-checkpoint-dir)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="speculative draft length per verify round")
+    p.add_argument("--allow-divergent-spec", action="store_true",
+                   help="permit --speculative below fp32: bf16 products round "
+                        "differently between the verify and decode shapes, so "
+                        "speculative output can differ from plain greedy decode. "
+                        "Without this flag, sub-fp32 speculation is refused")
+    p.add_argument("--spec-rounds", type=int, default=2,
+                   help="with --continuous-batching + --speculative draft: fused "
+                        "propose/verify rounds per decode round")
     p.add_argument("--prefix-cache", action="store_true",
                    help="with --continuous-batching: prefill the KV of the longest "
                         "common token prefix of all prompts ONCE (every LLark "
@@ -82,8 +91,10 @@ def add_generation_args(p) -> None:
     p.add_argument("--admit-max-wait-ms", type=float, default=50.0,
                    help="hysteresis deadline for --admit-min-fill")
     p.add_argument("--num-beams", type=int, default=1,
-                   help="beam search width (a later slice of the port: only 1 "
-                        "is taken)")
+                   help="beam search width (1 = greedy/sampling; the HF generate "
+                        "num_beams counterpart)")
+    p.add_argument("--draft-checkpoint-dir", default=None)
+    p.add_argument("--draft-ckpt-num", type=int, default=None)
 
 
 def apply_serving_overrides(args, cfg):
@@ -111,6 +122,9 @@ def check_serving_args(args) -> None:
     """Reject flag combinations that would otherwise be silently ignored
     (llark_tpu/inference/common.py:146-196)."""
     if getattr(args, "continuous_batching", 0):
+        spec = getattr(args, "speculative", "off")
+        if spec == "draft" and not getattr(args, "draft_checkpoint_dir", None):
+            raise SystemExit("--speculative draft requires --draft-checkpoint-dir")
         if getattr(args, "kv_block_size", None):
             if getattr(args, "prefix_cache", False) and not getattr(args, "prefill_chunk", None):
                 raise SystemExit(
@@ -150,17 +164,48 @@ def check_serving_args(args) -> None:
 
 
 def load_generator(args, bundle, cfg, params, device="cuda"):
-    """The one-at-a-time generator the flags ask for. Beam search and
-    speculative decoding come with later slices of the port and raise."""
+    """The one-at-a-time generator the flags ask for, on `device`: beam
+    search, speculative decoding (with the draft checkpoint loaded onto the
+    same device) or plain `Generator` (llark_tpu/inference/common.py:199-247)."""
     from llark_tpu_torch.generate import Generator
 
     if getattr(args, "num_beams", 1) > 1:
-        raise NotImplementedError("beam search comes with a later slice of the port "
-                                  "(ROADMAP.md Queue A item 6)")
+        from llark_tpu_torch.inference.beam import BeamSearchConfig, BeamSearcher
+
+        return BeamSearcher(
+            cfg, params, audio_patch_id=bundle.audio_patch_id,
+            beam_cfg=BeamSearchConfig(num_beams=args.num_beams,
+                                      max_new_tokens=args.max_new_tokens, stop_text="###"),
+            max_cache_len=args.max_cache_len, device=device,
+        )
     if getattr(args, "speculative", "off") != "off":
-        raise NotImplementedError("speculative decoding comes with a later slice of the port "
-                                  "(ROADMAP.md Queue A item 6)")
+        from llark_tpu_torch.inference.speculative import SpeculativeGenerator
+
+        if args.speculative == "draft" and not getattr(args, "draft_checkpoint_dir", None):
+            raise SystemExit("--speculative draft requires --draft-checkpoint-dir")
+        draft_cfg, draft_params = load_draft(args, device)
+        return SpeculativeGenerator(
+            cfg, params, audio_patch_id=bundle.audio_patch_id, gen_cfg=make_gen_cfg(args),
+            max_cache_len=args.max_cache_len, draft_cfg=draft_cfg, draft_params=draft_params,
+            gamma=args.gamma, allow_divergent=getattr(args, "allow_divergent_spec", False),
+            device=device,
+        )
     return Generator(
         cfg, params, audio_patch_id=bundle.audio_patch_id, gen_cfg=make_gen_cfg(args),
         max_cache_len=args.max_cache_len, device=device,
     )
+
+
+def load_draft(args, device="cuda"):
+    """(draft_cfg, draft_params) on `device` for --speculative draft, else
+    (None, None) (llark_tpu/inference/common.py:250-261)."""
+    if getattr(args, "speculative", "off") != "draft":
+        return None, None
+    if not getattr(args, "draft_checkpoint_dir", None):
+        raise SystemExit("--speculative draft requires --draft-checkpoint-dir")
+    from llark_tpu_torch.models.utils import load_pretrained_model
+
+    draft_cfg, draft_params, _ = load_pretrained_model(
+        args.draft_checkpoint_dir, getattr(args, "draft_ckpt_num", None), device
+    )
+    return draft_cfg, draft_params

@@ -29,6 +29,7 @@ from llark_tpu_torch.inference.common import (
     add_generation_args,
     apply_serving_overrides,
     check_serving_args,
+    load_draft,
     load_generator,
     make_gen_cfg,
     write_results_csv,
@@ -82,9 +83,6 @@ def main(argv=None):
                         "PyTorch path)")
     args = p.parse_args(argv)
     check_serving_args(args)
-    if args.speculative != "off":
-        raise NotImplementedError("speculative decoding comes with a later slice of the port "
-                                  "(ROADMAP.md Queue A item 6)")
 
     cfg, params, bundle = load_pretrained_model(args.checkpoint_dir, args.ckpt_num, args.device)
     cfg = apply_serving_overrides(args, cfg)
@@ -92,6 +90,7 @@ def main(argv=None):
     rows = list(iter_eval_rows(urls, args.max_samples))
     log.info("running inference over %d rows", len(rows))
     if args.continuous_batching:
+        draft_cfg, draft_params = load_draft(args, args.device)
         results = batch_infer_continuous(
             rows, cfg, params, bundle,
             gen_cfg=make_gen_cfg(args),
@@ -99,6 +98,12 @@ def main(argv=None):
             max_cache_len=args.max_cache_len,
             max_audio_frames=args.max_audio_frames or 256,
             prefill_chunk=args.prefill_chunk,
+            draft_cfg=draft_cfg,
+            draft_params=draft_params,
+            gamma=args.gamma,
+            spec_rounds=args.spec_rounds,
+            spec_mode="ngram" if args.speculative == "ngram" else None,
+            allow_divergent_spec=args.allow_divergent_spec,
             prompt_override=args.prompt,
             prefix_cache=args.prefix_cache,
             kv_block_size=args.kv_block_size,

@@ -19,14 +19,22 @@ Cache modes: dense or paged (`kv_block_size`), bf16 or int8
 pool when paged) and prefix caching (`shared_prefix_ids`). Every decode
 step runs the flash-decode kernel in the cache's mode.
 
+Speculative serving (inference/speculative.py): with a draft model
+(`draft_cfg`, `draft_params`) each decode round is `spec_rounds` fused
+propose -> verify -> accept rounds with one host read at their end; with
+`spec_mode="ngram"` the host proposes from each row's history (or
+`spec_proposer`) and one target forward over [last, d_1..d_gamma]
+verifies every slot's window. Verify windows run the flash-decode kernel
+at Sq = gamma + 1 in the cache's mode; the draft's cache is dense.
+
 The caches are written in place, so where the JAX engine hands donated
 buffers between its programs, this one shares tensors: the persistent
 cache, a paged admission's cache dict and the decode rounds interleaved
 with chunked admission all see the same pool tensors, and each write lands
 before the next forward reads it.
 
-Not in this slice of the port: speculative decoding (`draft_cfg`,
-`spec_mode`) and mesh serving (`mesh`) raise NotImplementedError.
+Not in this slice of the port: mesh serving (`mesh`) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,6 +63,12 @@ from llark_tpu_torch.generate import (
     suffix_prefill,
 )
 from llark_tpu_torch.inference.paged import BlockAllocator, insert_blocks
+from llark_tpu_torch.inference.speculative import (
+    check_spec_dtype,
+    make_fused_rounds_fn,
+    ngram_propose,
+    verify,
+)
 from llark_tpu_torch.models.decoder import (
     CACHE_TENSORS,
     Params,
@@ -106,11 +120,17 @@ class BatchedServer:
         tokenizer=None,
         draft_cfg: Optional[ModelConfig] = None,
         draft_params=None,
+        gamma: int = 4,
+        spec_rounds: int = 2,
         shared_prefix_ids: Optional[np.ndarray] = None,
         spec_mode: Optional[str] = None,
+        spec_proposer=None,
+        ngram_max_k: int = 3,
+        spec_force_accept: Optional[float] = None,
         kv_block_size: Optional[int] = None,
         kv_pool_blocks: Optional[int] = None,
         admit_batch: Optional[int] = None,
+        allow_divergent_spec: bool = False,
         admit_min_fill: int = 1,
         admit_max_wait_s: float = 0.05,
         admit_reorder: bool = False,
@@ -119,11 +139,6 @@ class BatchedServer:
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
-        if draft_cfg is not None or draft_params is not None or spec_mode is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_cfg, spec_mode) comes with the "
-                "speculative-decoding slice of the port"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving comes with the multi-card serving slice of the port"
@@ -267,6 +282,79 @@ class BatchedServer:
                     f"[1, decode_chunk={decode_chunk}] (capacity headroom is "
                     "provisioned for the full chunk)"
                 )
+            if spec_mode is not None or draft_cfg is not None:
+                # speculative rounds replace plain decode rounds entirely
+                log.warning(
+                    "decode_chunk_drain is inert under speculation: propose/verify "
+                    "rounds replace plain decode rounds, so the short drain round "
+                    "never runs"
+                )
+
+        # speculative serving. bf16 speculation can emit other text than
+        # plain decode (verify and decode shapes round differently), so
+        # below fp32 it needs an explicit opt-in; a caller that forces
+        # acceptance (spec_force_accept) has declared its tokens meaningless
+        if (draft_cfg is None) != (draft_params is None):
+            raise ValueError("draft_cfg and draft_params must be given together")
+        if spec_mode is not None or draft_cfg is not None:
+            check_spec_dtype(cfg, allow_divergent_spec or spec_force_accept is not None)
+        if spec_mode is not None:
+            if spec_mode != "ngram":
+                raise ValueError(f"unknown spec_mode {spec_mode!r}")
+            if draft_cfg is not None:
+                raise ValueError(
+                    "spec_mode='ngram' and a draft model are mutually exclusive "
+                    "(pick one proposal source)"
+                )
+        self.gamma = int(gamma)
+        self.spec_rounds = int(spec_rounds)
+        if draft_cfg is not None:
+            if draft_params["embed"].device.type != self.device.type:
+                raise ValueError(
+                    f"draft_params live on {draft_params['embed'].device}, the server "
+                    f"on {self.device}"
+                )
+            if draft_cfg.mm_hidden_size != cfg.mm_hidden_size:
+                # admission feeds ONE audio buffer to both prefills
+                raise ValueError(
+                    f"draft mm_hidden_size {draft_cfg.mm_hidden_size} != target "
+                    f"{cfg.mm_hidden_size}"
+                )
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target {cfg.vocab_size} "
+                    "(proposals are target-vocab ids)"
+                )
+            if draft_cfg.use_flash_decode is None:
+                draft_cfg = dataclasses.replace(draft_cfg, use_flash_decode=True)
+            # device rows may overshoot while the host decides to stop them:
+            # the fused rounds clamp their positions here, in bounds
+            self._spec_max_pos = max_cache_len - 1 - self.gamma
+            self._spec = make_fused_rounds_fn(
+                cfg, draft_cfg, self.gen_cfg, self.gamma, self.spec_rounds, self._spec_max_pos
+            )
+            self._d_cache: Optional[Params] = None
+            self._d_prefix_cache: Optional[Params] = None
+            self._prev_tok = np.zeros((max_batch,), np.int64)
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        # draft-free speculation: host proposals (prompt lookup, or any
+        # `spec_proposer(history, gamma) -> [gamma] ids`) verified by ONE
+        # target forward over [last, d_1..d_gamma] per round; the host reads
+        # every round, since proposals need the newly accepted tokens
+        self.spec_mode = spec_mode
+        self.spec_proposer = spec_proposer
+        self.ngram_max_k = int(ngram_max_k)
+        if spec_mode is not None and spec_proposer is None:
+            self.spec_proposer = lambda hist, g: ngram_propose(hist, g, self.ngram_max_k)
+        self.spec_accepted = 0  # host-round acceptance counters (stats())
+        self.spec_proposed = 0
+        # for measurements only: override each verify result with a host-
+        # drawn acceptance of this probability per proposal. The device work
+        # is unchanged (same forward, same writes); the tokens are not
+        # meaningful under it.
+        self.spec_force_accept = spec_force_accept
+        self._force_rng = np.random.RandomState(1234)
 
         # paged KV (kv_block_size set): the persistent cache is a physical
         # block POOL + per-slot block tables instead of max_batch dense
@@ -294,6 +382,8 @@ class BatchedServer:
                     f"kernel's maximum {cap} for {cfg.num_kv_heads} KV heads x "
                     f"head_dim {cfg.head_dim}"
                 )
+            if (spec_mode is not None or draft_cfg is not None) and self.gamma + 1 > kv_block_size:
+                raise ValueError("gamma+1 must fit in one KV block")
             self._max_blocks = max_cache_len // kv_block_size
             if kv_pool_blocks is None:
                 # conservative default: full dense capacity (callers size the
@@ -361,23 +451,34 @@ class BatchedServer:
         return self._tensor(self._prefix_ids[None, : self._prefix_len], torch.int64)
 
     def _ensure_prefix_cache(self) -> None:
-        """Run the one-time b=1 dense prefix prefill (dense prefix caching;
-        the paged prefix lives in shared pool blocks instead)."""
-        if self._prefix_ids is not None and not self.paged and self._prefix_cache is None:
+        """Run the one-time b=1 prefix prefills: the target's for dense
+        prefix caching (the paged prefix lives in shared pool blocks), and
+        the draft's, whose cache is dense in both modes, over the
+        block-aligned head (the sub-block remainder rides each suffix)."""
+        if self._prefix_ids is None:
+            return
+        if not self.paged and self._prefix_cache is None:
             self._prefix_cache = prefix_cache(self.cfg, self.params, self._prefix_tensor())
+        if self.draft_cfg is not None and self._d_prefix_cache is None:
+            self._d_prefix_cache = prefix_cache(
+                self.draft_cfg, self.draft_params, self._prefix_tensor()
+            )
 
-    def _seeded_admission_cache(self, total: int) -> Params:
-        """Admission cache of length `total` with the prefix KV copied into
-        every row (cache index = prefix length)."""
+    def _seeded_admission_cache(self, total: int, draft: bool = False) -> Params:
+        """Admission cache of length `total` with the prefix KV (the
+        target's, or with `draft` the draft's) copied into every row
+        (cache index = prefix length)."""
         if total > self.max_cache_len:
             raise ValueError(
                 f"prefix ({self._prefix_len}) + bucket ({total - self._prefix_len}) "
                 f"exceeds max_cache_len {self.max_cache_len}"
             )
-        cache = init_kv_cache(self.cfg, self.admit_batch, total, device=self.device)
+        cfg = self.draft_cfg if draft else self.cfg
+        prefix = self._d_prefix_cache if draft else self._prefix_cache
+        cache = init_kv_cache(cfg, self.admit_batch, total, device=self.device)
         for key in CACHE_TENSORS:
             if key in cache:
-                p = self._prefix_cache[key]  # [L, 1, Hkv, P(, D)]
+                p = prefix[key]  # [L, 1, Hkv, P(, D)]
                 cache[key][:, :, :, : p.shape[3]] = p
         cache["index"] = self._prefix_len
         return cache
@@ -431,7 +532,13 @@ class BatchedServer:
     def _headroom(self) -> int:
         """Cache positions a live row may write past its stop point before
         the host truncates it (serve()'s capacity check and the paged block
-        budget)."""
+        budget): a fused draft pass can run a whole pass past it and its
+        windows reach gamma beyond; a host round absorbs every round, but
+        its window reaches gamma + 1 past the last emitted position."""
+        if self.draft_cfg is not None:
+            return 2 * self.spec_rounds * (self.gamma + 1) + self.gamma + 1
+        if self.spec_mode is not None:
+            return 2 * (self.gamma + 1)
         return self.decode_chunk
 
     def _block_budget(self, suffix_len: int, bucket: int) -> int:
@@ -513,7 +620,9 @@ class BatchedServer:
     def _admit(self) -> None:
         """Prefill queued requests into free slots. Same-bucket requests are
         prefilled together in ONE batched forward (a burst of k arrivals
-        costs one prefill, not k); see _select_admit_group for the order."""
+        costs one prefill, not k); see _select_admit_group for the order.
+        With a draft model its dense cache is prefilled alongside (one-shot,
+        or over the seeded prefix) and spliced into the same slots."""
         self._ensure_prefix_cache()
         self._ensure_paged_prefix()
         while self._queue and self._free_slots() and self._admit_ready():
@@ -603,6 +712,22 @@ class BatchedServer:
                         self.audio_patch_id, head_bucket,
                     )
                 firsts = _sample(logits, self.gen_cfg, self._rng).cpu().numpy()
+                if self.draft_cfg is not None:
+                    if self._prefix_ids is not None:
+                        _, d_new_cache = suffix_prefill(
+                            self.draft_cfg, self.draft_params, t_ids, t_plens, t_audio, t_fcnt,
+                            self.audio_patch_id,
+                            self._seeded_admission_cache(self._prefix_len + head_bucket, True),
+                        )
+                    else:
+                        _, d_new_cache = prefill(
+                            self.draft_cfg, self.draft_params, t_ids, t_plens, t_audio, t_fcnt,
+                            self.audio_patch_id, head_bucket,
+                        )
+                    if self._d_cache is None:
+                        self._d_cache = init_kv_cache(
+                            self.draft_cfg, self.max_batch, self.max_cache_len, device=self.device
+                        )
                 if self._cache is None:
                     if self.paged:
                         self._ensure_pool_cache()
@@ -636,6 +761,9 @@ class BatchedServer:
                         insert_blocks(self._cache, new_cache, j, blocks[:bucket_blocks])
                 else:
                     self._insert_row(self._cache, new_cache, j, slot)
+                if self.draft_cfg is not None:
+                    self._insert_row(self._d_cache, d_new_cache, j, slot)
+                    self._prev_tok[slot] = int(ids[j, plens[j] - 1])
                 req.first_token_at = now
                 self._slot_req[slot] = req
                 self._write_pos[slot] = self._prefix_len + plens[j]
@@ -739,7 +867,12 @@ class BatchedServer:
     def _decode_round(self) -> None:
         """One chunked decode over all slots (inactive rows write to the
         last `decode_chunk` cache positions, which live rows never attend:
-        serve() caps prompt + max_new at max_cache_len - decode_chunk)."""
+        serve() caps prompt + max_new at max_cache_len - decode_chunk); a
+        speculative round instead where speculation is on."""
+        if self.draft_cfg is not None:
+            return self._spec_round()
+        if self.spec_mode is not None:
+            return self._hostspec_round()
         active = self._active()
         if not active:
             return
@@ -766,6 +899,91 @@ class BatchedServer:
                 # row still live: the cache holds all chunk tokens
                 self._write_pos[i] += chunk
                 self._tokens_in_flight[i] = int(toks[i, -1])
+
+    def _hostspec_round(self) -> None:
+        """One draft-free speculative round (llark_tpu/inference/
+        server.py:1236-1284): host proposals verified by ONE target forward
+        over every slot's [last, d_1..d_gamma] window; 1..gamma+1 tokens per
+        live slot, one host read."""
+        active = self._active()
+        if not active:
+            return
+        self._refresh_tables()
+        g = self.gamma
+        tokens_in = np.zeros((self.max_batch, g + 1), np.int64)
+        proposals = np.zeros((self.max_batch, g), np.int64)
+        # parked rows write into the never-attended tail region
+        pos = np.full((self.max_batch,), self.max_cache_len - (g + 1), np.int32)
+        for i in active:
+            req = self._slot_req[i]
+            hist = list(map(int, req.input_ids)) + req.tokens
+            proposals[i] = np.asarray(self.spec_proposer(hist, g), np.int64)
+            tokens_in[i, 0] = self._tokens_in_flight[i]
+            tokens_in[i, 1:] = proposals[i]
+            pos[i] = self._write_pos[i]
+        target, n_emit, self._cache = verify(
+            self.cfg, self.gen_cfg, self.params, self._tensor(tokens_in, torch.int64),
+            self._tensor(proposals, torch.int64), self._cache, self._tensor(pos, torch.int32),
+            self._rng,
+        )
+        target, n_emit = target.cpu().numpy(), n_emit.cpu().numpy()  # the round's only read
+        for i in active:
+            n = int(n_emit[i])
+            if self.spec_force_accept is not None:
+                n = 1
+                while n <= g and self._force_rng.random_sample() < self.spec_force_accept:
+                    n += 1
+            self.spec_accepted += n - 1
+            self.spec_proposed += g
+            for j in range(n):
+                if self._absorb(i, int(target[i, j])):
+                    self._finish(i)
+                    break
+            else:
+                self._write_pos[i] += n
+                self._tokens_in_flight[i] = int(target[i, n - 1])
+
+    def _spec_round(self) -> None:
+        """One fused speculative pass over all slots (llark_tpu/inference/
+        server.py:1286-1360): spec_rounds propose -> verify -> accept ->
+        advance rounds enqueued back to back, one host read at the end.
+        Inactive rows park near the cache tail; the fused rounds' position
+        clamp keeps their draft and target writes in bounds."""
+        active = self._active()
+        if not active:
+            return
+        self._refresh_tables()
+        prev = np.zeros((self.max_batch,), np.int64)
+        last = np.zeros((self.max_batch,), np.int64)
+        pos = np.full((self.max_batch,), self._spec_max_pos - self.spec_rounds * (self.gamma + 1),
+                      np.int64)
+        for i in active:
+            prev[i] = self._prev_tok[i]
+            last[i] = self._tokens_in_flight[i]
+            pos[i] = self._write_pos[i]
+        toks, n_emit, self._cache, self._d_cache, prev_o, last_o, pos_o = self._spec(
+            self.params, self.draft_params, self._cache, self._d_cache,
+            self._tensor(prev, torch.int64), self._tensor(last, torch.int64),
+            self._tensor(pos, torch.int64), self._rng,
+        )
+        # one read of all five outputs
+        toks, n_emit, prev_o, last_o, pos_o = (
+            t.cpu().numpy() for t in (toks, n_emit, prev_o, last_o, pos_o)
+        )
+        for i in active:
+            finished = False
+            for r in range(self.spec_rounds):
+                for j in range(int(n_emit[i, r])):
+                    if self._absorb(i, int(toks[i, r, j])):
+                        self._finish(i)
+                        finished = True
+                        break
+                if finished:
+                    break
+            if not finished:
+                self._write_pos[i] = int(pos_o[i])
+                self._prev_tok[i] = int(prev_o[i])
+                self._tokens_in_flight[i] = int(last_o[i])
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -805,10 +1023,13 @@ class BatchedServer:
         wall = max((r.finished_at or 0.0) for r in requests) - min(
             r.submitted_at for r in requests
         )
-        return {
+        out = {
             "requests": len(requests),
             "tokens": toks,
             "tokens_per_sec": toks / wall if wall > 0 else float("nan"),
             "mean_latency_s": float(np.mean(lat)) if lat else float("nan"),
             "mean_ttft_s": float(np.mean(ttft)) if ttft else float("nan"),
         }
+        if self.spec_proposed:
+            out["spec_acceptance"] = round(self.spec_accepted / self.spec_proposed, 3)
+        return out

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -220,7 +221,8 @@ def _flash_decode_cuda(q, k_cache, v_cache, *, kv_lengths, q_positions, k_scale,
     flash_decode_attention.launches += 1
     cache = "int8" if k_scale is not None else ("fp32" if q.dtype == torch.float32 else "bf16")
     mode = ("paged_" if tables is not None else "dense_") + cache
-    flash_decode_attention.launches_by_mode[mode] += 1
+    window = flash_decode_attention.launches_by_window
+    window[(mode, sq)] = window.get((mode, sq), 0) + 1
     return out
 
 
@@ -253,7 +255,9 @@ def flash_decode_attention(
     `flash_decode_attention.launches` counts kernel launches and
     `.launches_by_mode` splits them by cache mode ("dense_bf16",
     "dense_int8", "paged_bf16", "paged_int8", and "dense_fp32",
-    "paged_fp32" for an fp32 cache)."""
+    "paged_fp32" for an fp32 cache), summed from `.launches_by_window`,
+    which splits them by (cache mode, Sq), so that a speculative verify
+    window's launches count apart from single-query steps'."""
     if q.device.type == "cpu":
         return _flash_decode_plain(
             q, k_cache, v_cache, kv_lengths=kv_lengths, q_positions=q_positions,
@@ -265,16 +269,34 @@ def flash_decode_attention(
     )
 
 
+_CACHE_MODES = ("dense_bf16", "dense_int8", "paged_bf16", "paged_int8", "dense_fp32", "paged_fp32")
+
+
+class _LaunchesByMode(Mapping):
+    """Cache mode -> launches, read from the (cache mode, Sq) counts."""
+
+    def __getitem__(self, mode: str) -> int:
+        if mode not in _CACHE_MODES:
+            raise KeyError(mode)
+        return sum(n for (m, _), n in flash_decode_attention.launches_by_window.items() if m == mode)
+
+    def __iter__(self):
+        return iter(_CACHE_MODES)
+
+    def __len__(self) -> int:
+        return len(_CACHE_MODES)
+
+
 flash_decode_attention.launches = 0
-flash_decode_attention.launches_by_mode = dict.fromkeys(
-    ("dense_bf16", "dense_int8", "paged_bf16", "paged_int8", "dense_fp32", "paged_fp32"), 0)
+flash_decode_attention.launches_by_window = {}  # (cache mode, Sq) -> launches
+flash_decode_attention.launches_by_mode = _LaunchesByMode()
 
 
 def reset_launch_counts() -> None:
-    """Set the flash-decode kernel's launch counts (total and by mode) to 0."""
+    """Set the flash-decode kernel's launch counts (total, and by cache
+    mode and Sq) to 0."""
     flash_decode_attention.launches = 0
-    for mode in flash_decode_attention.launches_by_mode:
-        flash_decode_attention.launches_by_mode[mode] = 0
+    flash_decode_attention.launches_by_window.clear()
 
 
 def flash_decode_kernel_takes(head_dim: int) -> bool:

@@ -49,6 +49,7 @@ BWD_ROW_FLOOR = 1e-2
 BWD_TOL = 1.6e-2
 LSE_TOL = 1e-4
 WQ_ROW_TOL = {"int8_matmul": 4e-3, "int4_matmul": 8e-3}
+WINDOW_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -962,3 +963,100 @@ def test_from_webdataset_on_the_card(dev, tmp_path, mode):
             gen_cfg=gen_cfg, max_batch=2, max_cache_len=256, kv_block_size=16,
             prefill_chunk=64, device=dev)
     assert got == [{k: str(v) for k, v in r.items()} for r in want]
+
+
+# ---------------------------------------------------------------------------
+# speculative verify windows and beam reorders on the card
+# ---------------------------------------------------------------------------
+
+
+def _window_model(dev, quant):
+    """A 2-layer bf16 Llama at the flash-decode kernel's head_dim (128),
+    GQA 2:1, flash decode on, and a batch of 3 rows' KV history: a dense
+    bf16 cache, or (quant) a paged int8 pool of 16-position blocks whose
+    tables are scattered over the pool."""
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models.decoder import init_kv_cache, init_paged_kv_cache
+    from llark_tpu_torch.models.fusion import init_llark_params
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", param_dtype="bfloat16", hidden_size=256,
+                           intermediate_size=512, num_heads=2, num_kv_heads=1,
+                           use_flash_decode=True, kv_cache_quant=quant)
+    params = init_llark_params(cfg, seed=5, device=dev)
+    rng = np.random.RandomState(6)
+    if quant:
+        n_blocks, max_blocks = 3 * 4 + 3, 4
+        cache = init_paged_kv_cache(cfg, 3, n_blocks, 16, max_blocks, device=dev)
+        perm = rng.permutation(np.arange(3, n_blocks))[: 3 * max_blocks]
+        cache["block_tables"] = torch.from_numpy(
+            perm.reshape(3, max_blocks).astype(np.int32)).to(dev)
+    else:
+        cache = init_kv_cache(cfg, 3, 64, device=dev)
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.randn(*cache[name].shape).astype(np.float32)).to(dev)
+        if quant:
+            cache[name], cache[name + "_scale"] = _quantize_kv(x)
+        else:
+            cache[name] = x.to(torch.bfloat16)
+    return cfg, params, cache
+
+
+def _clone_cache(cache):
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense_bf16", "paged_int8"])
+def test_verify_window_through_k2_matches_sequential_steps(dev, quant):
+    # a gamma = 4 verify window over [last, d_1..d_4] launches K2 once a
+    # layer at Sq = 5 and must give the logits of five single-token steps
+    # through K2; then a second window at pos + 2 (one proposal accepted)
+    # overwrites the rejected positions before any query attends them, so
+    # it must give the logits of steps that never saw d_2..d_4. Row 1's
+    # windows cross a 16-position block boundary. Held within WINDOW_TOL
+    # relative to max.
+    from llark_tpu_torch.generate import decode_step
+    from llark_tpu_torch.models.decoder import decoder_forward
+
+    cfg, params, cache = _window_model(dev, quant)
+    mode = "paged_int8" if quant else "dense_bf16"
+    rng = np.random.RandomState(7)
+    first = torch.from_numpy(rng.randint(4, 200, (3, 5))).to(dev)
+    second = torch.from_numpy(rng.randint(4, 200, (3, 5))).to(dev)
+    pos = torch.tensor([5, 14, 30], dtype=torch.int32, device=dev)
+    windows, steps = _clone_cache(cache), _clone_cache(cache)
+    with torch.inference_mode():
+        tdec.reset_launch_counts()
+        w1 = decoder_forward(cfg, params, input_ids=first, kv_cache=windows,
+                             cache_positions=pos)[0]
+        w2 = decoder_forward(cfg, params, input_ids=second, kv_cache=windows,
+                             cache_positions=pos + 2)[0]
+        assert tdec.flash_decode_attention.launches_by_window == {(mode, 5): 2 * cfg.num_layers}
+        tdec.reset_launch_counts()
+        s1 = [decode_step(cfg, params, first[:, j], steps, pos + j)[0] for j in range(5)]
+        s2 = [decode_step(cfg, params, tok, steps, pos + 2 + j)[0]
+              for j, tok in enumerate(second.t())]
+        assert tdec.flash_decode_attention.launches_by_window == {(mode, 1): 10 * cfg.num_layers}
+    torch.cuda.synchronize()
+    for window, seq in ((w1, s1), (w2, s2)):
+        assert bool(torch.isfinite(window).all())
+        assert _rel_to_max(window, torch.stack(seq, dim=1)) <= WINDOW_TOL
+
+
+def test_beam_gather_of_int8_cache_leaves_matches_the_cpu(dev):
+    # the beam reorder on the card: every leaf of an int8 cache, scales
+    # included, gathered by parent along the row axis, bit for bit as on
+    # the CPU
+    from llark_tpu_torch.inference.beam import gather_beams
+
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(2, 6, 2, 40, 128).astype(np.float32))
+    cache = {"index": 4}
+    (cache["k"], cache["k_scale"]), (cache["v"], cache["v_scale"]) = (_quantize_kv(x),
+                                                                      _quantize_kv(-x))
+    gidx = torch.tensor([3, 3, 0, 5, 1, 1])
+    want = gather_beams(cache, gidx)
+    got = gather_beams({k: v.to(dev) if torch.is_tensor(v) else v for k, v in cache.items()},
+                       gidx.to(dev))
+    assert got["index"] == 4
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert got[name].device.type == "cuda" and torch.equal(got[name].cpu(), want[name])

@@ -256,11 +256,10 @@ def test_out_of_slice_features_raise():
     assert tdecoder.compute_logits(tcfg, {"lm_head": wq}, hidden).dtype == torch.float32
     out = tdecoder._dense(hidden.requires_grad_(), wq, None, torch.float32)
     assert tuple(torch.autograd.grad(out.sum(), [hidden])[0].shape) == (1, 1, 64)
-    # the serving engine's speculation and mesh arguments
-    for kw in (dict(draft_cfg=tcfg, draft_params=tparams), dict(spec_mode="ngram"),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            BatchedServer(tcfg, tparams, audio_patch_id=PATCH_ID, device="cpu", **kw)
+    # the serving engine's mesh argument (speculation is held in
+    # tests/test_torch_server.py and tests/test_torch_speculative.py)
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        BatchedServer(tcfg, tparams, audio_patch_id=PATCH_ID, device="cpu", mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,11 @@ tiny models' top logits. The oracle is the JAX `Generator` (the JAX suite
 holds its server equal to it, tests/test_server.py:50), run once per
 configuration in a module fixture. Where the JAX docs allow an int8 cache
 to differ by quantization noise between one-shot and chunked admission
-(llark_tpu/inference/server.py:1060-1063), the oracle is one JAX
-`BatchedServer` run in that same mode.
+(llark_tpu/inference/server.py:1060-1063), or between a speculative verify
+window's write and single-token steps', the oracle is one JAX
+`BatchedServer` run in that same mode, speculation included. Speculative
+modes (n-gram, or a draft with other weights) hold against the same
+oracles: at fp32 speculative greedy tokens are plain greedy decode's.
 
 On the CPU the port's kernel wrappers run their plain versions; every mode
 still takes the flash-decode route (`use_flash_decode` is on in serving).
@@ -71,9 +74,21 @@ MODES = {
     # the run-of-record mode: paged int8 with direct-to-pool chunks
     "chunked_paged_int8": dict(int8=True, prefill_chunk=8, kv_block_size=8,
                                kv_pool_blocks=2 + 8),
+    # speculative serving: host n-gram rounds, or fused draft rounds with
+    # a draft of other weights (gamma 3, 2 rounds a pass)
+    "spec_ngram": dict(spec_mode="ngram", gamma=3),
+    "spec_ngram_paged": dict(spec_mode="ngram", gamma=3, kv_block_size=8,
+                             kv_pool_blocks=2 + 10),
+    "spec_ngram_paged_int8": dict(int8=True, spec_mode="ngram", gamma=3, prefill_chunk=8,
+                                  kv_block_size=8, kv_pool_blocks=2 + 10),
+    "spec_draft": dict(draft=True, gamma=3, spec_rounds=2),
+    "spec_draft_prefix": dict(draft=True, gamma=3, spec_rounds=2, prefix=True),
+    "spec_draft_paged_prefix": dict(draft=True, gamma=3, spec_rounds=2, prefix=True,
+                                    prefill_chunk=8, kv_block_size=8, kv_pool_blocks=2 + 14),
+    "spec_draft_int8": dict(int8=True, draft=True, gamma=3, spec_rounds=2),
 }
 # modes whose oracle is a JAX BatchedServer run in the same mode
-SERVER_ORACLE = ("chunked_paged_int8",)
+SERVER_ORACLE = ("chunked_paged_int8", "spec_ngram_paged_int8", "spec_draft_int8")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,6 +130,15 @@ def _setup(name):
             (jb, tb), header, reqs)
 
 
+@functools.lru_cache(maxsize=None)
+def _draft(name):
+    """(JAX params, port params) of a draft of the config's shape with
+    other weights (seed 9)."""
+    tcfg = _setup(name)[2]
+    tree = jax.tree.map(lambda t: t.numpy(), init_llark_params(tcfg, seed=9, device="cpu"))
+    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, tcfg, "cpu")
+
+
 def _gen_cfg(module, **kw):
     return module.GenerationConfig(max_new_tokens=MAX_NEW, temperature=0.0, stop_text="",
                                    decode_chunk=5, **kw)
@@ -141,18 +165,21 @@ def _patch_id(name):
     return _setup(name)[4][1].audio_patch_id
 
 
-def _server_kw(name, mode):
+def _server_kw(name, mode, jax_side=False):
     kw = dict(SERVER, **MODES[mode])
     int8 = kw.pop("int8", False)
     if kw.pop("prefix", False):
         kw["shared_prefix_ids"] = _setup(name)[5]
+    if kw.pop("draft", False):
+        cfg = _setup(name)[0 if jax_side else 2]
+        kw.update(draft_cfg=cfg, draft_params=_draft(name)[0 if jax_side else 1])
     return int8, kw
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_server_tokens(name, mode):
     jcfg, jparams, _, _, _, _, reqs = _setup(name)
-    int8, kw = _server_kw(name, mode)
+    int8, kw = _server_kw(name, mode, jax_side=True)
     server = jserver.BatchedServer(
         dataclasses.replace(jcfg, kv_cache_quant=int8), jparams, _patch_id(name),
         _gen_cfg(jgen), **kw)
@@ -253,11 +280,24 @@ def test_stop_text_frees_slot():
 
 @pytest.mark.parametrize("arg", ["draft", "spec_mode", "mesh"])
 def test_speculation_and_mesh_raise(arg):
-    _, _, tcfg, tparams, _, _, _ = _setup("llama_gqa")
-    kw = {"draft": dict(draft_cfg=tcfg, draft_params=tparams), "spec_mode": dict(spec_mode="ngram"),
-          "mesh": dict(mesh=object())}[arg]
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    # speculation below fp32 is refused without the opt-in, as the JAX
+    # package refuses it, and taken with it; mesh serving is a later slice
+    jcfg, jparams, tcfg, tparams, _, _, _ = _setup("llama_gqa")
+    if arg == "mesh":
+        with pytest.raises(NotImplementedError, match="slice of the port"):
+            BatchedServer(tcfg, tparams, _patch_id("llama_gqa"), device="cpu", mesh=object())
+        return
+    tcfg, jcfg = (dataclasses.replace(c, dtype="bfloat16") for c in (tcfg, jcfg))
+    kw = {"draft": dict(draft_cfg=tcfg, draft_params=tparams),
+          "spec_mode": dict(spec_mode="ngram")}[arg]
+    jkw = dict(kw, draft_cfg=jcfg, draft_params=jparams) if arg == "draft" else kw
+    with pytest.raises(ValueError, match="allow-divergent-spec"):
+        jserver.BatchedServer(jcfg, jparams, _patch_id("llama_gqa"), **jkw)
+    with pytest.raises(ValueError, match="allow-divergent-spec"):
         BatchedServer(tcfg, tparams, _patch_id("llama_gqa"), device="cpu", **kw)
+    server = BatchedServer(tcfg, tparams, _patch_id("llama_gqa"), device="cpu",
+                           allow_divergent_spec=True, **kw)
+    assert server._headroom() == (2 * 2 * 5 + 5 if arg == "draft" else 2 * 5)
 
 
 def test_block_allocator_matches_jax():

@@ -24,6 +24,7 @@ from llark_tpu import infer as jinfer
 from llark_tpu.config import ModelConfig as JaxConfig
 from llark_tpu.data.shards import expand_url_to_file_list as jexpand
 from llark_tpu.dataset_utils import wds_key_to_original_id as jkey
+from llark_tpu.inference import beam as jbeam
 from llark_tpu.inference import from_webdataset as jwds
 from llark_tpu.tokenization import TokenizerBundle as JBundle
 from llark_tpu.tokenization import WordTokenizer as JWordTokenizer
@@ -33,6 +34,8 @@ from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, T
 from llark_tpu_torch.data.webdataset import TarShardWriter
 from llark_tpu_torch.dataset_utils import wds_key_to_original_id
 from llark_tpu_torch.inference import from_webdataset
+from llark_tpu_torch.inference.beam import BeamSearchConfig, BeamSearcher
+from llark_tpu_torch.inference.speculative import SpeculativeGenerator
 from llark_tpu_torch.models.utils import load_pretrained_model
 from llark_tpu_torch.train.train import train
 
@@ -103,7 +106,8 @@ def test_iter_eval_rows_matches_jax(tmp_path, max_samples):
 def run_dir(tmp_path_factory):
     """A run directory of the port's train() (tiny fp32 model, one step),
     an eval shard pattern, and the JAX package's greedy rows for the
-    shard's samples on the same numpy parameters."""
+    shard's samples on the same numpy parameters (and its 2-beam rows,
+    under the key "beams")."""
     root = tmp_path_factory.mktemp("wds")
     writer = TarShardWriter(str(root / "mir-train-%05d.tar"), max_count=10)
     rng = np.random.RandomState(6)
@@ -127,13 +131,18 @@ def run_dir(tmp_path_factory):
                    else jnp.asarray(v.numpy())) for k, v in params.items()}
     jgen_cfg = jgen.GenerationConfig(max_new_tokens=MAX_NEW, temperature=0.0, stop_text="###")
     generator = jgen.Generator(jcfg, jparams, bundle.audio_patch_id, jgen_cfg, max_cache_len=256)
+    searcher = jbeam.BeamSearcher(
+        jcfg, jparams, bundle.audio_patch_id,
+        jbeam.BeamSearchConfig(num_beams=2, max_new_tokens=MAX_NEW, stop_text="###"),
+        max_cache_len=256)
     jax_rows = {}
-    for prompt in (None, "Describe the audio."):
+    for prompt, gen in ((None, generator), ("Describe the audio.", generator), ("beams", searcher)):
         # the word-level tokenizer interns words as it meets them: each run
         # starts from the saved vocabulary, as each CLI run does
         jbundle = JBundle.from_tokenizer(JWordTokenizer.from_dict(bundle.tokenizer.to_dict()),
                                          bundle.model_max_length)
-        jax_rows[prompt] = jinfer.batch_infer(rows, generator, jbundle, prompt_override=prompt)
+        jax_rows[prompt] = jinfer.batch_infer(rows, gen, jbundle,
+                                              prompt_override=None if prompt == "beams" else prompt)
     return run, pattern, jax_rows
 
 
@@ -193,8 +202,30 @@ def test_cli_rows_match_the_loaded_model_and_jax(run_dir, tmp_path, run_name):
 
 @pytest.mark.parametrize("flags", [["--speculative", "ngram"], ["--num-beams", "2"]])
 def test_cli_refuses_what_the_port_does_not_run(run_dir, tmp_path, flags):
-    run, pattern, _ = run_dir
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        from_webdataset.main(["--checkpoint-dir", str(run), "--input", pattern, "--output",
-                              str(tmp_path / "out.csv"), "--device", "cpu", *flags])
-    assert not (tmp_path / "out.csv").exists()
+    # the CSV rows of n-gram speculation and of beam search equal the
+    # loaded model's through the same generator, and the JAX package's:
+    # plain greedy rows for n-gram speculation (equal at fp32), its
+    # BeamSearcher's for beams
+    run, pattern, jax_rows = run_dir
+    out_csv = tmp_path / "out.csv"
+    from_webdataset.main(["--checkpoint-dir", str(run), "--input", pattern, "--output",
+                          str(out_csv), "--max-new-tokens", str(MAX_NEW), "--max-cache-len",
+                          "256", "--device", "cpu", *flags])
+    got = _read_csv(out_csv)
+    cfg, params, bundle = load_pretrained_model(str(run), device="cpu")
+    rows = list(from_webdataset.iter_eval_rows(from_webdataset.expand_url_to_file_list(pattern)))
+    if flags[0] == "--num-beams":
+        gen = BeamSearcher(cfg, params, bundle.audio_patch_id,
+                           BeamSearchConfig(num_beams=2, max_new_tokens=MAX_NEW, stop_text="###"),
+                           max_cache_len=256, device="cpu")
+    else:
+        gen = SpeculativeGenerator(
+            cfg, params, bundle.audio_patch_id,
+            tgen.GenerationConfig(max_new_tokens=MAX_NEW, temperature=0.0, stop_text="###"),
+            max_cache_len=256, device="cpu")
+    want = tinfer.batch_infer(rows, gen, bundle)
+    assert got == [{k: str(v) for k, v in r.items()} for r in want]
+    jax_want = jax_rows["beams" if flags[0] == "--num-beams" else None]
+    assert len(got) == 6
+    assert [r["model_completion"] for r in got] == [r["model_completion"] for r in jax_want]
+    assert [r["example_id"] for r in got] == [r["example_id"] for r in jax_want]
