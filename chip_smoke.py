@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (llark_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --phase 20  # one phase alone: 17 (checkpoint I/O)
+                                      # or 20 (the CLAP path)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -124,7 +126,9 @@ Phases, in order; any failure exits non-zero before the final line:
      onto the card; `train()` from that directory (adapter-stage flags, 2
      steps, phase 10's shard), whose first step must see the exported
      backbone bit for bit, with a finite loss and the flash launch gates of
-     phase 10; then `from_webdataset.main` over a 4-row shard of [256, 4800]
+     phase 10; then, the run's word tokenizer given a word for each of the
+     model's ids (so that no token decodes as <unk> and equal rows mean
+     equal tokens), `from_webdataset.main` over a 4-row shard of [256, 4800]
      encodings with crop-window keys, one request at a time (greedy, 32 new
      tokens) and through the engine in mode (a)'s cache (8 slots, paged
      128-token blocks, int8 KV, chunks of 128, which the CLI's prompt buckets
@@ -196,7 +200,26 @@ Phases, in order; any failure exits non-zero before the final line:
      thread, no request with its error set. Printed: acceptance, seconds,
      tokens/s, mean TTFT, streams equal to phase 7's plain tokens, a
      speculative round's device time and idle share beside phase 7's
-     decode round, HTTP TTFT p50/p90.
+     decode round, HTTP TTFT p50/p90;
+ 20. the CLAP path (`run_clap_path`): (a) 8 WAVs written with the port's
+     `write_wav`, 16-bit PCM at 44.1 kHz (3 to 25 s, some stereo; a chord
+     under noise from the seed); (b) `extract_cli clap --batch-size 8`
+     through the CLI's own parser on the card: HTSAT-base at full width
+     with seeded random weights, `read_wav` resampling to 48 kHz,
+     rand_trunc / repeatpad to 10 s; (c) the same CLI with `--device cpu`
+     (the plain path): the same file names, (1, 512) fp32, norm 1 +- 1e-5,
+     and every card embedding within CLAP_TOL (1e-6) of the CPU's, the worst
+     printed; then the card's run again with TF32 products, which must land
+     above CLAP_TOL, so that the gate tells fp32 from TF32; (d) (b)'s run is
+     profiled: its clips/s, host seconds for read + resample + prepare apart
+     from its embed seconds (the `ClapRun` it returns), its device time and
+     idle share; (e) a CLAP-width LLark (mm_hidden_size 512) at Llama-2-7B
+     width, 4 layers, bf16 params from the seed, written as a run directory
+     with a word tokenizer that names each of its ids, and
+     `from_encodings.main` over the card's 8 .npy files: the CSV rows equal
+     to `batch_infer` on the same encodings and params, no <unk> in them,
+     K1 once per layer per request, K2 in dense bf16 alone and as often as
+     in `batch_infer`; the phase's seconds.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -210,6 +233,7 @@ Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
 import dataclasses
@@ -227,9 +251,11 @@ import time
 import numpy as np
 import torch
 
+from llark_tpu_torch.audio.io import DEFAULT_SR, write_wav
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardWriter
+from llark_tpu_torch.encoders import extract_cli
 from llark_tpu_torch.generate import (
     GenerationConfig,
     Generator,
@@ -245,7 +271,7 @@ from llark_tpu_torch.infer import (
     build_prompt_ids,
 )
 from llark_tpu_torch.inference import beam as beam_mod
-from llark_tpu_torch.inference import from_webdataset
+from llark_tpu_torch.inference import from_encodings, from_webdataset
 from llark_tpu_torch.inference import speculative as spec_mod
 from llark_tpu_torch.inference.server import BatchedServer, Request
 from llark_tpu_torch.interop import hf
@@ -259,9 +285,11 @@ from llark_tpu_torch.ops import decode_attention as dec_ops
 from llark_tpu_torch.ops import int4_matmul as int4_ops
 from llark_tpu_torch.ops import int8_matmul as int8_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
-from llark_tpu_torch.models.utils import load_pretrained_model
+from llark_tpu_torch.models.utils import load_pretrained_model, save_model_metadata
 from llark_tpu_torch.train import flops
 from llark_tpu_torch.train import train as train_mod
+from llark_tpu_torch.train.checkpoint import CheckpointManager
+from llark_tpu_torch.train.state import TrainState
 from llark_tpu_torch.train.step import make_loss_fn
 from llark_tpu_torch.train.train import train
 
@@ -644,22 +672,24 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows, params=None, 
     return launches, figures
 
 
-def profile_device(fn, wall_ms: float, top: int = 8):
+def profile_device(fn, wall_ms, top: int = 8,
+                   what: str = "one generate (prefill + 31 decode steps)"):
     """Device kernel time of one fn() run from torch.profiler, beside the
-    same run's unprofiled wall time: the card's idle share. Returns the
-    device ms (None if the profiler saw none)."""
+    same run's unprofiled wall time (`wall_ms`), or with `wall_ms` None the
+    profiled run's own: the card's idle share. Returns the device ms (None
+    if the profiler saw none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        _, profiled_s = seconds(fn)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         print("device busy time: not measured (the profiler saw no device time)")
         return None
-    print(f"one generate (prefill + 31 decode steps): wall {wall_ms:.1f} ms unprofiled, "
+    wall_ms, how = (profiled_s * 1e3, "profiled") if wall_ms is None else (wall_ms, "unprofiled")
+    print(f"{what}: wall {wall_ms:.1f} ms {how}, "
           f"device kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -2012,9 +2042,16 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
     with open(meta_path) as f:
         meta = json.load(f)
     meta["model_config"]["use_flash_decode"] = True
+    # a word for each of the model's ids, so that the rows compared below
+    # name their tokens (name_every_id)
+    shard, ids = write_eval_shard(directory, cfg)
+    tok = WordTokenizer.from_dict(meta["tokenizer"])
+    name_every_id(TokenizerBundle.from_tokenizer(tok, meta["tokenizer"]["model_max_length"]),
+                  meta["model_config"]["vocab_size"],
+                  [r["prompt"] for r in from_webdataset.iter_eval_rows([shard])])
+    meta["tokenizer"] = {"type": "word", **tok.to_dict()}
     with open(meta_path, "w") as f:
         json.dump(meta, f, indent=2)
-    shard, ids = write_eval_shard(directory, cfg)
     one, one_launches = run_webdataset_cli("one at a time", run_dir, shard, ids, [], smi)
     eng, eng_launches = run_webdataset_cli(
         "engine mode (a)", run_dir, shard, ids,
@@ -2046,8 +2083,7 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
         check(got == want, f"from_webdataset ({label}): CSV rows differ from the in-process run")
     print("  CLI rows equal the in-process batch_infer / batch_infer_continuous rows; "
           f"completion 0: {one[0]['model_completion'][:80]!r}")
-    check(all(r["model_completion"] for r in one + eng),
-          "an empty completion: the rows would compare nothing")
+    check_completions("from_webdataset", one + eng)
     del run_params, params
     shutil.rmtree(directory)  # the export and the run: ~11 GB
     torch.cuda.empty_cache()
@@ -2910,18 +2946,234 @@ def run_speculation(cfg: ModelConfig, bundle: TokenizerBundle, rows, bf16_servin
     return dict(fp32=fp32, serving=serving)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 20: the CLAP path: WAV files -> HTSAT-base embeddings -> answers
+# ---------------------------------------------------------------------------
+
+# 8 crops as LLark's CLAP variant reads them: 16-bit PCM at 44.1 kHz, so
+# read_wav resamples to 48 kHz; (seconds, channels) each
+CLAP_WAVS = ((3.0, 1), (3.0, 2), (7.0, 1), (7.0, 2), (10.0, 1), (10.0, 2), (12.5, 2), (25.0, 1))
+# the card's unit-norm embeddings against the CPU plain path's, absolute:
+# both compute in fp32 (cuFFT and cuBLAS without TF32 against pocketfft
+# and the CPU's GEMM), so they differ by summation order alone. The phase
+# also reads the card with TF32 products, which must land above it
+CLAP_TOL = 1e-6
+CLAP_LAYERS = 4  # the answer half's depth at Llama-2-7B width, as phase 17
+
+
+def write_clap_wavs(directory: str) -> list:
+    """The 8 WAVs: a chord under noise each, made from the seed."""
+    rng = np.random.RandomState(SEED + 20)
+    os.makedirs(directory)
+    names = []
+    for i, (secs, channels) in enumerate(CLAP_WAVS):
+        n = int(secs * DEFAULT_SR)
+        t = np.arange(n) / DEFAULT_SR
+        chord = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(80, 4000, 3)) / 3
+        x = 0.4 * chord[:, None] + 0.05 * rng.randn(n, channels)
+        names.append(f"crop{i}-start0.000-end{secs:.3f}.wav")
+        write_wav(os.path.join(directory, names[-1]), x, DEFAULT_SR)
+    return names
+
+
+def run_extract(wavs: str, out: str, device: str, profile: bool = False) -> tuple:
+    """`extract_cli clap` at batch 8 on `device`, through the CLI's own
+    parser; returns its `ClapRun` (seconds in all, read + resample +
+    prepare, embed) and, with `profile`, the card's kernel ms in that same
+    run (torch.profiler; None if it saw none)."""
+    ns = extract_cli.build_parser().parse_args(
+        ["clap", "--input-dir", wavs, "--output-dir", out, "--batch-size", "8",
+         "--device", device])
+    runs, busy_ms = [], None
+    if profile:
+        busy_ms = profile_device(lambda: runs.append(ns.fn(ns)), None, top=4,
+                                 what="  (d) extract_cli on the card, the encoder's init included")
+    else:
+        runs.append(ns.fn(ns))
+    check(runs[0].n == len(CLAP_WAVS),
+          f"extract_cli on {device}: {runs[0].n} embeddings, not {len(CLAP_WAVS)}")
+    return runs[0], busy_ms
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """cuBLAS and cuDNN in TF32 inside the block (the script runs fp32
+    products in full precision), restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def embedding_diff(names: list, got_dir: str, want_dir: str) -> tuple:
+    """The worst |got - want| over the embeddings, and its file; checks the
+    file names, shape (1, 512), fp32 and finite values on both sides, and
+    every norm within 1e-5 of 1."""
+    want = sorted(n.replace(".wav", ".npy") for n in names)
+    worst, worst_name, bad_norm = 0.0, None, 0.0
+    for d in (got_dir, want_dir):
+        check(sorted(os.listdir(d)) == want, f"{d} holds {sorted(os.listdir(d))}")
+    for name in want:
+        got, ref = np.load(os.path.join(got_dir, name)), np.load(os.path.join(want_dir, name))
+        for where, arr in ((got_dir, got), (want_dir, ref)):
+            check(arr.shape == (1, 512) and arr.dtype == np.float32,
+                  f"{where}/{name}: {arr.shape} {arr.dtype}, not (1, 512) float32")
+            check(bool(np.isfinite(arr).all()), f"{where}/{name}: non-finite values")
+            bad_norm = max(bad_norm, abs(float(np.linalg.norm(arr)) - 1.0))
+        err = float(np.abs(got - ref).max())
+        if err >= worst:
+            worst, worst_name = err, name
+    check(bad_norm <= 1e-5, f"an embedding's norm is {bad_norm:.2e} from 1")
+    return worst, worst_name, bad_norm
+
+
+def name_every_id(bundle: TokenizerBundle, vocab_size: int, prompts) -> None:
+    """Give the bundle's word tokenizer one word of its own for each id of
+    the model, after the words the prompts' template needs: a completion
+    then names every token it holds, so two runs' rows are equal only if
+    their tokens are (with a smaller vocabulary most of a random model's
+    tokens decode as <unk>, and the rows compare nothing)."""
+    tok = bundle.tokenizer
+    for p in prompts:
+        build_prompt_ids(p, 1, bundle)
+    tok.add_tokens([f"w{i}" for i in range(len(tok), vocab_size)])
+    for p in prompts:  # the prompts intern no further word
+        build_prompt_ids(p, 1, bundle)
+    check(len(tok) == vocab_size, f"the tokenizer has {len(tok)} words for {vocab_size} ids")
+
+
+def check_completions(label: str, rows: list) -> None:
+    """Every completion is non-empty and names its tokens (no <unk>)."""
+    check(all(r["model_completion"] for r in rows),
+          f"{label}: an empty completion: the rows compare nothing")
+    check(not any("<unk>" in r["model_completion"] for r in rows),
+          f"{label}: a completion holds <unk>: the rows do not name their tokens")
+
+
+def clap_answers(directory: str, emb_dir: str, smi: str) -> None:
+    """Phase 20 (e): a CLAP-width LLark (mm_hidden_size 512) at Llama-2-7B
+    width, CLAP_LAYERS layers, bf16, written as a run directory with a
+    tokenizer that names each of its ids; `from_encodings.main` over the
+    embeddings against `batch_infer` on the same encodings and params."""
+    cfg = ModelConfig.llama2_7b(num_layers=CLAP_LAYERS, mm_hidden_size=512,
+                                param_dtype="bfloat16", use_flash_decode=True)
+    prompt = "Describe the audio."
+    bundle = TokenizerBundle.from_tokenizer(WordTokenizer(2048))
+    name_every_id(bundle, cfg.vocab_size, [prompt])
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    run_dir = os.path.join(directory, "run")
+    save_model_metadata(run_dir, cfg, bundle)
+    _, save_s = seconds(lambda: CheckpointManager(run_dir).save(0, TrainState(params, {}, 0)))
+    out_csv = os.path.join(directory, "answers.csv")
+    attn_ops.flash_attention_fwd.launches = 0
+    dec_ops.reset_launch_counts()
+    _, cli_s = seconds(lambda: from_encodings.main(
+        ["--checkpoint-dir", run_dir, "--encodings-dir", emb_dir, "--output", out_csv,
+         "--prompt", prompt, "--max-new-tokens", "32", "--max-cache-len", "2048",
+         "--device", "cuda"]))
+    cli = {"flash_fwd": attn_ops.flash_attention_fwd.launches,
+           **{k: v for k, v in dec_ops.flash_decode_attention.launches_by_mode.items() if v}}
+    with open(out_csv, newline="") as f:
+        got = list(csv.DictReader(f))
+
+    files = sorted(os.listdir(emb_dir))
+    rows = [{"example_id": os.path.splitext(n)[0], "prompt": prompt,
+             "audio_encoding": np.load(os.path.join(emb_dir, n))} for n in files]
+    gen = Generator(cfg, params, bundle.audio_patch_id,
+                    GenerationConfig(max_new_tokens=32, temperature=0.0, stop_text="###"),
+                    max_cache_len=2048, device="cuda")
+    attn_ops.flash_attention_fwd.launches = 0
+    dec_ops.reset_launch_counts()
+    want, direct_s = seconds(lambda: batch_infer(rows, gen, bundle))
+    direct = {"flash_fwd": attn_ops.flash_attention_fwd.launches,
+              **{k: v for k, v in dec_ops.flash_decode_attention.launches_by_mode.items() if v}}
+    want = [{k: str(v) for k, v in r.items()} for r in want]
+    print(f"  (e) CLAP-width LLark ({smi}), Llama-2-7B width, {CLAP_LAYERS} layers, bf16, "
+          f"mm_hidden_size 512, a word for each of its {cfg.vocab_size} ids: run directory "
+          f"written in {save_s:.2f} s; from_encodings {cli_s:.2f} s for {len(got)} rows (the "
+          f"model's load included), batch_infer {direct_s:.2f} s; launches CLI {cli}, "
+          f"batch_infer {direct}, expected K1 {CLAP_LAYERS} x {len(rows)} = "
+          f"{CLAP_LAYERS * len(rows)}, K2 in dense_bf16 alone, at most {CLAP_LAYERS} x 31 x "
+          f"{len(rows)} = {CLAP_LAYERS * 31 * len(rows)}")
+    print(f"  completion 0: {got[0]['model_completion'][:80]!r}" if got else "  no rows")
+    check(got == want, "from_encodings' CSV rows differ from batch_infer on the same "
+                       "encodings and params")
+    check_completions("from_encodings", got)
+    check(cli == direct, f"from_encodings launched {cli}, batch_infer {direct}")
+    check(cli["flash_fwd"] == CLAP_LAYERS * len(rows),
+          f"from_encodings: {cli['flash_fwd']} flash-prefill launches, not "
+          f"{CLAP_LAYERS} x {len(rows)}")
+    check(set(cli) == {"flash_fwd", "dense_bf16"} and cli["dense_bf16"] > 0,
+          f"from_encodings: flash decode launched as {cli}")
+    del params, gen
+    torch.cuda.empty_cache()
+
+
+def run_clap_path(directory: str, smi: str) -> None:
+    """Phase 20: WAV files -> extract_cli on the card and on the CPU ->
+    unit-norm [1, 512] HTSAT-base embeddings -> from_encodings' answers."""
+    print(f"phase 20 on {smi}: HTSAT-base (embed 128, depths (2, 2, 12, 2), window 8, "
+          f"64 mels), seeded random weights, {len(CLAP_WAVS)} WAVs, batch 8")
+    wavs = os.path.join(directory, "wavs")
+    names = write_clap_wavs(wavs)
+    audio_s = sum(s for s, _ in CLAP_WAVS)
+    card_dir, cpu_dir = os.path.join(directory, "card"), os.path.join(directory, "cpu")
+    # (b) and (d): the card's run, profiled, so that its device time and
+    # idle share are this run's
+    run, busy_ms = run_extract(wavs, card_dir, "cuda", profile=True)
+    print(f"  (b) extract_cli on the card ({smi}): {len(names)} WAVs ({audio_s} s of 44.1 kHz "
+          f"audio) in {run.seconds:.3f} s after the encoder's init, profiled: "
+          f"{run.n / run.seconds:.3f} clips/s; read + resample + prepare {run.host_s:.3f} s on "
+          f"the host ({run.host_s / run.seconds:.1%}), embed (mel + HTSAT at batch 8, to the "
+          f"host; the process's first call) {run.embed_s:.3f} s; the card's kernels "
+          + ("not measured" if busy_ms is None else f"{busy_ms:.1f} ms of the run"))
+    cpu_run, _ = run_extract(wavs, cpu_dir, "cpu")
+    print(f"  (c) extract_cli on the CPU (plain path, {torch.get_num_threads()} threads): "
+          f"{cpu_run.seconds:.3f} s, embed {cpu_run.embed_s:.3f} s, read + resample + prepare "
+          f"{cpu_run.host_s:.3f} s")
+    worst, worst_name, bad_norm = embedding_diff(names, card_dir, cpu_dir)
+    print(f"  card vs CPU plain path: worst max|d| {worst:.3e} ({worst_name}); norms within "
+          f"{bad_norm:.2e} of 1")
+    check(worst <= CLAP_TOL, f"the card's embedding of {worst_name} is {worst:.3e} from the "
+          f"CPU's, over CLAP_TOL {CLAP_TOL}")
+    # the control: the same run with TF32 products must fail the gate
+    tf32_dir = os.path.join(directory, "card_tf32")
+    with tf32_products():
+        run_extract(wavs, tf32_dir, "cuda")
+    tf32_worst, tf32_name, _ = embedding_diff(names, tf32_dir, cpu_dir)
+    print(f"  control, the card with TF32 products: worst max|d| {tf32_worst:.3e} ({tf32_name}), "
+          f"{tf32_worst / max(worst, 1e-30):.0f}x the fp32 reading; CLAP_TOL {CLAP_TOL}")
+    check(tf32_worst > CLAP_TOL, f"TF32 products read {tf32_worst:.3e}, within CLAP_TOL "
+          f"{CLAP_TOL}: the gate cannot tell them from fp32")
+    torch.cuda.empty_cache()
+    clap_answers(directory, card_dir, smi)
+
+
+def checkpoint_io_alone(directory: str, smi: str) -> None:
+    """Phase 17 without the phases before it: its training shard first."""
+    shard = write_shards(directory, ModelConfig.llama2_7b())
+    run_checkpoint_io(os.path.join(directory, "ckpt"), shard, smi)
+
+
+# phases that `--phase N` runs alone: (label, fn(scratch directory, smi))
+ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
+         20: ("CLAP path", run_clap_path)}
+
+
+def set_up_card() -> tuple:
+    """Read the card's name and power limit, build every kernel, and keep
+    fp32 products in full precision (no TF32 in cuBLAS or cuDNN). Returns
+    (the nvidia-smi line, the device's name)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    t_start = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for src, log in reports.items():
@@ -2930,6 +3182,27 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi, kind
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    ap.add_argument("--phase", type=int, choices=sorted(ALONE), default=None,
+                    help="run this phase alone, without the kernels line and the final line")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    smi, kind = set_up_card()
+    if args.phase is not None:
+        label, fn = ALONE[args.phase]
+        with tempfile.TemporaryDirectory() as tmp:
+            _, phase_s = seconds(lambda: fn(tmp, smi))
+        print(f"phase {args.phase} ({label}): {phase_s:.1f} s")
+        print(smi)
+        return 0
+
     print_wq_kernel_split()
 
     cfg = ModelConfig.llama2_7b(use_flash_decode=True, param_dtype="bfloat16")
@@ -2971,6 +3244,9 @@ def main() -> int:
         print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s")
     _, phase_s = seconds(lambda: run_speculation(cfg, bundle, rows, bf16_serving, smi))
     print(f"phase 19 (speculative decoding, beam search, the HTTP engine): {phase_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, phase_s = seconds(lambda: run_clap_path(tmp, smi))
+    print(f"phase 20 (CLAP path): {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []
@@ -3046,7 +3322,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": wq_library[fmt],
         })
 
-    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s after the card's name was read")
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s after the card was found")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ weight-only quantized tree (`quantize_params_int8`, `..._int4_incremental`
 of either package) carries over as it is: integer payloads keep int8 and
 their scales fp32. The tree is plain dicts of numpy arrays, so nothing of the JAX package is
 imported here.
+
+`htsat_params_from_numpy` does the same for the CLAP encoder's HTSAT tree
+(`llark_tpu/encoders/clap/htsat.py` `init_htsat_params`, or
+`clap_params_from_hf` of either package): `stages` is a list of dicts,
+each with its `blocks` (a list) and its `downsample` (None in the last).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.encoders.clap.htsat import HTSATConfig
 from llark_tpu_torch.models.decoder import Params, torch_dtype
 from llark_tpu_torch.models.quant import is_quantized, is_quantized_int4
 
@@ -67,3 +73,31 @@ def params_from_numpy(
                 f"layers/{name} is not a [num_layers={cfg.num_layers}, ...] stacked array"
             )
     return _convert(tree, dev, dtype)
+
+
+def _htsat_tree(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _htsat_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_htsat_tree(v, device) for v in tree]
+    if tree is None:
+        return None
+    return _to_tensor(tree, device, torch.float32)
+
+
+def htsat_params_from_numpy(
+    tree: Mapping,
+    cfg: HTSATConfig,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """JAX-layout HTSAT tree (numpy leaves) -> the port's fp32 tensors on
+    `device` (the GPU unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    stages = tree["stages"]
+    if [len(s["blocks"]) for s in stages] != list(cfg.depths):
+        raise ValueError(f"stages of {[len(s['blocks']) for s in stages]} blocks do not fit "
+                         f"the config's depths {tuple(cfg.depths)}")
+    pe = np.shape(tree["patch_embed"]["w"])
+    if pe != (cfg.embed_dim, 1, cfg.patch_size, cfg.patch_size):
+        raise ValueError(f"patch_embed/w {pe} does not fit the config's embed_dim and patch")
+    return _htsat_tree(tree, dev)

@@ -64,6 +64,13 @@ def load_model_metadata(checkpoint_dir: str) -> Tuple[ModelConfig, TokenizerBund
     return cfg, TokenizerBundle.from_tokenizer(tok, tok_meta["model_max_length"])
 
 
+class NotARunDirectory(FileNotFoundError, NotImplementedError):
+    """A directory without model_config.json: missing, or an HF checkpoint
+    directory. A FileNotFoundError, as the reference raises there
+    (llark_tpu/models/utils.py:47-48); a NotImplementedError too, since the
+    port reads only its own train()'s run directories and names the route."""
+
+
 def load_pretrained_model(
     checkpoint_dir: str,
     ckpt_num: Optional[int] = None,
@@ -84,7 +91,7 @@ def load_pretrained_model(
     from llark_tpu_torch.train.checkpoint import CheckpointManager
 
     if not os.path.exists(os.path.join(checkpoint_dir, "model_config.json")):
-        raise NotImplementedError(
+        raise NotARunDirectory(
             f"{checkpoint_dir} has no model_config.json: this reads run directories of "
             "the port's train(); import an HF checkpoint directory through train() "
             "(model_name_or_path=<the directory>) and serve its output_dir"

@@ -1,7 +1,8 @@
 """Storage seam: the local-path subset of llark_tpu/storage.py.
 
-Every path the port's training touches (shards, checkpoints, the projector
-side-save) goes through these helpers, so the remote-storage slice can add
+Every path the port's training and audio I/O touch (shards, checkpoints,
+the projector side-save, WAV files, extracted embeddings) goes through
+these helpers, so the remote-storage slice can add
 `scheme://` URLs in one place. This slice reads and writes local paths
 (plain or `file://`) only; any other URL raises.
 """
@@ -34,6 +35,17 @@ def _local(path: str) -> str:
 
 def fopen(path: str, mode: str = "rb") -> IO:
     return open(_local(path), mode)
+
+
+def read_bytes(path: str) -> bytes:
+    with fopen(path, "rb") as f:
+        return f.read()
+
+
+def write_bytes(path: str, data: bytes) -> None:
+    makedirs_for(path)
+    with fopen(path, "wb") as f:
+        f.write(data)
 
 
 def exists(path: str) -> bool:

@@ -34,6 +34,15 @@ Two cases drive checkpoint I/O on the card: an HF import from bf16
 safetensors shards must hold the bits of the import onto the CPU, and the
 WebDataset CLI must write the CSV rows of the in-process run, launching
 the flash kernels as the path runs them.
+
+The CLAP encoder path (mel frontend, HTSAT) runs no hand-written kernel
+(cuFFT and cuBLAS in fp32, no TF32): on the card it is held against the
+CPU plain path: the unit-norm embedding within CLAP_TOL absolute
+(chip_smoke.py phase 20's gate; fp32 reads 7e-8 to 8e-8 there, TF32
+products 1.6e-4), the raw HTSAT-base embedding within HTSAT_TOL relative
+to max (fp32 5.0e-7, TF32 8.3e-4; `python -m
+llark_tpu_torch.tools.clap_precision` reads both). Each limit sits between
+the two readings, and a control case holds TF32 above HTSAT_TOL.
 """
 
 import numpy as np
@@ -50,6 +59,8 @@ BWD_TOL = 1.6e-2
 LSE_TOL = 1e-4
 WQ_ROW_TOL = {"int8_matmul": 4e-3, "int4_matmul": 8e-3}
 WINDOW_TOL = 1e-4
+CLAP_TOL = 1e-6
+HTSAT_TOL = 5e-6
 
 pytestmark = pytest.mark.cuda
 
@@ -1060,3 +1071,56 @@ def test_beam_gather_of_int8_cache_leaves_matches_the_cpu(dev):
     assert got["index"] == 4
     for name in ("k", "v", "k_scale", "v_scale"):
         assert got[name].device.type == "cuda" and torch.equal(got[name].cpu(), want[name])
+
+
+def _htsat_base_on(dev, tf32=False):
+    """HTSAT-base on 2 seeded mel clips on `dev` (with TF32 products if
+    asked), and the CPU plain path's result."""
+    from llark_tpu_torch.encoders.clap.htsat import HTSATConfig, htsat_embed, init_htsat_params
+
+    cfg = HTSATConfig.base()
+    mel = torch.from_numpy(
+        (10 * np.random.RandomState(9).randn(2, cfg.n_frames, cfg.n_mels) - 40).astype(np.float32))
+    want = htsat_embed(cfg, init_htsat_params(cfg, 0, "cpu"), mel)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        got = htsat_embed(cfg, init_htsat_params(cfg, 0, dev), mel.to(dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return got, want
+
+
+def test_htsat_base_on_the_card_matches_the_cpu(dev):
+    got, want = _htsat_base_on(dev)
+    assert got.shape == (2, 512) and got.device.type == "cuda"
+    assert bool(torch.isfinite(got).all())
+    assert _rel_to_max(got.cpu(), want) <= HTSAT_TOL
+
+
+def test_htsat_base_with_tf32_products_falls_outside_htsat_tol(dev):
+    # the control of the case above: TF32 products must fail HTSAT_TOL, or
+    # the limit could not tell them from fp32
+    got, want = _htsat_base_on(dev, tf32=True)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_to_max(got.cpu(), want) > HTSAT_TOL
+
+
+def test_read_wav_then_embed_clip_on_the_card(dev, tmp_path):
+    # a 12 s stereo clip at 44.1 kHz: read_wav resamples it to 48 kHz and
+    # embed_clip draws a 10 s window from the RandomState
+    from llark_tpu_torch.audio.io import read_wav, write_wav
+    from llark_tpu_torch.encoders.clap.encode import CLAP_SAMPLE_RATE, ClapEncoder
+
+    rng = np.random.RandomState(10)
+    path = str(tmp_path / "clip.wav")
+    write_wav(path, 0.3 * rng.randn(12 * 44100, 2), 44100)
+    samples, sr = read_wav(path, CLAP_SAMPLE_RATE)
+    assert sr == CLAP_SAMPLE_RATE and len(samples) == 12 * CLAP_SAMPLE_RATE
+    got = ClapEncoder.random_init(seed=1, device=dev).embed_clip(samples, np.random.RandomState(0))
+    want = ClapEncoder.random_init(seed=1, device="cpu").embed_clip(samples,
+                                                                     np.random.RandomState(0))
+    assert got.shape == want.shape == (1, 512) and got.dtype == np.float32
+    assert abs(float(np.linalg.norm(got)) - 1.0) < 1e-5
+    assert float(np.abs(got - want).max()) <= CLAP_TOL

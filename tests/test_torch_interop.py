@@ -732,6 +732,26 @@ def test_load_pretrained_model_points_hf_and_orbax_directories_elsewhere(tmp_pat
         load_pretrained_model(str(tmp_path / "orbax"), device="cpu")
 
 
+@pytest.mark.parametrize("where", ["missing", "hf"])
+def test_load_pretrained_model_without_model_config_raises_as_the_reference(tmp_path, where):
+    # no model_config.json: a path that does not exist, or an HF checkpoint
+    # directory written by the JAX package. The reference raises from
+    # load_model_metadata's open; the port's error is of that type and
+    # still names the route through train().
+    from llark_tpu.models.utils import load_pretrained_model as jload_pretrained_model
+
+    directory = str(tmp_path / where)
+    if where == "hf":
+        _, jcfg = _cfgs("llama")
+        jhf.save_hf_checkpoint(directory, jcfg, _params("llama", projector=False))
+    with pytest.raises(Exception) as want:
+        jload_pretrained_model(directory)
+    assert type(want.value) is FileNotFoundError
+    with pytest.raises(type(want.value), match="through train") as got:
+        load_pretrained_model(directory, device="cpu")
+    assert isinstance(got.value, NotImplementedError)
+
+
 def test_load_pretrained_model_without_checkpoints_raises_as_the_reference(tmp_path):
     # a run stopped before its first save: model_config.json and no
     # checkpoint. Both packages raise FileNotFoundError.

@@ -52,7 +52,9 @@ def _port_modules():
 def test_port_imports_without_jax_or_reference():
     modules = _port_modules() + ["chip_smoke"]
     assert "llark_tpu_torch.ops.decode_attention" in modules
-    for new in ("models.quant", "ops.int8_matmul", "ops.int4_matmul"):
+    for new in ("models.quant", "ops.int8_matmul", "ops.int4_matmul", "audio.io", "audio.mel",
+                "encoders.extract_cli", "encoders.clap.encode", "encoders.clap.htsat",
+                "encoders.clap.import_hf"):
         assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
