@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (llark_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # every phase
-    python3 chip_smoke.py --phase 20  # one phase alone: 17 (checkpoint I/O)
-                                      # or 20 (the CLAP path)
+    python3 chip_smoke.py --phase 20  # one phase alone: 17 (checkpoint I/O),
+                                      # 20 (the CLAP path) or 21 (Jukebox)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -219,7 +219,34 @@ Phases, in order; any failure exits non-zero before the final line:
      `from_encodings.main` over the card's 8 .npy files: the CSV rows equal
      to `batch_infer` on the same encodings and params, no <unk> in them,
      K1 once per layer per request, K2 in dense bf16 alone and as often as
-     in `batch_infer`; the phase's seconds.
+     in `batch_infer`; the phase's seconds;
+ 21. the Jukebox path (`run_jukebox_path`), each gate beside a control that
+     must fail it: (a) the parity fixture's state dicts
+     (tests/fixtures/jukebox_parity) through the port's importer, fp32 on
+     the card: codes equal to the goldens for the full, short and stereo
+     clips, pooled embeddings and the prior's activations on the goldens'
+     codes within JUKEBOX_GOLD_ATOL (1e-6) and the same frame counts; the
+     control runs with TF32 products; (b) full width cut to depth 3 (one
+     row / column / previous-row cycle), fp32, one window of 2^20 samples,
+     weights drawn on the CPU from the seed: codes on the card equal to the
+     CPU plain path's except where the CPU's top-2 distance margin is under
+     JUKEBOX_MARGIN_EPS (the count printed), activations on the CPU's codes
+     within JUKEBOX_WIDE_TOL (1e-4) relative to max; the control, TF32
+     products; the CPU's seconds and threads; (c) 8 WAVs written with
+     `write_wav` (16-bit PCM, 44.1 kHz, 3 to 40 s, some stereo; two cropped at
+     2^20 samples, the rest padded) through `extract_cli jukebox` on the card
+     at its defaults (random full-width weights drawn on the card from the
+     seed, the prior in bf16 at depth 36, batch 2, int16 upload, bf16
+     readback, fps 10), profiled: each file [floor(floor(8192 n / 2^20) / 34),
+     4800] fp32 and finite, a second call with --skip-existing writes
+     nothing; clips/s, read + prepare seconds against the wait on the device
+     (the `JukeboxRun`), device ms and idle share of the CLI's own run; one
+     warm bf16 window's device time and its share of 989 TFLOP/s; (d) the
+     30 s clip's codes through the same 36-layer weights in fp32: the CLI's
+     bf16 file within JUKEBOX_BF16_TOL (5e-2) relative to max; the control,
+     the fp32 run on the codes rolled by one; (e) phase 20 (e)'s answer half
+     at mm_hidden_size 4800 over the 8 files. The weights are freed before
+     (e); the parts' seconds and the phase's.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -251,11 +278,17 @@ import time
 import numpy as np
 import torch
 
-from llark_tpu_torch.audio.io import DEFAULT_SR, write_wav
+from llark_tpu_torch.audio.io import DEFAULT_SR, read_wav, write_wav
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardWriter
 from llark_tpu_torch.encoders import extract_cli
+from llark_tpu_torch.encoders.jukebox import encode as jb_encode
+from llark_tpu_torch.encoders.jukebox import import_torch as jb_import
+from llark_tpu_torch.encoders.jukebox import prior as jb_prior
+from llark_tpu_torch.encoders.jukebox import vqvae as jb_vqvae
+from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig, JukeboxVQVAEConfig
+from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder
 from llark_tpu_torch.generate import (
     GenerationConfig,
     Generator,
@@ -2959,7 +2992,7 @@ CLAP_WAVS = ((3.0, 1), (3.0, 2), (7.0, 1), (7.0, 2), (10.0, 1), (10.0, 2), (12.5
 # and the CPU's GEMM), so they differ by summation order alone. The phase
 # also reads the card with TF32 products, which must land above it
 CLAP_TOL = 1e-6
-CLAP_LAYERS = 4  # the answer half's depth at Llama-2-7B width, as phase 17
+ANSWER_LAYERS = 4  # the answer half's depth at Llama-2-7B width in phases 20, 21, as phase 17
 
 
 def write_clap_wavs(directory: str) -> list:
@@ -3053,12 +3086,14 @@ def check_completions(label: str, rows: list) -> None:
           f"{label}: a completion holds <unk>: the rows do not name their tokens")
 
 
-def clap_answers(directory: str, emb_dir: str, smi: str) -> None:
-    """Phase 20 (e): a CLAP-width LLark (mm_hidden_size 512) at Llama-2-7B
-    width, CLAP_LAYERS layers, bf16, written as a run directory with a
-    tokenizer that names each of its ids; `from_encodings.main` over the
-    embeddings against `batch_infer` on the same encodings and params."""
-    cfg = ModelConfig.llama2_7b(num_layers=CLAP_LAYERS, mm_hidden_size=512,
+def encodings_answers(directory: str, emb_dir: str, smi: str, label: str,
+                      mm_hidden: int) -> dict:
+    """Phase 20 (e), phase 21 (e): an LLark of `mm_hidden`-wide encodings at
+    Llama-2-7B width, ANSWER_LAYERS layers, bf16, written as a run directory
+    with a tokenizer that names each of its ids; `from_encodings.main` over
+    the .npy files against `batch_infer` on the same encodings and params.
+    Returns the CLI's launch counts."""
+    cfg = ModelConfig.llama2_7b(num_layers=ANSWER_LAYERS, mm_hidden_size=mm_hidden,
                                 param_dtype="bfloat16", use_flash_decode=True)
     prompt = "Describe the audio."
     bundle = TokenizerBundle.from_tokenizer(WordTokenizer(2048))
@@ -3091,25 +3126,26 @@ def clap_answers(directory: str, emb_dir: str, smi: str) -> None:
     direct = {"flash_fwd": attn_ops.flash_attention_fwd.launches,
               **{k: v for k, v in dec_ops.flash_decode_attention.launches_by_mode.items() if v}}
     want = [{k: str(v) for k, v in r.items()} for r in want]
-    print(f"  (e) CLAP-width LLark ({smi}), Llama-2-7B width, {CLAP_LAYERS} layers, bf16, "
-          f"mm_hidden_size 512, a word for each of its {cfg.vocab_size} ids: run directory "
-          f"written in {save_s:.2f} s; from_encodings {cli_s:.2f} s for {len(got)} rows (the "
-          f"model's load included), batch_infer {direct_s:.2f} s; launches CLI {cli}, "
-          f"batch_infer {direct}, expected K1 {CLAP_LAYERS} x {len(rows)} = "
-          f"{CLAP_LAYERS * len(rows)}, K2 in dense_bf16 alone, at most {CLAP_LAYERS} x 31 x "
-          f"{len(rows)} = {CLAP_LAYERS * 31 * len(rows)}")
+    print(f"  (e) {label} LLark ({smi}), Llama-2-7B width, {ANSWER_LAYERS} layers, bf16, "
+          f"mm_hidden_size {mm_hidden}, a word for each of its {cfg.vocab_size} ids: run "
+          f"directory written in {save_s:.2f} s; from_encodings {cli_s:.2f} s for {len(got)} rows "
+          f"(the model's load included), batch_infer {direct_s:.2f} s; launches CLI {cli}, "
+          f"batch_infer {direct}, expected K1 {ANSWER_LAYERS} x {len(rows)} = "
+          f"{ANSWER_LAYERS * len(rows)}, K2 in dense_bf16 alone, at most {ANSWER_LAYERS} x 31 x "
+          f"{len(rows)} = {ANSWER_LAYERS * 31 * len(rows)}")
     print(f"  completion 0: {got[0]['model_completion'][:80]!r}" if got else "  no rows")
     check(got == want, "from_encodings' CSV rows differ from batch_infer on the same "
                        "encodings and params")
     check_completions("from_encodings", got)
     check(cli == direct, f"from_encodings launched {cli}, batch_infer {direct}")
-    check(cli["flash_fwd"] == CLAP_LAYERS * len(rows),
+    check(cli["flash_fwd"] == ANSWER_LAYERS * len(rows),
           f"from_encodings: {cli['flash_fwd']} flash-prefill launches, not "
-          f"{CLAP_LAYERS} x {len(rows)}")
+          f"{ANSWER_LAYERS} x {len(rows)}")
     check(set(cli) == {"flash_fwd", "dense_bf16"} and cli["dense_bf16"] > 0,
           f"from_encodings: flash decode launched as {cli}")
     del params, gen
     torch.cuda.empty_cache()
+    return cli
 
 
 def run_clap_path(directory: str, smi: str) -> None:
@@ -3149,7 +3185,278 @@ def run_clap_path(directory: str, smi: str) -> None:
     check(tf32_worst > CLAP_TOL, f"TF32 products read {tf32_worst:.3e}, within CLAP_TOL "
           f"{CLAP_TOL}: the gate cannot tell them from fp32")
     torch.cuda.empty_cache()
-    clap_answers(directory, card_dir, smi)
+    encodings_answers(directory, card_dir, smi, "CLAP-width", 512)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the Jukebox path: WAV files -> pooled [T, 4800] encodings -> answers
+# ---------------------------------------------------------------------------
+
+JUKEBOX_FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "jukebox_parity")
+# 8 WAVs, 16-bit PCM at 44.1 kHz, (seconds, channels) each: the window is
+# 2^20 samples (23.78 s), so the last two are cropped and the rest padded
+JUKEBOX_WAVS = ((3.0, 1), (6.0, 2), (9.5, 1), (14.0, 2), (19.0, 1), (23.0, 2), (30.0, 1),
+                (40.0, 2))
+JUKEBOX_WIDE_WAV = 7  # (b)'s window: the 40 s clip's first 2^20 samples
+JUKEBOX_DEPTH_WAV = 6  # (d)'s clip: the 30 s one, a full window
+# (a): the parity fixture on the card against the torch oracle's goldens,
+# absolute: the JAX package's bar (tests/test_jukebox_parity.py:86,97)
+JUKEBOX_GOLD_ATOL = 1e-6
+# (b): full width cut to one attention cycle, fp32, card vs the CPU plain
+# path, relative to max. Both sum fp32 products in another order (~1e-6
+# relative expected); TF32 products keep 10 mantissa bits (~5e-4 a product
+# over 4800 terms), and the phase holds them above this limit
+JUKEBOX_WIDE_TOL = 1e-4
+# (b): a code may differ where the CPU's two nearest codewords are closer
+# than this, relative to |x_t| max|k_j| (the size of a distance term): the
+# card's fp32 latent differs from the CPU's by ~1e-6 of its norm
+JUKEBOX_MARGIN_EPS = 1e-5
+# (d): the CLI's bf16 output against fp32 on the same codes and weights,
+# relative to max: the repo's bf16 logits gate
+JUKEBOX_BF16_TOL = LOGITS_TOL
+
+
+def prior_window_flops(cfg: JukeboxPriorConfig) -> float:
+    """Multiply-adds x 2 of the prior's projections over one n_ctx window
+    (the attention's own products, ~0.3 % more at full width, left out)."""
+    w, aw, mw = cfg.width, cfg.attn_width, cfg.mlp_width
+    return 2.0 * cfg.n_ctx * cfg.depth * (w * 3 * aw + aw * w + 2 * w * mw)
+
+
+def write_jukebox_wavs(directory: str) -> list:
+    """The 8 WAVs: a chord under noise each, made from the seed."""
+    rng = np.random.RandomState(SEED + 21)
+    os.makedirs(directory)
+    names = []
+    for i, (secs, channels) in enumerate(JUKEBOX_WAVS):
+        n = int(secs * DEFAULT_SR)
+        t = np.arange(n) / DEFAULT_SR
+        chord = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(60, 3000, 3)) / 3
+        x = 0.4 * chord[:, None] * (1 + 0.5 * np.sin(2 * np.pi * 0.25 * t))[:, None] \
+            + 0.05 * rng.randn(n, channels)
+        names.append(f"clip{i}.wav")
+        write_wav(os.path.join(directory, names[-1]), x, DEFAULT_SR)
+    return names
+
+
+def jukebox_fixture_run(npz: str, meta: dict, gold, clips) -> tuple:
+    """(a)'s run: the fixture bundle on the card in fp32 -> (codes differing
+    from the goldens, worst |d| of the pooled embeddings, of the prior's
+    activations on the goldens' codes)."""
+    enc = JukeboxEncoder.from_npz(npz, pool_frames_per_second=meta["fps"], device="cuda")
+    flipped, pooled_err = 0, 0.0
+    for name in ("full", "short", "stereo"):
+        audio = jb_encode.pad_or_crop(jb_encode.prepare_audio(clips[name]), enc.samples_per_ctx)
+        codes = jb_vqvae.encode_top(enc.vq_cfg, enc.vq_params,
+                                    torch.from_numpy(audio[None]).cuda())[0, : meta["n_ctx"]]
+        flipped += int((codes.cpu().numpy() != gold[f"{name}.codes"]).sum())
+        pooled = enc.get_acts_from_audio(clips[name])
+        check(pooled.shape == gold[f"{name}.pooled"].shape,
+              f"(a) {name}: {pooled.shape[0]} frames, the goldens {gold[f'{name}.pooled'].shape[0]}")
+        pooled_err = max(pooled_err, float(np.abs(pooled - gold[f"{name}.pooled"]).max()))
+    acts = jb_prior.prior_encode(enc.prior_cfg, enc.prior_params,
+                                 torch.from_numpy(gold["full.codes"][None]).cuda(),
+                                 *(torch.from_numpy(gold[k]).cuda() for k in ("x_cond", "y_cond")))
+    return flipped, pooled_err, float(np.abs(acts[0].cpu().numpy() - gold["full.acts"]).max())
+
+
+def jukebox_fixture_parity(directory: str) -> None:
+    """(a): the parity fixture's state dicts through the port's importer,
+    fp32 on the card: codes equal to the goldens, activations and pooled
+    embeddings within JUKEBOX_GOLD_ATOL; the same run with TF32 products
+    must fall outside."""
+    with open(os.path.join(JUKEBOX_FIX, "meta.json")) as f:
+        meta = json.load(f)
+    npz = os.path.join(directory, "mid.npz")
+    jb_import.main(["--vqvae", os.path.join(JUKEBOX_FIX, "vqvae_sd.pt"), "--prior",
+                    os.path.join(JUKEBOX_FIX, "prior_sd.pt"), "--output", npz,
+                    *meta["import_args"]])
+    gold = np.load(os.path.join(JUKEBOX_FIX, "goldens.npz"))
+    clips = np.load(os.path.join(JUKEBOX_FIX, "audio.npz"))
+    flipped, pooled_err, acts_err = jukebox_fixture_run(npz, meta, gold, clips)
+    with tf32_products():
+        tf32 = jukebox_fixture_run(npz, meta, gold, clips)
+    print(f"  (a) parity fixture (width {meta['width']}, n_ctx {meta['n_ctx']}), fp32 on the card: "
+          f"{flipped} codes of 3 x {meta['n_ctx']} differ from the goldens, pooled worst |d| "
+          f"{pooled_err:.3e}, acts on the goldens' codes {acts_err:.3e} (gate "
+          f"{JUKEBOX_GOLD_ATOL}); control, TF32 products: {tf32[0]} codes differ, pooled "
+          f"{tf32[1]:.3e}, acts {tf32[2]:.3e}")
+    check(flipped == 0, f"(a): {flipped} codes differ from the goldens")
+    check(max(pooled_err, acts_err) <= JUKEBOX_GOLD_ATOL,
+          f"(a): pooled {pooled_err:.3e}, acts {acts_err:.3e} over {JUKEBOX_GOLD_ATOL}")
+    check(tf32[0] > 0 or max(tf32[1:]) > JUKEBOX_GOLD_ATOL,
+          "(a) control: TF32 products flip no code and read within the gate: it cannot "
+          "tell them from fp32")
+
+
+def jukebox_wide_cycle(wav: str) -> None:
+    """(b): full width cut to one attention cycle (row, column, previous
+    row), fp32, one window, weights drawn on the CPU from the seed: codes
+    and activations on the card against the CPU plain path."""
+    vq_cfg, pr_cfg = JukeboxVQVAEConfig(), JukeboxPriorConfig(depth=3)
+    (vq, pr), draw_s = seconds(lambda: (jb_vqvae.init_vqvae_params(vq_cfg, SEED, "cpu"),
+                                             jb_prior.init_prior_params(pr_cfg, SEED, "cpu")))
+    samples, _ = read_wav(wav, jb_encode.JUKEBOX_SAMPLE_RATE)
+    audio = torch.from_numpy(jb_encode.pad_or_crop(jb_encode.prepare_audio(samples))[None])
+    with torch.inference_mode():
+        # the CPU: the latent, its codes and each position's top-2 margin
+        def cpu_codes():
+            x = audio[:, None, :]
+            for level in range(vq_cfg.levels):
+                x = jb_vqvae.encoder_conv_block(x, vq["levels"][level], vq_cfg, level)
+            book = vq["codebooks"][-1]
+            dist = 0.5 * book.square().sum(-1) - torch.matmul(x.transpose(1, 2), book.t())
+            top2 = dist.topk(2, dim=-1, largest=False).values[0]
+            eps = JUKEBOX_MARGIN_EPS * x[0].norm(dim=0) * book.norm(dim=-1).max()
+            return dist.argmin(-1)[0], top2[:, 1] - top2[:, 0] < eps
+
+        (codes, near), vq_cpu_s = seconds(cpu_codes)
+        acts, cpu_s = seconds(lambda: jb_prior.prior_encode(pr_cfg, pr, codes[None]))
+        vq_gpu = jb_encode.tree_to(vq, torch.device("cuda"))
+        pr_gpu = jb_encode.tree_to(pr, torch.device("cuda"))
+        card_codes = jb_vqvae.encode_top(vq_cfg, vq_gpu, audio.cuda())[0].cpu()
+        card = jb_prior.prior_encode(pr_cfg, pr_gpu, codes[None].cuda()).cpu()
+        with tf32_products():
+            card_tf32 = jb_prior.prior_encode(pr_cfg, pr_gpu, codes[None].cuda()).cpu()
+    differ = card_codes != codes
+    err, _ = rel_err(card, acts)
+    tf32_err, _ = rel_err(card_tf32, acts)
+    print(f"  (b) full width, depth 3 (row, column, previous row), fp32, one window: CPU plain path "
+          f"({torch.get_num_threads()} threads) weights drawn in {draw_s:.2f} s, VQ-VAE "
+          f"{vq_cpu_s:.2f} s, prior {cpu_s:.2f} s "
+          f"({prior_window_flops(pr_cfg) / cpu_s / 1e12:.2f} TFLOP/s); codes: {int(differ.sum())} "
+          f"of {len(codes)} differ, {int(near.sum())} under the margin eps "
+          f"({JUKEBOX_MARGIN_EPS} x |x||k|max), {len(set(codes.tolist()))} distinct; acts "
+          f"rel-to-max {err:.3e} (gate {JUKEBOX_WIDE_TOL}); control, TF32 products {tf32_err:.3e}")
+    check(not bool((differ & ~near).any()),
+          f"(b): {int((differ & ~near).sum())} codes differ where the CPU's margin is above eps")
+    check(err <= JUKEBOX_WIDE_TOL, f"(b): acts {err:.3e} over {JUKEBOX_WIDE_TOL}")
+    check(tf32_err > JUKEBOX_WIDE_TOL, f"(b) control: TF32 products read {tf32_err:.3e}, "
+          f"within {JUKEBOX_WIDE_TOL}: the gate cannot tell them from fp32")
+
+
+def run_jukebox_cli(wavs: str, out: str, skip_existing: bool = False, profile: bool = False):
+    """`extract_cli jukebox` on the card at its defaults (random full-width
+    weights from the seed, bf16 prior, batch 2, int16 upload, bf16 readback,
+    fps 10), through the CLI's own parser: (its JukeboxRun, the card's
+    kernel ms in that run with `profile`, the namespace)."""
+    ns = extract_cli.build_parser().parse_args(
+        ["jukebox", "--input-dir", wavs, "--output-dir", out, "--device", "cuda"]
+        + (["--skip-existing"] if skip_existing else []))
+    runs, busy_ms = [], None
+    if profile:
+        busy_ms = profile_device(lambda: runs.append(ns.fn(ns)), None, top=6,
+                                 what="  (c) extract_cli jukebox on the card, the encoder's "
+                                      "init included")
+    else:
+        runs.append(ns.fn(ns))
+    return runs[0], busy_ms, ns
+
+
+def check_jukebox_files(names: list, out: str) -> dict:
+    """Each .npy: [floor(floor(8192 n / 2^20) / 34), 4800] fp32, finite,
+    where n is the WAV's sample count after the 2^20 crop; returns the
+    frame counts."""
+    check(sorted(os.listdir(out)) == sorted(n.replace(".wav", ".npy") for n in names),
+          f"{out} holds {sorted(os.listdir(out))}")
+    frames = {}
+    for name, (secs, _) in zip(names, JUKEBOX_WAVS):
+        arr = np.load(os.path.join(out, name.replace(".wav", ".npy")))
+        n = min(int(secs * DEFAULT_SR), jb_encode.JUKEBOX_EXPECTED_SAMPLES_LEN)
+        want = ((8192 * n // jb_encode.JUKEBOX_EXPECTED_SAMPLES_LEN) // 34,
+                JukeboxPriorConfig().width)
+        check(arr.shape == want and arr.dtype == np.float32,
+              f"{name}: {arr.shape} {arr.dtype}, not {want} float32")
+        check(bool(np.isfinite(arr).all()), f"{name}: non-finite values")
+        frames[name] = arr.shape[0]
+    return frames
+
+
+def jukebox_depth_check(enc, wav: str, npy: str) -> dict:
+    """(d): one clip's codes through the 36-layer weights in fp32 on the
+    card; the CLI's bf16 .npy against it, and the fp32 run on the codes
+    rolled by one position (the control) against it; and one warm bf16
+    window's device time."""
+    samples, _ = read_wav(wav, jb_encode.JUKEBOX_SAMPLE_RATE)
+    prepared = jb_encode.prepare_audio(samples)
+    audio = enc._prepare_transfer(jb_encode.pad_or_crop(prepared, enc.samples_per_ctx)[None])
+    fp32_cfg = dataclasses.replace(enc.prior_cfg, dtype="float32")
+    frame_len = jb_encode.pooled_frame_len(enc.pool_frames_per_second)
+    with torch.inference_mode():
+        codes = jb_vqvae.encode_top(enc.vq_cfg, enc.vq_params, audio.cuda().float() / 32767.0)
+
+        def pooled(cfg, c):
+            return jb_encode.windowed_average(
+                jb_prior.prior_encode(cfg, enc.prior_params, c, *enc._conds), frame_len)[0].cpu()
+
+        fp32 = pooled(fp32_cfg, codes)
+        rolled = pooled(fp32_cfg, codes.roll(1, dims=1))
+        window_ms = median_ms(lambda: jb_prior.prior_encode(enc.prior_cfg, enc.prior_params,
+                                                            codes, *enc._conds), n=3)
+    got = torch.from_numpy(np.load(npy))
+    t = got.shape[0]
+    err, _ = rel_err(got, fp32[:t])
+    ctl, _ = rel_err(rolled[:t], fp32[:t])
+    print(f"  (d) {os.path.basename(npy)} ({t} frames): the CLI's bf16 output against fp32 on the "
+          f"same codes and 36-layer weights, rel-to-max {err:.3e} (gate {JUKEBOX_BF16_TOL}); "
+          f"control, fp32 on the codes rolled by one {ctl:.3e}")
+    check(err <= JUKEBOX_BF16_TOL, f"(d): bf16 {err:.3e} over {JUKEBOX_BF16_TOL}")
+    check(ctl > JUKEBOX_BF16_TOL, f"(d) control: rolled codes read {ctl:.3e}, within "
+          f"{JUKEBOX_BF16_TOL}: the gate cannot tell a shifted token stream")
+    return dict(err=err, ctl=ctl, window_ms=window_ms)
+
+
+def run_jukebox_path(directory: str, smi: str) -> None:
+    """Phase 21: the parity fixture on the card; full width at depth 3 on
+    the card and the CPU; WAV files -> `extract_cli jukebox` at full width
+    and depth -> pooled [T, 4800] encodings; bf16 against fp32; the
+    encodings -> from_encodings' answers."""
+    print(f"phase 21 on {smi}: Jukebox, the 5B prior at full width (4800 wide, 36 layers, 8 "
+          f"heads of 150, n_ctx 8192 in 128 blocks), the top VQ-VAE encoder (32 channels, "
+          f"hop 128, 2048 codes), seeded random weights, {len(JUKEBOX_WAVS)} WAVs, batch 2")
+    timings = {}
+    _, timings["a"] = seconds(lambda: jukebox_fixture_parity(directory))
+    wavs = os.path.join(directory, "wavs")
+    names = write_jukebox_wavs(wavs)
+    _, timings["b"] = seconds(
+        lambda: jukebox_wide_cycle(os.path.join(wavs, names[JUKEBOX_WIDE_WAV])))
+    torch.cuda.empty_cache()
+
+    out = os.path.join(directory, "card")
+    t0 = time.perf_counter()
+    run, busy_ms, ns = run_jukebox_cli(wavs, out, profile=True)
+    frames = check_jukebox_files(names, out)
+    mtimes = {n: os.path.getmtime(os.path.join(out, n)) for n in os.listdir(out)}
+    again, _, _ = run_jukebox_cli(wavs, out, skip_existing=True)
+    check(again.n == 0 and {n: os.path.getmtime(os.path.join(out, n))
+                            for n in os.listdir(out)} == mtimes,
+          f"--skip-existing: {again.n} files written again")
+    timings["c"] = time.perf_counter() - t0
+    audio_s = sum(s for s, _ in JUKEBOX_WAVS)
+    print(f"  (c) extract_cli jukebox on the card ({smi}): {run.n} WAVs ({audio_s} s of 44.1 kHz "
+          f"audio, {len(names) // 2} windows of 2) in {run.seconds:.3f} s after the encoder's init, "
+          f"profiled: {run.n / run.seconds:.3f} clips/s; read + prepare {run.host_s:.3f} s on the "
+          f"host ({run.host_s / run.seconds:.1%}), waiting on the device {run.encode_s:.3f} s; "
+          f"the card's kernels " + ("not measured" if busy_ms is None else
+                                    f"{busy_ms:.1f} ms of the run") +
+          f"; frames {sorted(frames.values())}; --skip-existing wrote {again.n}")
+
+    enc, init_s = seconds(lambda: extract_cli.build_jukebox_encoder(ns))
+    t0 = time.perf_counter()
+    d = jukebox_depth_check(enc, os.path.join(wavs, names[JUKEBOX_DEPTH_WAV]),
+                            os.path.join(out, names[JUKEBOX_DEPTH_WAV].replace(".wav", ".npy")))
+    timings["d"] = time.perf_counter() - t0
+    flops = prior_window_flops(enc.prior_cfg)
+    print(f"  the prior, one warm bf16 window on the card ({smi}): {d['window_ms']:.2f} ms for "
+          f"{flops / 1e12:.2f} TFLOP of projections, {flops / (d['window_ms'] / 1e3) / 1e12:.1f} "
+          f"TFLOP/s, {flops / (d['window_ms'] / 1e3) / PEAK_BF16_FLOPS:.1%} of 989 TFLOP/s; "
+          f"the encoder's init {init_s:.2f} s")
+    del enc
+    torch.cuda.empty_cache()
+    _, timings["e"] = seconds(
+        lambda: encodings_answers(directory, out, smi, "Jukebox-width", 4800))
+    print("  (a)-(e) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
 
 
 def checkpoint_io_alone(directory: str, smi: str) -> None:
@@ -3160,7 +3467,8 @@ def checkpoint_io_alone(directory: str, smi: str) -> None:
 
 # phases that `--phase N` runs alone: (label, fn(scratch directory, smi))
 ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
-         20: ("CLAP path", run_clap_path)}
+         20: ("CLAP path", run_clap_path),
+         21: ("Jukebox path", run_jukebox_path)}
 
 
 def set_up_card() -> tuple:
@@ -3247,6 +3555,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_clap_path(tmp, smi))
     print(f"phase 20 (CLAP path): {phase_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, phase_s = seconds(lambda: run_jukebox_path(tmp, smi))
+    print(f"phase 21 (Jukebox path): {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

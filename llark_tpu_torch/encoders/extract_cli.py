@@ -1,17 +1,21 @@
 """Batch embedding extraction: a directory of WAVs -> one .npy per file
 (counterpart of llark_tpu/encoders/extract_cli.py).
 
+  python -m llark_tpu_torch.encoders.extract_cli jukebox \
+      --input-dir wavs/ --output-dir embeds/ \
+      [--checkpoint bundle.npz | --checkpoint vqvae.pth.tar --prior-checkpoint prior.pth.tar] \
+      [--batch-size 2] [--num-shards 8 --shard-index 0] [--skip-existing] [--device cpu]
+
   python -m llark_tpu_torch.encoders.extract_cli clap \
       --input-dir wavs/ --output-dir embeds/ [--checkpoint <HF CLAP dir>] \
       [--batch-size 16] [--num-shards 8 --shard-index 0] [--skip-existing] \
       [--device cpu]
 
-Output: `{basename}.npy`, fp32 [1, 512] unit vectors for CLAP, the
-format LLark's encodings directories hold. A fleet is N processes with
---num-shards N --shard-index i. The model runs on the GPU unless
---device cpu is given. The `jukebox` subcommand takes the JAX package's
-flags and raises: the Jukebox encoder is Queue A item 5 of the port, and
---data-parallel (a device mesh) is item 9.
+Output: `{basename}.npy`: fp32 [T_pooled, 4800] for Jukebox (fps 10),
+[1, 512] unit vectors for CLAP, the format LLark's encodings directories
+hold. A fleet is N processes with --num-shards N --shard-index i. The
+model runs on the GPU unless --device cpu is given. --data-parallel (a
+device mesh) is Queue A item 9 of the port and raises.
 """
 
 from __future__ import annotations
@@ -77,11 +81,132 @@ def _refuse_data_parallel(ns) -> None:
             "run one process per card with --num-shards / --shard-index")
 
 
-def run_jukebox(ns) -> int:
+# ---------------------------------------------------------------------------
+# Jukebox
+# ---------------------------------------------------------------------------
+
+
+class JukeboxRun(NamedTuple):
+    """What `run_jukebox` did: encodings written, and seconds in all, on the
+    host (read + prepare, overlapped with the device) and waiting on
+    `encode_stream` for results beyond that."""
+
+    n: int
+    seconds: float
+    host_s: float
+    encode_s: float
+
+
+def _load_state_dict(path: str) -> dict:
+    import torch
+
+    from llark_tpu_torch.encoders.jukebox.import_torch import strip_module
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and not any("." in k for k in sd):
+        sd = sd["model"]  # the official checkpoints wrap: {"model": state_dict}
+    return strip_module(sd)
+
+
+def build_jukebox_encoder(ns):
+    """The encoder `run_jukebox` runs: an importer's .npz bundle, openai
+    state dicts (--checkpoint + --prior-checkpoint), --tiny, or random
+    full-width weights; the prior computes in bf16 on every route but
+    --tiny, as the JAX package's CLI sets it."""
+    from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig, JukeboxVQVAEConfig
+    from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder, reference_conds
+
     _refuse_data_parallel(ns)
-    raise NotImplementedError(
-        "the Jukebox encoder is Queue A item 5 of the port; the JAX package's "
-        "`python -m llark_tpu.encoders.extract_cli jukebox` extracts these encodings")
+    kw = dict(pool_frames_per_second=ns.fps, transfer_dtype=ns.transfer_dtype,
+              output_dtype=ns.output_dtype, device=ns.device)
+    if ns.checkpoint and ns.checkpoint.endswith(".npz"):
+        # an importer's bundle (weights + conditioner tables)
+        enc = JukeboxEncoder.from_npz(ns.checkpoint, **kw)
+        enc.prior_cfg.dtype = "bfloat16"
+        return enc
+    if ns.checkpoint:
+        from llark_tpu_torch.encoders.jukebox.conditioner import convert_conditioner
+        from llark_tpu_torch.encoders.jukebox.import_torch import (
+            convert_prior,
+            convert_vqvae,
+            infer_prior_config,
+        )
+
+        vq_sd = _load_state_dict(ns.checkpoint)
+        pr_sd = _load_state_dict(ns.prior_checkpoint)
+        vq_cfg = JukeboxVQVAEConfig()
+        pr_cfg = infer_prior_config(pr_sd, depth=ns.prior_depth)
+        pr_cfg.dtype = "bfloat16"
+        # x_cond / y_cond from the checkpoint's label conditioner; zeros only
+        # where the tables are absent (truncated test fixtures)
+        try:
+            cond_params = convert_conditioner(pr_sd)
+        except KeyError:
+            log.warning("prior checkpoint has no y_emb.* conditioner tables; "
+                        "using zero x_cond/y_cond")
+        else:
+            kw["x_cond"], kw["y_cond"] = reference_conds(vq_cfg, pr_cfg, cond_params)
+        return JukeboxEncoder(vq_cfg, pr_cfg, convert_vqvae(vq_sd, vq_cfg),
+                              convert_prior(pr_sd, pr_cfg), **kw)
+    log.warning("no --checkpoint given: RANDOM weights (throughput/dev only)")
+    if ns.tiny:
+        return JukeboxEncoder.random_init(JukeboxVQVAEConfig.tiny(), JukeboxPriorConfig.tiny(),
+                                          **kw)
+    return JukeboxEncoder.random_init(JukeboxVQVAEConfig(dtype="bfloat16"),
+                                      JukeboxPriorConfig(dtype="bfloat16"), **kw)
+
+
+def run_jukebox(ns) -> JukeboxRun:
+    from llark_tpu_torch.audio.io import read_wav
+    from llark_tpu_torch.encoders.jukebox.encode import (
+        JUKEBOX_SAMPLE_RATE,
+        pad_or_crop,
+        prepare_audio,
+    )
+
+    enc = build_jukebox_encoder(ns)
+    os.makedirs(ns.output_dir, exist_ok=True)
+    files = list_shard(ns.input_dir, ns.num_shards, ns.shard_index,
+                       ns.skip_existing, ns.output_dir)
+    log.info("shard %d/%d: %d files", ns.shard_index, ns.num_shards, len(files))
+    host_s = 0.0
+
+    def batches():
+        nonlocal host_s
+        for group in _batched(files, ns.batch_size):
+            t1 = time.perf_counter()
+            audio = np.zeros((ns.batch_size, enc.samples_per_ctx), np.float32)
+            lengths = np.zeros((ns.batch_size,), np.int64)
+            for i, name in enumerate(group):
+                samples, _ = read_wav(storage.join(ns.input_dir, name), JUKEBOX_SAMPLE_RATE)
+                prepared = prepare_audio(samples)
+                lengths[i] = min(len(prepared), enc.samples_per_ctx)
+                audio[i] = pad_or_crop(prepared, enc.samples_per_ctx)
+            host_s += time.perf_counter() - t1
+            yield audio, lengths
+
+    t0 = time.perf_counter()
+    n_done = 0
+    encode_s = 0.0
+    stream = enc.encode_stream(batches())
+    for group in _batched(files, ns.batch_size):
+        t1, host_before = time.perf_counter(), host_s
+        acts, counts = next(stream)  # asks batches() for the next group first
+        encode_s += time.perf_counter() - t1 - (host_s - host_before)
+        for i, name in enumerate(group):
+            _save_npy(storage.join(ns.output_dir, _npy_name(name)),
+                      acts[i, : counts[i]].astype(np.float32))
+            n_done += 1
+    run = JukeboxRun(n_done, time.perf_counter() - t0, host_s, encode_s)
+    log.info("wrote %d embeddings in %.3f s (%.3f clips/s): read + prepare %.3f s, "
+             "waiting on the device %.3f s", run.n, run.seconds,
+             run.n / max(run.seconds, 1e-9), run.host_s, run.encode_s)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# CLAP
+# ---------------------------------------------------------------------------
 
 
 def run_clap(ns) -> ClapRun:
@@ -138,7 +263,8 @@ def run_clap(ns) -> ClapRun:
 
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's parser; `parse_args(argv)` gives a namespace whose `fn(ns)`
-    runs the subcommand (`run_clap` returns its `ClapRun`)."""
+    runs the subcommand (`run_jukebox` returns its `JukeboxRun`, `run_clap`
+    its `ClapRun`)."""
     p = argparse.ArgumentParser("llark_tpu_torch.encoders.extract_cli")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in (("jukebox", run_jukebox), ("clap", run_clap)):

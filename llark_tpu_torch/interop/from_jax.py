@@ -13,6 +13,13 @@ imported here.
 (`llark_tpu/encoders/clap/htsat.py` `init_htsat_params`, or
 `clap_params_from_hf` of either package): `stages` is a list of dicts,
 each with its `blocks` (a list) and its `downsample` (None in the last).
+
+`jukebox_params_from_numpy` takes the Jukebox encoder's two trees
+(`llark_tpu/encoders/jukebox/vqvae.py` `init_vqvae_params`, `prior.py`
+`init_prior_params`, or `import_torch`'s of either package): the VQ-VAE's
+`levels` (a list of dicts with `stages`, each with its `res` list) and
+`codebooks`, and the prior's `x_emb`, `pos_emb` and `layers` stacked
+[depth // 3, 3, ...].
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.encoders.clap.htsat import HTSATConfig
+from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig
+from llark_tpu_torch.encoders.jukebox.prior import _layer_param_shapes
 from llark_tpu_torch.models.decoder import Params, torch_dtype
 from llark_tpu_torch.models.quant import is_quantized, is_quantized_int4
 
@@ -75,14 +84,15 @@ def params_from_numpy(
     return _convert(tree, dev, dtype)
 
 
-def _htsat_tree(tree: Any, device: torch.device) -> Any:
+def _float_tree(tree: Any, device: torch.device, dtype: torch.dtype = torch.float32) -> Any:
+    """Nested dicts / lists of numpy leaves -> the same of `dtype` tensors."""
     if isinstance(tree, Mapping):
-        return {k: _htsat_tree(v, device) for k, v in tree.items()}
+        return {k: _float_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_htsat_tree(v, device) for v in tree]
+        return [_float_tree(v, device, dtype) for v in tree]
     if tree is None:
         return None
-    return _to_tensor(tree, device, torch.float32)
+    return _to_tensor(tree, device, dtype)
 
 
 def htsat_params_from_numpy(
@@ -100,4 +110,71 @@ def htsat_params_from_numpy(
     pe = np.shape(tree["patch_embed"]["w"])
     if pe != (cfg.embed_dim, 1, cfg.patch_size, cfg.patch_size):
         raise ValueError(f"patch_embed/w {pe} does not fit the config's embed_dim and patch")
-    return _htsat_tree(tree, dev)
+    return _float_tree(tree, dev)
+
+
+def _shape_error(where: str, got, want) -> ValueError:
+    return ValueError(f"{where} is {tuple(got)}, expected {tuple(want)}")
+
+
+def _check_vq_tree(tree: Mapping) -> None:
+    levels, codebooks = tree["levels"], tree["codebooks"]
+    if len(levels) != len(codebooks):
+        raise ValueError(f"{len(levels)} levels but {len(codebooks)} codebooks")
+    channels = 1  # the raw audio
+    for l, level in enumerate(levels):
+        for s, stage in enumerate(level["stages"]):
+            where = f"levels/{l}/stages/{s}"
+            down = np.shape(stage["down_w"])
+            if len(down) != 3 or down[1] != channels:
+                raise _shape_error(f"{where}/down_w", down, ("C_out", channels, "K"))
+            width = down[0]
+            if np.shape(stage["down_b"]) != (width,):
+                raise _shape_error(f"{where}/down_b", np.shape(stage["down_b"]), (width,))
+            for d, res in enumerate(stage["res"]):
+                inner = np.shape(res["w1"])[0]
+                for name, want in (("w1", (inner, width, 3)), ("b1", (inner,)),
+                                   ("w2", (width, inner, 1)), ("b2", (width,))):
+                    if np.shape(res[name]) != want:
+                        raise _shape_error(f"{where}/res/{d}/{name}", np.shape(res[name]), want)
+            channels = width
+        proj = np.shape(level["proj_w"])
+        if len(proj) != 3 or proj[1:] != (channels, 3):
+            raise _shape_error(f"levels/{l}/proj_w", proj, ("emb", channels, 3))
+        channels = proj[0]
+        book = np.shape(codebooks[l])
+        if len(book) != 2 or book[1] != channels:
+            raise _shape_error(f"codebooks/{l}", book, ("bins", channels))
+
+
+def _check_prior_tree(tree: Mapping) -> None:
+    bins, width = np.shape(tree["x_emb"])
+    n_ctx = np.shape(tree["pos_emb"])[0]
+    if np.shape(tree["pos_emb"]) != (n_ctx, width):
+        raise _shape_error("pos_emb", np.shape(tree["pos_emb"]), (n_ctx, width))
+    layers = tree["layers"]
+    aw3, mw = np.shape(layers["attn_w"])[-1], np.shape(layers["fc_w"])[-1]
+    cycles = np.shape(layers["ln0_g"])[0]
+    cfg = JukeboxPriorConfig(width=width, m_attn=(aw3 // 3) / width, m_mlp=mw / width)
+    want = _layer_param_shapes(cfg)
+    if set(layers) != set(want):
+        raise ValueError(f"layers hold {sorted(layers)}, expected {sorted(want)}")
+    for name, shape in want.items():
+        if np.shape(layers[name]) != (cycles, 3) + shape:
+            raise _shape_error(f"layers/{name}", np.shape(layers[name]), (cycles, 3) + shape)
+
+
+def jukebox_params_from_numpy(
+    vq_tree: Mapping,
+    prior_tree: Mapping,
+    device: Union[str, torch.device] = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> tuple:
+    """JAX-layout Jukebox trees (numpy leaves) -> the port's (vq_params,
+    prior_params) on `device` (the GPU unless the caller asks for the CPU):
+    the VQ-VAE in fp32, the prior in `dtype` (default fp32; the encoder
+    computes in its config's dtype either way)."""
+    dev = resolve_device(device)
+    _check_vq_tree(vq_tree)
+    _check_prior_tree(prior_tree)
+    return (_float_tree(vq_tree, dev), _float_tree(prior_tree, dev, dtype or torch.float32))

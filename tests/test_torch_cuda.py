@@ -43,6 +43,12 @@ products 1.6e-4), the raw HTSAT-base embedding within HTSAT_TOL relative
 to max (fp32 5.0e-7, TF32 8.3e-4; `python -m
 llark_tpu_torch.tools.clap_precision` reads both). Each limit sits between
 the two readings, and a control case holds TF32 above HTSAT_TOL.
+
+The Jukebox encoder runs no hand-written kernel either (cuDNN convolutions
+and cuBLAS products): the parity fixture's mid-size Jukebox, imported on
+the card in fp32, must give the goldens' codes exactly and activations and
+pooled embeddings within JUKEBOX_GOLD_ATOL (the JAX package's bar,
+chip_smoke.py phase 21 (a)); the same with TF32 products must fail it.
 """
 
 import numpy as np
@@ -61,6 +67,7 @@ WQ_ROW_TOL = {"int8_matmul": 4e-3, "int4_matmul": 8e-3}
 WINDOW_TOL = 1e-4
 CLAP_TOL = 1e-6
 HTSAT_TOL = 5e-6
+JUKEBOX_GOLD_ATOL = 1e-6
 
 pytestmark = pytest.mark.cuda
 
@@ -1124,3 +1131,83 @@ def test_read_wav_then_embed_clip_on_the_card(dev, tmp_path):
     assert got.shape == want.shape == (1, 512) and got.dtype == np.float32
     assert abs(float(np.linalg.norm(got)) - 1.0) < 1e-5
     assert float(np.abs(got - want).max()) <= CLAP_TOL
+
+
+def _jukebox_fixture_on(dev, tmp_path, tf32=False):
+    """The parity fixture through the port's importer onto `dev` (fp32),
+    with TF32 products if asked: per clip, the codes and the pooled
+    embedding, and the prior's activations on the goldens' codes; and the
+    goldens."""
+    import json
+    import os
+
+    from llark_tpu_torch.encoders.jukebox import import_torch
+    from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder, pad_or_crop, prepare_audio
+    from llark_tpu_torch.encoders.jukebox.prior import prior_encode
+    from llark_tpu_torch.encoders.jukebox.vqvae import encode_top
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures", "jukebox_parity")
+    meta = json.load(open(os.path.join(fix, "meta.json")))
+    npz = str(tmp_path / "mid.npz")
+    import_torch.main(["--vqvae", os.path.join(fix, "vqvae_sd.pt"), "--prior",
+                       os.path.join(fix, "prior_sd.pt"), "--output", npz, *meta["import_args"]])
+    gold, clips = np.load(os.path.join(fix, "goldens.npz")), np.load(os.path.join(fix, "audio.npz"))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        enc = JukeboxEncoder.from_npz(npz, pool_frames_per_second=meta["fps"], device=dev)
+        got = {}
+        for name in ("full", "short", "stereo"):
+            audio = pad_or_crop(prepare_audio(clips[name]), enc.samples_per_ctx)
+            codes = encode_top(enc.vq_cfg, enc.vq_params, torch.from_numpy(audio[None]).to(dev))
+            got[f"{name}.codes"] = codes[0, : meta["n_ctx"]].cpu().numpy()
+            got[f"{name}.pooled"] = enc.get_acts_from_audio(clips[name])
+        got["full.acts"] = prior_encode(
+            enc.prior_cfg, enc.prior_params, torch.from_numpy(gold["full.codes"][None]).to(dev),
+            *(torch.from_numpy(gold[k]).to(dev) for k in ("x_cond", "y_cond")))[0].cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return got, gold
+
+
+def test_jukebox_fixture_on_the_card_equals_the_goldens(dev, tmp_path):
+    got, gold = _jukebox_fixture_on(dev, tmp_path)
+    for name in ("full", "short", "stereo"):
+        np.testing.assert_array_equal(got[f"{name}.codes"], gold[f"{name}.codes"], err_msg=name)
+        assert got[f"{name}.pooled"].shape == gold[f"{name}.pooled"].shape, name
+        assert np.abs(got[f"{name}.pooled"] - gold[f"{name}.pooled"]).max() <= JUKEBOX_GOLD_ATOL
+    assert np.abs(got["full.acts"] - gold["full.acts"]).max() <= JUKEBOX_GOLD_ATOL
+
+
+def test_jukebox_fixture_with_tf32_products_falls_outside_the_gate(dev, tmp_path):
+    # the control of the case above: TF32 products must flip a code or read
+    # above JUKEBOX_GOLD_ATOL, or the gate could not tell them from fp32
+    got, gold = _jukebox_fixture_on(dev, tmp_path, tf32=True)
+    worst = max(np.abs(got[k] - gold[k]).max() for k in ("full.acts", "full.pooled"))
+    flipped = sum(int((got[f"{n}.codes"] != gold[f"{n}.codes"]).sum())
+                  for n in ("full", "short", "stereo"))
+    assert flipped or worst > JUKEBOX_GOLD_ATOL
+
+
+def test_jukebox_encode_stream_on_the_card_equals_encode_batch_and_the_cpu(dev):
+    # the stream enqueues batch k + 1 before it waits for batch k, whose
+    # readback runs on a copy stream into pinned memory
+    from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig, JukeboxVQVAEConfig
+    from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder
+
+    vq_cfg, pr_cfg = JukeboxVQVAEConfig.tiny(), JukeboxPriorConfig.tiny()
+    card = JukeboxEncoder.random_init(vq_cfg, pr_cfg, device=dev, pool_frames_per_second=None,
+                                      transfer_dtype="int16")
+    cpu = JukeboxEncoder(vq_cfg, pr_cfg, card.vq_params, card.prior_params, device="cpu",
+                         pool_frames_per_second=None, transfer_dtype="int16")
+    rng = np.random.RandomState(12)
+    batches = [((0.3 * rng.randn(2, 512)).astype(np.float32), np.array([512, 64 * i]))
+               for i in range(4)]
+    streamed = list(card.encode_stream(iter(batches)))
+    assert len(streamed) == 4
+    for (audio, lengths), (acts, counts) in zip(batches, streamed):
+        want, want_counts = card.encode_batch(audio, lengths)
+        np.testing.assert_array_equal(acts, want)
+        np.testing.assert_array_equal(counts, want_counts)
+        ref, _ = cpu.encode_batch(audio, lengths)
+        assert _rel_to_max(torch.from_numpy(acts), torch.from_numpy(ref)) <= 1e-5

@@ -2,6 +2,13 @@
 package's, and the CLAP path as a whole: WAV files -> [1, 512] .npy
 embeddings -> a CLAP-width LLark's greedy answer, on the CPU.
 
+`jukebox`: both CLIs run `--checkpoint <npz>` (the parity fixture's state
+dicts through the port's importer: a mid-size Jukebox, 512-token window of
+65536 samples, width 64) over the same 44.1 kHz WAVs with the CLI's
+defaults: bf16 prior, int16 upload, bf16 output, fps 10. They must write the
+same file names and [floor(floor(512 n / 65536) / 34), 64] fp32 arrays
+within JUKEBOX_TOL relative to max (below).
+
 Both CLIs run `clap --tiny` over the same WAVs (48 kHz; one longer than
 10 s in each batch, so rand_trunc draws from the run's RandomState) with
 the same HTSAT weights: each package's seeded init is replaced by one
@@ -12,7 +19,9 @@ within 1e-5. The embeddings then go through each package's
 numpy parameter tree, and the greedy tokens must be EQUAL.
 """
 
+import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +42,7 @@ from llark_tpu_torch.audio.io import write_wav
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.encoders import extract_cli as tcli
 from llark_tpu_torch.encoders.clap import encode as tenc
+from llark_tpu_torch.encoders.jukebox import import_torch as jb_import
 from llark_tpu_torch.encoders.clap.htsat import HTSATConfig, init_htsat_params
 from llark_tpu_torch.interop.from_jax import htsat_params_from_numpy, params_from_numpy
 from llark_tpu_torch.models.fusion import init_llark_params
@@ -42,6 +52,17 @@ SR = 48000
 # seconds: batches of 2 are (12, 3) and (11, 0.5): a rand_trunc draw in each
 SECONDS = {"a_long.wav": 12.0, "b_short.wav": 3.0, "c_long.wav": 11.0, "d_tiny.wav": 0.5}
 PROMPT = "What is the genre of this music?"
+JB_FIX = os.path.join(os.path.dirname(__file__), "fixtures", "jukebox_parity")
+JB_SR = 44100
+# (seconds, channels): the fixture's window is 65536 samples (1.486 s), so
+# one clip is cropped, three are padded, two are stereo; batches of 2
+JB_WAVS = {"a_crop.wav": (2.0, 1), "b_pad.wav": (0.5, 2), "c_pad.wav": (1.2, 1),
+           "d_pad.wav": (0.9, 2)}
+# The two CLIs' .npy files, relative to max: both run the prior in bf16 and
+# round the pooled output to bf16, so they differ by bf16 steps where fp32
+# sums taken in another order round apart (the four files read 2.8e-3 to
+# 6.7e-3): held at the repo's bf16 gate
+JUKEBOX_TOL = 5e-2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,15 +174,101 @@ def test_run_clap_returns_what_it_did(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["jukebox"], "Queue A item 5"),
-    (["clap", "--data-parallel"], "Queue A item 9"),
-    (["jukebox", "--data-parallel", "--fps", "10"], "Queue A item 9"),
+    pytest.param(["clap", "--data-parallel"], "Queue A item 9", id="argv1-Queue A item 9"),
+    pytest.param(["jukebox", "--data-parallel", "--fps", "10"], "Queue A item 9",
+                 id="argv2-Queue A item 9"),
 ])
 def test_jukebox_and_data_parallel_name_their_queue_items(tmp_path, argv, item):
     os.makedirs(tmp_path / "wavs")
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv[:1] + ["--input-dir", str(tmp_path / "wavs"), "--output-dir",
                               str(tmp_path / "out"), "--device", "cpu", "--tiny"] + argv[1:])
+
+
+@pytest.fixture(scope="module")
+def jukebox_extracted(tmp_path_factory):
+    """Both packages' `jukebox --checkpoint <npz>` over the same WAVs, at
+    the CLI's defaults; returns the WAV directory, names, output
+    directories and the port's JukeboxRun."""
+    root = tmp_path_factory.mktemp("jukebox")
+    meta = json.load(open(os.path.join(JB_FIX, "meta.json")))
+    npz = str(root / "mid.npz")
+    jb_import.main(["--vqvae", os.path.join(JB_FIX, "vqvae_sd.pt"),
+                    "--prior", os.path.join(JB_FIX, "prior_sd.pt"),
+                    "--output", npz, *meta["import_args"]])
+    wavs = str(root / "wavs")
+    rng = np.random.RandomState(11)
+    os.makedirs(wavs)
+    for name, (secs, channels) in JB_WAVS.items():
+        n = int(secs * JB_SR)
+        tone = np.sin(2 * np.pi * rng.uniform(100, 2000) * np.arange(n) / JB_SR)
+        write_wav(os.path.join(wavs, name), 0.3 * tone[:, None] + 0.05 * rng.randn(n, channels),
+                  JB_SR)
+    out = {"jax": str(root / "jax"), "torch": str(root / "torch")}
+    args = ["jukebox", "--input-dir", wavs, "--checkpoint", npz]
+    assert jcli.main(args + ["--output-dir", out["jax"]]) == 0
+    ns = tcli.build_parser().parse_args(args + ["--output-dir", out["torch"], "--device", "cpu"])
+    return wavs, sorted(JB_WAVS), out, ns.fn(ns)
+
+
+def test_jukebox_cli_writes_what_the_reference_writes(jukebox_extracted):
+    _, names, out, run = jukebox_extracted
+    assert isinstance(run, tcli.JukeboxRun) and run.n == len(names)
+    assert 0 < run.host_s < run.seconds and 0 < run.encode_s < run.seconds
+    npys = [n.replace(".wav", ".npy") for n in names]
+    assert sorted(os.listdir(out["torch"])) == sorted(os.listdir(out["jax"])) == npys
+    for name, npy in zip(names, npys):
+        got, want = np.load(os.path.join(out["torch"], npy)), np.load(os.path.join(out["jax"], npy))
+        secs, _ = JB_WAVS[name]
+        n = min(int(secs * JB_SR), 65536)
+        assert got.shape == want.shape == ((512 * n // 65536) // 34, 64), name
+        assert got.dtype == want.dtype == np.float32 and np.isfinite(got).all()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        assert err <= JUKEBOX_TOL, (name, err)
+
+
+def test_jukebox_cli_skip_existing(jukebox_extracted, tmp_path):
+    wavs, names, out, _ = jukebox_extracted
+    npys = [n.replace(".wav", ".npy") for n in names]
+    shutil.copytree(out["torch"], tmp_path / "emb")
+    os.remove(tmp_path / "emb" / npys[1])
+    before = {n: os.path.getmtime(tmp_path / "emb" / n) for n in npys if n != npys[1]}
+    ns = tcli.build_parser().parse_args(
+        ["jukebox", "--input-dir", wavs, "--output-dir", str(tmp_path / "emb"), "--device", "cpu",
+         "--checkpoint", os.path.join(os.path.dirname(out["torch"]), "mid.npz"),
+         "--skip-existing"])
+    run = ns.fn(ns)
+    assert run.n == 1 and sorted(os.listdir(tmp_path / "emb")) == npys
+    assert {n: os.path.getmtime(tmp_path / "emb" / n) for n in before} == before
+    np.testing.assert_array_equal(np.load(tmp_path / "emb" / npys[1]),
+                                  np.load(os.path.join(out["torch"], npys[1])))
+    assert ns.fn(ns).n == 0
+
+
+def test_jukebox_cli_openai_route_checks_the_vqvae_as_the_reference(tmp_path):
+    # --checkpoint + --prior-checkpoint read openai state dicts with the 5B
+    # VQ-VAE config (4 res blocks a stage); the fixture's has 2, and both
+    # packages refuse it rather than truncate
+    os.makedirs(tmp_path / "wavs")
+    args = ["jukebox", "--input-dir", str(tmp_path / "wavs"), "--output-dir", str(tmp_path / "out"),
+            "--checkpoint", os.path.join(JB_FIX, "vqvae_sd.pt"),
+            "--prior-checkpoint", os.path.join(JB_FIX, "prior_sd.pt"), "--prior-depth", "6"]
+    with pytest.raises(ValueError, match="checkpoint has 2 res blocks") as want:
+        jcli.main(args)
+    with pytest.raises(ValueError, match="checkpoint has 2 res blocks") as got:
+        tcli.main(args + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+
+
+def test_jukebox_cli_needs_the_gpu_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    os.makedirs(tmp_path / "wavs")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["jukebox", "--input-dir", str(tmp_path / "wavs"), "--output-dir",
+                   str(tmp_path / "out"), "--tiny"])
+    assert tcli.main(["jukebox", "--input-dir", str(tmp_path / "wavs"), "--output-dir",
+                      str(tmp_path / "out"), "--tiny", "--device", "cpu"]) == 0
 
 
 def test_clap_embeddings_answer_alike_through_both_packages(extracted):

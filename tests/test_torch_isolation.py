@@ -54,7 +54,10 @@ def test_port_imports_without_jax_or_reference():
     assert "llark_tpu_torch.ops.decode_attention" in modules
     for new in ("models.quant", "ops.int8_matmul", "ops.int4_matmul", "audio.io", "audio.mel",
                 "encoders.extract_cli", "encoders.clap.encode", "encoders.clap.htsat",
-                "encoders.clap.import_hf"):
+                "encoders.clap.import_hf", "encoders.jukebox", "encoders.jukebox.config",
+                "encoders.jukebox.conditioner", "encoders.jukebox.vqvae",
+                "encoders.jukebox.prior", "encoders.jukebox.import_torch",
+                "encoders.jukebox.encode", "interop.from_jax"):
         assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
