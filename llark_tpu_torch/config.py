@@ -7,8 +7,8 @@ switches the hand-written Hopper flash-attention kernels (forward, and the
 backward when training) and `use_flash_decode` the flash-decode kernel; the
 names are the JAX package's so that the same keyword arguments build the
 same model in both. `kv_cache_quant` makes the decoder keep an int8 KV
-cache with fp32 per-position scales. MoE, a feature of a later slice, keeps
-only the field that makes the decoder raise.
+cache with fp32 per-position scales. The `moe_*` fields make the MLP a
+Mixture-of-Experts (`models/moe.py`).
 
 Also own copies of the training argument dataclasses, `write_args_to_file`
 and `parse_args` (llark_tpu/config.py:160-335), field for field, so the
@@ -72,14 +72,33 @@ class ModelConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_dropout: float = 0.0
-    # MoE (not in this slice of the port: the decoder raises)
+    # Mixture-of-Experts (0 = dense MLP): top-k routing with a static
+    # capacity per sequence row; expert weights stack [L, E, ...]
+    # (models/moe.py)
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
+    # "switch": raw-softmax gates + capacity drops (GShard/Switch).
+    # "mixtral": top-k gates renormalized to sum 1, no token drops (HF
+    # MixtralSparseMoeBlock); load_pretrained_backbone selects it for a
+    # checkpoint with block_sparse_moe.* tensors.
+    moe_routing: str = "switch"
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
         if self.remat_policy not in ("full", "dots", "dots_narrow"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        if self.moe_routing not in ("switch", "mixtral"):
+            raise ValueError(f"unknown moe_routing={self.moe_routing!r}")
+        if self.moe_num_experts > 0 and self.moe_top_k > self.moe_num_experts:
+            # with every expert masked, argmax over the zero row would send
+            # each token to expert 0 again (moe_ffn)
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be <= "
+                f"moe_num_experts={self.moe_num_experts}"
+            )
 
     @classmethod
     def llama2_7b(cls, **kw) -> "ModelConfig":
@@ -142,7 +161,7 @@ class ModelArguments:
     pretrain_mm_mlp_adapter: Optional[str] = None
     mm_use_audio_start_end: bool = True
     mm_hidden_size: int = 4800
-    # MoE: > 0 raises in this slice of the port
+    # MoE (0 = dense MLP; see ModelConfig)
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -185,8 +204,7 @@ class TrainingArguments:
     """Training hyperparameters (reference: m2t/arguments.py:81-109 and the
     hyperparameters-of-record in scripts/training/train_llark.sh:24-44).
     The same fields as the JAX package's; the trainer raises on the ones
-    the port does not run yet (MoE, multihost, a mesh larger than one
-    device)."""
+    the port does not run yet (multihost, a mesh larger than one device)."""
 
     output_dir: str = "/tmp/llark_tpu"
     cache_dir: Optional[str] = None

@@ -262,7 +262,8 @@ def main(argv=None):
     check_serving_args(args)
     if args.mesh_shape:
         raise NotImplementedError(
-            "mesh serving comes with the multi-card serving slice of the port"
+            "mesh serving comes with the multi-card serving slice of the port "
+            "(ROADMAP.md Queue A item 9)"
         )
 
     cfg, params, bundle = load_pretrained_model(args.checkpoint_dir, args.ckpt_num, args.device)

@@ -141,7 +141,8 @@ class BatchedServer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving comes with the multi-card serving slice of the port"
+                "mesh serving comes with the multi-card serving slice of the port "
+                "(ROADMAP.md Queue A item 9)"
             )
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:

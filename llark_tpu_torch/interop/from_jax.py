@@ -6,8 +6,10 @@ init_llark_params(cfg, key))`, layer weights stacked [L, ...] -- and
 returns the port's parameters: the same nested dicts of torch tensors. A
 weight-only quantized tree (`quantize_params_int8`, `..._int4_incremental`
 of either package) carries over as it is: integer payloads keep int8 and
-their scales fp32. The tree is plain dicts of numpy arrays, so nothing of the JAX package is
-imported here.
+their scales fp32. A MoE tree's `moe_router` [L, h, E] and expert stacks
+`moe_w_{gate,up,down}` [L, E, in, out] (quantized: payloads [L, E, ...],
+scales [L, E, 1 or G, out]) carry over the same way. The tree is plain
+dicts of numpy arrays, so nothing of the JAX package is imported here.
 
 `htsat_params_from_numpy` does the same for the CLAP encoder's HTSAT tree
 (`llark_tpu/encoders/clap/htsat.py` `init_htsat_params`, or
@@ -81,6 +83,11 @@ def params_from_numpy(
             raise ValueError(
                 f"layers/{name} is not a [num_layers={cfg.num_layers}, ...] stacked array"
             )
+    router = tree["layers"].get("moe_router")
+    experts = 0 if router is None else np.shape(router)[-1]
+    if experts != cfg.moe_num_experts:
+        raise ValueError(f"the tree has {experts} experts, the config "
+                         f"moe_num_experts={cfg.moe_num_experts}")
     return _convert(tree, dev, dtype)
 
 

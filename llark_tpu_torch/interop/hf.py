@@ -20,13 +20,17 @@ leaf is one preallocated tensor filled a layer at a time, so an import
 holds one copy of the weights on the device beside the state dict (and
 none of a layer once it is copied, when the importer owns the dict).
 
-Mixtral checkpoints (`block_sparse_moe.*`) raise: MoE is not in the port
-yet (ROADMAP.md Queue A item 9).
+Mixtral checkpoints (`block_sparse_moe.*`) import into the MoE layout
+(`models/moe.py`): the router `gate` [E, H] of each layer becomes
+`moe_router` [L, H, E] and expert e's `w1` / `w3` / `w2` become
+`moe_w_gate` / `moe_w_up` / `moe_w_down` [L, E, in, out]; the export is the
+inverse, under a `MixtralForCausalLM` config.json.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import mmap
 import os
 import struct
@@ -43,9 +47,12 @@ from llark_tpu_torch.models.decoder import torch_dtype
 Params = Dict[str, Any]
 StateDict = Dict[str, torch.Tensor]
 
+log = logging.getLogger(__name__)
+
+# a Mixtral (MoE) state dict has it
 _MOE_KEY = "model.layers.0.block_sparse_moe.gate.weight"
-_MOE_MESSAGE = ("Mixtral (block_sparse_moe) weights: MoE layers come with a later slice "
-                "of the port (ROADMAP.md Queue A item 9)")
+# our expert stacks and Mixtral's expert weights: w1 gate, w3 up, w2 down
+_MIXTRAL_EXPERTS = (("moe_w_gate", "w1"), ("moe_w_down", "w2"), ("moe_w_up", "w3"))
 
 # ---------------------------------------------------------------------------
 # state-dict loading (safetensors / torch .bin, sharded or single-file)
@@ -156,6 +163,18 @@ class _Importer:
             out[i].copy_(t)
         return out
 
+    def experts(self, pattern: str, n_layers: int, n_experts: int) -> torch.Tensor:
+        """[L, E, in, out] from per-(layer, expert) HF Linear weights [out, in]."""
+        out = None
+        for i in range(n_layers):
+            for e in range(n_experts):
+                t = self.take(pattern.format(i=i, e=e)).T
+                if out is None:
+                    out = torch.empty((n_layers, n_experts, *t.shape), dtype=self.dtype,
+                                      device=self.device)
+                out[i, e].copy_(t)
+        return out
+
 
 def _importer(sd, cfg, dtype, device, consume) -> _Importer:
     pdt = torch_dtype(dtype or cfg.param_dtype)
@@ -169,21 +188,34 @@ def llama_params_from_hf(
     device: Union[str, torch.device] = "cuda",
     consume: bool = False,
 ) -> Params:
-    """HF LlamaForCausalLM state dict -> stacked decoder params on `device`
-    in `dtype` (default cfg.param_dtype). `consume` empties `sd` as it goes."""
-    if _MOE_KEY in sd:
-        raise NotImplementedError(_MOE_MESSAGE)
+    """HF LlamaForCausalLM (or MixtralForCausalLM) state dict -> stacked
+    decoder params on `device` in `dtype` (default cfg.param_dtype).
+    `consume` empties `sd` as it goes. A Mixtral state dict's experts come
+    in as [L, E, in, out] stacks (llark_tpu/interop/hf.py:108-132)."""
     L = cfg.num_layers
+    moe_experts = sd[_MOE_KEY].shape[0] if _MOE_KEY in sd else 0
+    if moe_experts and cfg.moe_num_experts and cfg.moe_num_experts != moe_experts:
+        raise ValueError(f"checkpoint has {moe_experts} experts, "
+                         f"cfg.moe_num_experts={cfg.moe_num_experts}")
     imp = _importer(sd, cfg, dtype, device, consume)
     layers: Params = {
         "attn_norm_scale": imp.stacked("model.layers.{i}.input_layernorm.weight", L),
         "mlp_norm_scale": imp.stacked("model.layers.{i}.post_attention_layernorm.weight", L),
     }
-    for ours, theirs in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                         ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
-                         ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
-                         ("w_down", "mlp.down_proj")):
+    projections = [("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                   ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")]
+    if not moe_experts:
+        projections += [("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                        ("w_down", "mlp.down_proj")]
+    for ours, theirs in projections:
         layers[ours] = imp.stacked(f"model.layers.{{i}}.{theirs}.weight", L, transpose=True)
+    if moe_experts:
+        layers["moe_router"] = imp.stacked("model.layers.{i}.block_sparse_moe.gate.weight", L,
+                                           transpose=True)
+        for ours, theirs in _MIXTRAL_EXPERTS:
+            layers[ours] = imp.experts(
+                f"model.layers.{{i}}.block_sparse_moe.experts.{{e}}.{theirs}.weight", L,
+                moe_experts)
     return {
         "embed": imp.single("model.embed_tokens.weight"),
         "layers": layers,
@@ -263,11 +295,27 @@ def load_pretrained_backbone(
     path: str, cfg: ModelConfig, device: Union[str, torch.device] = "cuda"
 ) -> Params:
     """Import an HF checkpoint dir onto `device`, detect the architecture by
-    key prefix, resize the vocab to cfg.vocab_size."""
+    key prefix, resize the vocab to cfg.vocab_size.
+
+    A Mixtral checkpoint (block_sparse_moe.* tensors) loaded into a MoE
+    config sets, in `cfg` itself, moe_routing="mixtral" and a drop-free
+    capacity factor E/K (llark_tpu/interop/hf.py:216-254): HF's
+    MixtralSparseMoeBlock renormalizes the top-k gates and never drops a
+    token, so Switch routing would scale every MoE output down."""
     sd = load_hf_state_dict(path)
     if any(k.startswith("transformer.blocks.") for k in sd):
         params = mpt_params_from_hf(sd, cfg, device=device, consume=True)
     else:
+        if _MOE_KEY in sd and cfg.moe_num_experts > 0:
+            if cfg.moe_routing != "mixtral":
+                log.warning("Mixtral checkpoint: switching moe_routing %r -> 'mixtral' "
+                            "(renormalized gates, no drops)", cfg.moe_routing)
+                cfg.moe_routing = "mixtral"
+            drop_free = cfg.moe_num_experts / cfg.moe_top_k
+            if cfg.moe_capacity_factor < drop_free:
+                log.warning("Mixtral checkpoint: raising moe_capacity_factor %.3g -> %.3g "
+                            "so no token is ever dropped", cfg.moe_capacity_factor, drop_free)
+                cfg.moe_capacity_factor = drop_free
         params = llama_params_from_hf(sd, cfg, device=device, consume=True)
     if params["embed"].shape[0] != cfg.vocab_size:
         params = resize_embeddings(params, cfg.vocab_size)
@@ -288,10 +336,9 @@ def hf_state_dict_from_params(
     cfg: ModelConfig, params: Params, include_projector: bool = True
 ) -> StateDict:
     """Inverse of the importers: fp32 CPU tensors. Keys match what the
-    reference's wrapped models save/load, including `model.mm_projector.*`."""
+    reference's wrapped models save/load, including `model.mm_projector.*`;
+    a MoE tree's under Mixtral's `block_sparse_moe.*` names."""
     layers = params["layers"]
-    if "moe_router" in layers or cfg.moe_num_experts:
-        raise NotImplementedError(_MOE_MESSAGE)
     L = cfg.num_layers
     sd: StateDict = {}
 
@@ -316,11 +363,21 @@ def hf_state_dict_from_params(
             sd["transformer.norm_f.bias"] = _host(params["final_norm_bias"])
     else:
         sd["model.embed_tokens.weight"] = _host(params["embed"])
-        for ours, theirs in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                             ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
-                             ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
-                             ("w_down", "mlp.down_proj")):
+        projections = [("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                       ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")]
+        if "moe_router" not in layers:
+            projections += [("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                            ("w_down", "mlp.down_proj")]
+        for ours, theirs in projections:
             unstack(layers[ours], f"model.layers.{{i}}.{theirs}.weight", True)
+        if "moe_router" in layers:
+            unstack(layers["moe_router"], "model.layers.{i}.block_sparse_moe.gate.weight", True)
+            for ours, theirs in _MIXTRAL_EXPERTS:
+                stack = layers[ours]  # [L, E, in, out]
+                for i in range(L):
+                    for e in range(stack.shape[1]):
+                        sd[f"model.layers.{i}.block_sparse_moe.experts.{e}.{theirs}.weight"] = \
+                            _host(stack[i, e], True)
         unstack(layers["attn_norm_scale"], "model.layers.{i}.input_layernorm.weight")
         unstack(layers["mlp_norm_scale"], "model.layers.{i}.post_attention_layernorm.weight")
         sd["model.norm.weight"] = _host(params["final_norm_scale"])
@@ -347,9 +404,12 @@ def hf_config(cfg: ModelConfig) -> Dict[str, Any]:
             "vocab_size": cfg.vocab_size,
             "mm_hidden_size": cfg.mm_hidden_size,
         }
-    return {
-        "model_type": "llama",
-        "architectures": ["LlamaForCausalLM"],
+    # a MoE state dict carries Mixtral's tensor names, so the config says
+    # mixtral too: a loader told 'llama' would drop every expert weight
+    moe = bool(cfg.moe_num_experts)
+    config = {
+        "model_type": "mixtral" if moe else "llama",
+        "architectures": ["MixtralForCausalLM" if moe else "LlamaForCausalLM"],
         "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size,
         "num_hidden_layers": cfg.num_layers,
@@ -361,6 +421,10 @@ def hf_config(cfg: ModelConfig) -> Dict[str, Any]:
         "vocab_size": cfg.vocab_size,
         "mm_hidden_size": cfg.mm_hidden_size,
     }
+    if moe:
+        config["num_local_experts"] = cfg.moe_num_experts
+        config["num_experts_per_tok"] = cfg.moe_top_k
+    return config
 
 
 def save_hf_checkpoint(path: str, cfg: ModelConfig, params: Params) -> str:

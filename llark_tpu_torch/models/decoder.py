@@ -39,7 +39,13 @@ LoRA dropout draws each mask from a generator seeded by an integer that
 of a checkpointed layer draws the same mask (torch.utils.checkpoint restores
 the default generator's state, not a generator of the caller's).
 
-Not in this slice of the port, raising a clear error: MoE layers.
+With `cfg.moe_num_experts` > 0 the MLP is a Mixture-of-Experts
+(`models/moe.py`): the layer tree holds `moe_router` [L, h, E] and the
+expert stacks `moe_w_{gate,up,down}` [L, E, in, out] in place of the dense
+MLP's weights and biases. A forward without a KV cache returns, in place of
+the cache, {"moe_aux_loss": the layers' load-balancing losses summed,
+"moe_dropped_frac": their dropped fractions meaned}, which the train step
+reads (llark_tpu/models/decoder.py:757-768).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch.utils.checkpoint
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.models.lora import lora_scale
+from llark_tpu_torch.models.moe import init_moe_layer_params, moe_ffn
 from llark_tpu_torch.models.quant import (
     dequantize_weight_int4,
     quantized_dense,
@@ -144,9 +151,9 @@ def init_decoder_params(
     on axis 0), drawn from `generator` on `device`. The init schemes are
     the JAX package's (cfg.init_scheme: kaiming N(0, 1/fan_in), xavier
     N(0, 2/(fan_in + fan_out)), small N(0, 2/(5 fan_in))); the numbers
-    differ, since the two frameworks' generators do."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE layers come with a later slice of the port")
+    differ, since the two frameworks' generators do. A MoE config gets the
+    router and expert stacks in place of the dense MLP and its biases
+    (llark_tpu/models/decoder.py:132-149)."""
     pdt = torch_dtype(cfg.param_dtype)
     h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -175,20 +182,26 @@ def init_decoder_params(
         "wk": dense((L, h, nkv * hd), h),
         "wv": dense((L, h, nkv * hd), h),
         "wo": dense((L, nh * hd, h), nh * hd),
-        "w_up": dense((L, h, i), h),
-        "w_down": dense((L, i, h), i),
     }
-    if cfg.mlp_activation == "silu":
-        layers["w_gate"] = dense((L, h, i), h)
+    moe = cfg.moe_num_experts > 0
+    if moe:
+        layers.update(init_moe_layer_params(cfg, dense))
+    else:
+        layers["w_up"] = dense((L, h, i), h)
+        layers["w_down"] = dense((L, i, h), i)
+        if cfg.mlp_activation == "silu":
+            layers["w_gate"] = dense((L, h, i), h)
     if cfg.norm_type == "layernorm":
         layers["attn_norm_bias"] = const((L, h), 0.0)
         layers["mlp_norm_bias"] = const((L, h), 0.0)
     if cfg.use_bias:
-        for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd),
-                            ("bo", h), ("b_up", i), ("b_down", h)):
+        widths = [("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd), ("bo", h)]
+        if not moe:
+            widths += [("b_up", i), ("b_down", h)]
+            if cfg.mlp_activation == "silu":
+                widths.append(("b_gate", i))
+        for name, width in widths:
             layers[name] = const((L, width), 0.0)
-        if cfg.mlp_activation == "silu":
-            layers["b_gate"] = const((L, i), 0.0)
 
     params: Params = {
         "embed": normal((cfg.vocab_size, h), 0.02),
@@ -450,7 +463,8 @@ def _layer_forward(
     prefix_lengths: Optional[torch.Tensor] = None,
     prefill_from_empty: bool = False,
     dropout_seed: Optional[int] = None,  # this layer's LoRA-dropout seed
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One decoder layer: (x out, the MoE metrics of `moe_ffn` or None)."""
     dtype = x.dtype
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -527,13 +541,16 @@ def _layer_forward(
     x = x + dense("wo", attn)
 
     y = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    if cfg.moe_num_experts > 0:
+        out, metrics = moe_ffn(cfg, lp, y)
+        return x + out, metrics
     if cfg.mlp_activation == "silu":
         gate = dense("w_gate", y)
         up = dense("w_up", y)
         z = F.silu(gate.float()).to(dtype) * up
     else:
         z = F.gelu(dense("w_up", y).float(), approximate="tanh").to(dtype)
-    return x + dense("w_down", z)
+    return x + dense("w_down", z), None
 
 
 # ---------------------------------------------------------------------------
@@ -550,11 +567,6 @@ def _layer_slice(w, l: int):
     if isinstance(w, dict):
         return {key: t[l] for key, t in w.items()}
     return w[l]
-
-
-def _check_slice(cfg: ModelConfig) -> None:
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE layers come with a later slice of the port")
 
 
 _QUANTIZED_PRODUCTS = (torch.ops.llark.int8_matmul.default, torch.ops.llark.int4_matmul.default)
@@ -612,16 +624,17 @@ def decoder_forward(
     # micro-batch's seed, folded with each layer's index
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder (llark_tpu/models/decoder.py:579-778). Returns
-    (logits_or_hidden, kv_cache|None); logits are fp32.
+    (logits_or_hidden, kv_cache | MoE metrics | None); logits are fp32.
 
     Without a cache: pass input_ids/inputs_embeds + seq_lengths (right-
     padded mask). Prefill/decode: also pass kv_cache (dense, int8 or
     paged), which is written in place; positions default to
     cache_index + arange(S), or to cache_positions + arange(S) for ragged
     decode and paged writes. The returned cache shares the given tensors
-    (block tables and scales included) with "index" advanced by S.
+    (block tables and scales included) with "index" advanced by S. Without
+    a cache a MoE config returns its metrics in the cache's place (the
+    module docstring).
     """
-    _check_slice(cfg)
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(cfg, params, input_ids)
@@ -648,25 +661,33 @@ def decoder_forward(
     context_fn = _remat_context(cfg) if remat else None
     remat_kw = {} if context_fn is None else {"context_fn": context_fn}
     use_dropout = dropout_seed is not None and cfg.lora_dropout > 0.0
+    aux, dropped = [], []
     for l in range(cfg.num_layers):
         lp = {name: _layer_slice(w, l) for name, w in params["layers"].items()}
         layer_seed = fold_seed(dropout_seed, l) if use_dropout else None
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, metrics = torch.utils.checkpoint.checkpoint(
                 _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None,
                 prefix_lengths, False, layer_seed, use_reentrant=False, **remat_kw,
             )
-            continue
-        layer_cache = None
-        if kv_cache is not None:
-            layer_cache = {n: kv_cache[n][l] for n in CACHE_TENSORS if n in kv_cache}
-        x = _layer_forward(
-            cfg, lp, x, rope, seq_lengths, slopes, layer_cache, step, prefix_lengths,
-            prefill_from_empty, layer_seed,
-        )
+        else:
+            layer_cache = None
+            if kv_cache is not None:
+                layer_cache = {n: kv_cache[n][l] for n in CACHE_TENSORS if n in kv_cache}
+            x, metrics = _layer_forward(
+                cfg, lp, x, rope, seq_lengths, slopes, layer_cache, step, prefix_lengths,
+                prefill_from_empty, layer_seed,
+            )
+        if metrics is not None:
+            aux.append(metrics["aux_loss"])
+            dropped.append(metrics["dropped_frac"])
     new_cache = None
     if kv_cache is not None:
         new_cache = dict(kv_cache, index=kv_cache["index"] + s)
+    elif aux:
+        # the train step adds moe_aux_loss_weight x the loss and logs both
+        new_cache = {"moe_aux_loss": torch.stack(aux).sum(),
+                     "moe_dropped_frac": torch.stack(dropped).mean()}
 
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     if return_hidden:

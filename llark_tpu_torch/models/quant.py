@@ -212,11 +212,18 @@ def quantized_dense_int4(
 
 def _quantize_leaf(w: torch.Tensor, quantize) -> Dict[str, torch.Tensor]:
     """Quantize one leaf; a stacked [L, ...] leaf (also [L, E, in, out] MoE
-    experts) layer by layer, so the fp32 intermediates are 1/L-sized."""
+    experts) layer by layer into preallocated [L, ...] payloads, so the fp32
+    intermediates are 1/L-sized and the quantized copy is held once."""
     if w.dim() < 3:
         return quantize(w)
-    per_layer = [quantize(w[l]) for l in range(w.shape[0])]
-    return {key: torch.stack([p[key] for p in per_layer]) for key in per_layer[0]}
+    out = None
+    for l in range(w.shape[0]):
+        part = quantize(w[l])
+        if out is None:
+            out = {key: t.new_empty((w.shape[0], *t.shape)) for key, t in part.items()}
+        for key, t in part.items():
+            out[key][l].copy_(t)
+    return out
 
 
 def quantize_params_int4_incremental(

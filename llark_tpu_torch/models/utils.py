@@ -46,10 +46,12 @@ def save_model_metadata(output_dir: str, cfg: ModelConfig, bundle: TokenizerBund
 def load_model_metadata(checkpoint_dir: str) -> Tuple[ModelConfig, TokenizerBundle]:
     """(ModelConfig, TokenizerBundle) of a run directory. Fields of a
     configuration written by the JAX package that the port's ModelConfig
-    does not have are left out; the decoder raises on the feature they
-    describe (MoE) when it meets its weights. The LoRA fields (`lora_rank`,
-    `lora_alpha`, `lora_dropout`) round-trip. An "hf" tokenizer loads
-    through `transformers`, imported only here."""
+    does not have (the TPU kernels' block sizes, `decode_unroll_layers`,
+    `use_audio_start_end`) are left out. The LoRA
+    fields (`lora_rank`, `lora_alpha`, `lora_dropout`) and the MoE fields
+    (`moe_num_experts`, `moe_top_k`, `moe_capacity_factor`,
+    `moe_aux_loss_weight`, `moe_routing`) round-trip. An "hf" tokenizer
+    loads through `transformers`, imported only here."""
     with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
         payload = json.load(f)
     known = {f.name for f in dataclasses.fields(ModelConfig)}

@@ -4,7 +4,8 @@ Accounting follows the PaLM-appendix convention:
   * matmul FLOPs per token (fwd+bwd) = 6 * N_matmul, where N_matmul is
     every parameter that takes part in a dense product (attention and MLP
     projections, the LM head or tied-embedding logits, the multimodal
-    projector); the embedding lookup is excluded;
+    projector; of a MoE layer the top-k experts a token is routed to and
+    the router); the embedding lookup is excluded;
   * attention score/value FLOPs (fwd+bwd) = 6 * L * T * d_attn per token
     for a causal mask (T / 2 keys on average, two products);
   * a frozen base counts 4 * N instead of 6 * N: the backward still takes
@@ -46,9 +47,15 @@ def matmul_param_count(cfg: ModelConfig, multimodal: bool = True) -> int:
     d_attn = cfg.num_heads * cfg.head_dim
     d_kv = cfg.num_kv_heads * cfg.head_dim
     per_layer = h * d_attn + 2 * h * d_kv + d_attn * h  # wq, wk, wv, wo
-    per_layer += 2 * h * cfg.intermediate_size
+    mlp = 2 * h * cfg.intermediate_size
     if cfg.mlp_activation == "silu":
-        per_layer += h * cfg.intermediate_size
+        mlp += h * cfg.intermediate_size
+    if cfg.moe_num_experts > 0:
+        # the experts a token is routed to, and the router
+        # (llark_tpu/train/flops.py:61-66)
+        per_layer += cfg.moe_top_k * mlp + h * cfg.moe_num_experts
+    else:
+        per_layer += mlp
     total = cfg.num_layers * per_layer
     total += h * cfg.vocab_size  # logits product (tied or not, it computes)
     if multimodal:

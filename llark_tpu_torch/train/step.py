@@ -10,7 +10,9 @@ llark_tpu/train/step.py).
     arithmetic, on the trainable tensors only, in place;
   * make_train_step: gradient accumulation as the mean of the micro-batch
     gradients, then one optimizer update, LoRA dropout seeded per step and
-    micro-batch; make_eval_step: loss sums.
+    micro-batch; a MoE config adds moe_aux_loss_weight x the load-balancing
+    loss to the loss and reports it and the dropped fraction; make_eval_step:
+    loss sums.
 """
 
 from __future__ import annotations
@@ -211,12 +213,16 @@ def make_loss_fn(
     audio_patch_id: int,
     trainable_token_start: Optional[int] = None,
     loss_chunk: Optional[int] = None,
-) -> Callable[[Dict[str, Any], Batch], Tuple[torch.Tensor, torch.Tensor]]:
-    """(params, batch[, dropout_seed]) -> (mean token loss, number of valid
-    tokens); a dropout seed turns LoRA dropout on."""
+) -> Callable[[Dict[str, Any], Batch], Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]]:
+    """(params, batch[, dropout_seed]) -> (loss, number of valid tokens, MoE
+    metrics); a dropout seed turns LoRA dropout on. The loss is the mean
+    token loss. For a MoE config the metrics are {"moe_aux_loss" (the
+    layers' summed load-balancing loss, still in the graph),
+    "moe_dropped_frac"}, and the train step adds moe_aux_loss_weight x
+    moe_aux_loss (`train_loss`); {} otherwise."""
 
     def loss_fn(params, micro, dropout_seed=None):
-        out, _ = llark_forward(
+        out, extras = llark_forward(
             cfg, params, micro["input_ids"],
             audio_encodings=micro.get("audio_encodings"),
             audio_patch_id=audio_patch_id,
@@ -227,13 +233,26 @@ def make_loss_fn(
             dropout_seed=dropout_seed,
         )
         if loss_chunk is not None:
-            return chunked_causal_lm_loss(
+            loss, n_tok = chunked_causal_lm_loss(
                 cfg, params, out, micro["labels"], loss_chunk,
                 trainable_token_start=trainable_token_start,
             )
-        return causal_lm_loss(out, micro["labels"])
+        else:
+            loss, n_tok = causal_lm_loss(out, micro["labels"])
+        metrics = {}
+        if cfg.moe_num_experts > 0:
+            metrics = {k: extras[k] for k in ("moe_aux_loss", "moe_dropped_frac")}
+        return loss, n_tok, metrics
 
     return loss_fn
+
+
+def train_loss(cfg: ModelConfig, loss: torch.Tensor, moe: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The train step's loss (llark_tpu/train/step.py:214-221): the token
+    loss plus moe_aux_loss_weight x the load-balancing loss of a MoE config."""
+    if not moe:
+        return loss
+    return loss + cfg.moe_aux_loss_weight * moe["moe_aux_loss"]
 
 
 def make_train_step(
@@ -257,7 +276,9 @@ def make_train_step(
     with B = grad_accum_steps * micro_batch. Gradients are taken for the
     params with requires_grad only; the step updates them and the optimizer
     state in place and returns the state with its step advanced, plus
-    device-side metrics (loss, num_tokens, grad_norm before clipping).
+    device-side metrics (loss, num_tokens, grad_norm before clipping; for a
+    MoE config also moe_aux_loss and moe_dropped_frac, meaned over the
+    micro-batches as the loss is).
     With `dropout_seed` and cfg.lora_dropout > 0, micro-batch i of the
     step at `state.step` draws its LoRA-dropout masks from
     fold_seed(fold_seed(dropout_seed, step), i), as the JAX package folds
@@ -272,20 +293,23 @@ def make_train_step(
     def train_step(state: TrainState, batch: Batch):
         leaves = trainable_leaves(state.params)
         step_seed = fold_seed(dropout_seed, state.step) if use_dropout else None
-        grads, loss_sum, tokens = None, 0.0, 0
+        grads, loss_sum, tokens, moe_sums = None, 0.0, 0, {}
         for i, micro in enumerate(_split(batch, n_micro)):
             seed = fold_seed(step_seed, i) if use_dropout else None
-            loss, n_tok = loss_fn(state.params, micro, seed)
+            loss, n_tok, moe = loss_fn(state.params, micro, seed)
+            loss = train_loss(cfg, loss, moe)
             # a leaf the loss does not reach (no audio in the batch) gets zeros
             g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
             loss_sum = loss_sum + loss.detach()
             tokens = tokens + n_tok
+            moe_sums = {k: moe_sums.get(k, 0.0) + v.detach() for k, v in moe.items()}
         if n_micro > 1:
             grads = [g / n_micro for g in grads]
         grad_norm = optimizer.update(grads, state.opt_state, leaves)
         state.step += 1
-        metrics = {"loss": loss_sum / n_micro, "num_tokens": tokens, "grad_norm": grad_norm}
+        metrics = {"loss": loss_sum / n_micro, "num_tokens": tokens, "grad_norm": grad_norm,
+                   **{k: v / n_micro for k, v in moe_sums.items()}}
         return state, metrics
 
     return train_step
@@ -304,7 +328,7 @@ def make_eval_step(
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, n_tok = loss_fn(params, batch)
+        loss, n_tok, _ = loss_fn(params, batch)
         return {"loss_sum": loss * n_tok, "num_tokens": n_tok}
 
     return eval_step

@@ -20,9 +20,11 @@ rank-`lora_r` factors that train with the projector and the embedding
 table, and the run ends by writing `<output_dir>/adapter/` in the JAX
 package's adapter format; `bits` 8 or 4 quantizes the frozen base on the
 card (int8, or int4 in the rows layout of the int4 kernel, group
-min(128, hidden)). Not in this slice of the port, each raising before any
-work: MoE (a Mixtral directory too), multihost and a mesh larger than one
-device.
+min(128, hidden)). A Mixtral directory, or `moe_num_experts` > 0, trains a
+Mixture-of-Experts decoder (`models/moe.py`), its load-balancing loss
+added to the loss and logged with the dropped fraction. Not in this slice
+of the port, each raising before any work: multihost and a mesh larger
+than one device (ROADMAP.md Queue A item 9).
 """
 
 from __future__ import annotations
@@ -80,18 +82,21 @@ log = logging.getLogger("llark_tpu_torch.train")
 
 def model_config_from_name(name: str, model_args: ModelArguments) -> ModelConfig:
     """Select the architecture by model name (reference: m2t/train.py:62-75).
-    A local directory with a config.json takes its dims from that file
-    (llark_tpu/train/train.py:57-113); a Mixtral one raises."""
+    A local directory with a config.json takes its dims from that file, a
+    Mixtral one its experts too (llark_tpu/train/train.py:57-113);
+    `model_args.moe_*` make any of them MoE."""
     kw: Dict[str, Any] = {"mm_hidden_size": model_args.mm_hidden_size}
+    if model_args.moe_num_experts:
+        kw.update(moe_num_experts=model_args.moe_num_experts, moe_top_k=model_args.moe_top_k,
+                  moe_capacity_factor=model_args.moe_capacity_factor)
     cfg_path = os.path.join(name, "config.json")
     if os.path.isdir(name) and os.path.exists(cfg_path):
         with open(cfg_path) as f:
             hf = json.load(f)
-        if hf.get("num_local_experts") or hf.get("model_type") == "mixtral":
-            raise NotImplementedError(
-                f"{name} is a Mixtral (MoE) checkpoint: MoE layers come with a later slice "
-                "of the port (ROADMAP.md Queue A item 9)"
-            )
+        # Mixtral-style MoE dims from the checkpoint config
+        if hf.get("num_local_experts") and "moe_num_experts" not in kw:
+            kw.update(moe_num_experts=hf["num_local_experts"],
+                      moe_top_k=hf.get("num_experts_per_tok", 2))
         if hf.get("model_type") == "mpt":
             return ModelConfig.mpt_1b(
                 vocab_size=hf.get("vocab_size", 50368),
@@ -156,8 +161,6 @@ def _check_slice(model_args: ModelArguments, training_args: TrainingArguments) -
     """Raise, before any work, on the options the port does not run and on
     the settings the JAX package refuses (llark_tpu/train/train.py:259-302)."""
     later = []
-    if model_args.moe_num_experts:
-        later.append("MoE (moe_num_experts)")
     if training_args.multihost:
         later.append("multihost")
     if int(np.prod(training_args.mesh_shape)) > 1:
@@ -165,7 +168,8 @@ def _check_slice(model_args: ModelArguments, training_args: TrainingArguments) -
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: not in this slice of the port (one card: full, "
-            "adapter or LoRA training); each comes with a later slice"
+            "adapter or LoRA training); each comes with a later slice (ROADMAP.md "
+            "Queue A item 9)"
         )
     if training_args.lora_enable and training_args.lora_bias not in ("", "none"):
         raise NotImplementedError(
@@ -408,9 +412,11 @@ def train(
                 n_tok = float(metrics["num_tokens"])
                 log.info("step %d loss %.4f grad_norm %.3f | %.3f s/step %.0f tok/s",
                          step_i, loss, grad_norm, dt, n_tok / dt)
+                moe_metrics = {k: float(metrics[k]) for k in ("moe_aux_loss", "moe_dropped_frac")
+                               if k in metrics}
                 tracker.log(step_i, loss=loss, grad_norm=grad_norm,
                             learning_rate=schedule(step_i), step_time_s=dt,
-                            tokens_per_s=n_tok / dt)
+                            tokens_per_s=n_tok / dt, **moe_metrics)
             if eval_every and (step_i + 1) % eval_every == 0:
                 ev = run_eval(state.params)
                 eval_history.append((step_i + 1, ev))

@@ -44,6 +44,13 @@ to max (fp32 5.0e-7, TF32 8.3e-4; `python -m
 llark_tpu_torch.tools.clap_precision` reads both). Each limit sits between
 the two readings, and a control case holds TF32 above HTSAT_TOL.
 
+The Mixture-of-Experts path runs the same kernels at Mixtral's attention
+shapes (32 query heads over 8 KV heads, head_dim 128), each case beside a
+control over rolled KV heads that must fail its gate; its expert products
+are cuBLAS GEMMs (float stacks) or one int8 kernel launch a product per
+expert (int8 stacks). One fp32 MoE block on the card must lie within
+MOE_TOL of the CPU plain path, and with TF32 products outside it.
+
 The Jukebox encoder runs no hand-written kernel either (cuDNN convolutions
 and cuBLAS products): the parity fixture's mid-size Jukebox, imported on
 the card in fp32, must give the goldens' codes exactly and activations and
@@ -1211,3 +1218,153 @@ def test_jukebox_encode_stream_on_the_card_equals_encode_batch_and_the_cpu(dev):
         np.testing.assert_array_equal(counts, want_counts)
         ref, _ = cpu.encode_batch(audio, lengths)
         assert _rel_to_max(torch.from_numpy(acts), torch.from_numpy(ref)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts at Mixtral's attention shapes: 32 query heads over 8 KV
+# heads (GQA group 4), head_dim 128
+# ---------------------------------------------------------------------------
+
+MOE_TOL = 1e-4  # chip_smoke.py phase 22 (b): fp32 moe_ffn, card vs CPU
+# bf16 moe_ffn from int8 expert stacks, the int8 kernel against the plain
+# products, relative to max: three products each rounded to bf16 and the
+# gated activation between them (chip_smoke.py's KERNEL_TOL)
+MOE_INT8_TOL = 2e-2
+
+
+def _rolled(t):
+    """KV heads rolled by one: each query group reads its neighbour's head."""
+    return torch.roll(t, 1, dims=1)
+
+
+def test_mixtral_flash_fwd_matches_plain(dev):
+    q, k, v = _qkv(dev, 40, 2, 32, 8, 384, 384, 128)
+    kw = dict(causal=True, kv_lengths=torch.tensor([297, 384], device=dev), slopes=None)
+    got = tattn.flash_attention_fwd(q, k, v, kv_lengths=kw["kv_lengths"])
+    torch.cuda.synchronize()
+    assert _row_err(got, tattn._flash_attention_fwd_plain(q, k, v, **kw)) <= ROW_TOL["flash_fwd"]
+    # the control: the plain version over rolled KV heads must fail the gate
+    wrong = tattn._flash_attention_fwd_plain(q, _rolled(k), _rolled(v), **kw)
+    assert _row_err(got, wrong) > ROW_TOL["flash_fwd"]
+
+
+@pytest.mark.parametrize("mode", ["dense_bf16", "paged_int8"])
+def test_mixtral_flash_decode_matches_plain(dev, mode):
+    b, h, hkv, s, d, bs = 8, 32, 8, 2048, 128, 128
+    rng = np.random.RandomState(41)
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(dev, torch.bfloat16)
+    lengths = torch.tensor([300, 305, 311, 318, 322, 329, 334, 340], dtype=torch.int32,
+                           device=dev)
+    kw = dict(kv_lengths=lengths, q_positions=lengths - 1)
+    rows = b if mode == "dense_bf16" else b + b * (s // bs)
+    k, v = (torch.from_numpy(rng.randn(rows, hkv, s if mode == "dense_bf16" else bs, d)
+                             .astype(np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    if mode == "paged_int8":
+        perm = torch.from_numpy(rng.permutation(rows - b) + b).to(dev, torch.int32)
+        kw["block_tables"] = perm.reshape(b, s // bs)
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = _quantize_kv(k), _quantize_kv(v)
+
+    def plain(k_, v_, **over):
+        return tdec._flash_decode_plain(
+            q, k_, v_, kv_lengths=lengths, q_positions=lengths - 1,
+            k_scale=over.get("k_scale", kw.get("k_scale")),
+            v_scale=over.get("v_scale", kw.get("v_scale")), slopes=None,
+            block_tables=kw.get("block_tables"))
+
+    got = tdec.flash_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(got, plain(k, v)) <= ROW_TOL["flash_decode"]
+    scales = {n: _rolled(kw[n]) for n in ("k_scale", "v_scale") if n in kw}
+    assert _row_err(got, plain(_rolled(k), _rolled(v), **scales)) > ROW_TOL["flash_decode"]
+
+
+def test_flash_bwd_sums_dk_dv_over_a_group_of_four(dev):
+    # GQA group 4: dk and dv of a KV head are the sums over its 4 query
+    # heads, against the plain version and against the same backward on K/V
+    # repeated to one head per query head, summed group by group
+    b, h, hkv, s, d = 2, 32, 8, 512, 128
+    q, k, v = _qkv(dev, 42, b, h, hkv, s, s, d)
+    do = _qkv(dev, 43, b, h, h, s, s, d)[0]
+    kw = dict(causal=True, kv_lengths=torch.tensor([512, 300], device=dev), slopes=None)
+    _, dk, dv = _bwd_against_plain(q, k, v, do, kw)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    out, lse = tattn.flash_attention_fwd(q, kr, vr, return_lse=True, **kw)
+    _, dk_r, dv_r = tattn.flash_attention_bwd(q, kr, vr, out, lse, do, **kw)
+    for got, per_head in ((dk, dk_r), (dv, dv_r)):
+        summed = per_head.float().reshape(b, hkv, h // hkv, s, d).sum(2)
+        assert _row_err(got, summed, BWD_ROW_FLOOR) <= ROW_TOL["flash_bwd"]
+        assert _rel_to_max(got, summed) <= BWD_TOL
+        # the control: a group summed over the wrong KV head fails the gate
+        assert _row_err(got, _rolled(summed), BWD_ROW_FLOOR) > ROW_TOL["flash_bwd"]
+
+
+def _moe_block(tf32=False, routing="switch"):
+    """moe_ffn at a reduced width (hidden 1024, 8 experts of 2048, top-2) in
+    fp32 on the card and the CPU, the same weights drawn on the CPU."""
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models import moe
+
+    cfg = ModelConfig(hidden_size=1024, intermediate_size=2048, num_layers=1, num_heads=8,
+                      num_kv_heads=2, moe_num_experts=8, moe_top_k=2, dtype="float32",
+                      param_dtype="float32", moe_routing=routing,
+                      moe_capacity_factor=1.0 if routing == "switch" else 4.0)
+    g = torch.Generator().manual_seed(44)
+    lp = {k: w[0] for k, w in moe.init_moe_layer_params(
+        cfg, lambda shape, fan_in: torch.randn(shape, generator=g).div_(fan_in ** 0.5)).items()}
+    y = torch.randn((2, 48, 1024), generator=g)
+    with torch.inference_mode():
+        want, wm = moe.moe_ffn(cfg, lp, y)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got, gm = moe.moe_ffn(cfg, {k: w.to("cuda") for k, w in lp.items()}, y.to("cuda"))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    return got.cpu(), want, gm, wm
+
+
+@pytest.mark.parametrize("routing", ["switch", "mixtral"])
+def test_moe_block_on_the_card_matches_the_cpu(dev, routing):
+    got, want, gm, wm = _moe_block(routing=routing)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_to_max(got, want) <= MOE_TOL
+    for k in ("aux_loss", "dropped_frac"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 1e-6, k
+    assert (float(wm["dropped_frac"]) > 0) == (routing == "switch")
+
+
+def test_moe_block_with_tf32_products_falls_outside_moe_tol(dev):
+    got, want, _, _ = _moe_block(tf32=True)
+    assert _rel_to_max(got, want) > MOE_TOL
+
+
+def test_moe_int8_experts_launch_the_int8_kernel_per_expert(dev):
+    # int8 expert stacks: one int8 kernel launch a product per expert,
+    # against the plain products on the same int8 stacks on the card
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models import moe
+    from llark_tpu_torch.models.quant import quantize_weight
+    from llark_tpu_torch.ops import int8_matmul as i8
+
+    cfg = ModelConfig(hidden_size=512, intermediate_size=1024, num_layers=1, num_heads=4,
+                      num_kv_heads=1, moe_num_experts=4, moe_top_k=2, moe_routing="mixtral",
+                      moe_capacity_factor=2.0)
+    g = torch.Generator(device=dev).manual_seed(45)
+    lp = {k: w[0] for k, w in moe.init_moe_layer_params(
+        cfg, lambda shape, fan_in: torch.randn(shape, generator=g, device=dev) / fan_in ** 0.5
+    ).items()}
+    lp.update({k: quantize_weight(w) for k, w in lp.items() if k != "moe_router"})
+    y = torch.randn((2, 40, 512), generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        before = i8.int8_matmul.launches
+        got, _ = moe.moe_ffn(cfg, lp, y)
+        torch.cuda.synchronize()
+        assert i8.int8_matmul.launches - before == 3 * 4
+        saved = i8.int8_matmul
+        i8.int8_matmul = lambda x, q, scale: i8._int8_matmul_plain(x, q, scale)
+        try:
+            want, _ = moe.moe_ffn(cfg, lp, y)
+        finally:
+            i8.int8_matmul = saved
+    assert _rel_to_max(got, want) <= MOE_INT8_TOL

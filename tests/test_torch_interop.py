@@ -430,26 +430,53 @@ def test_decoder_on_imported_weights_matches_transformers(hf_model):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
 
 
+def _mixtral_sd(experts=4):
+    """The tiny Llama state dict with its dense MLPs replaced by Mixtral's
+    block_sparse_moe router and experts (w1 gate, w3 up, w2 down)."""
+    rng = np.random.RandomState(3)
+    h, i = BASE["hidden_size"], BASE["intermediate_size"]
+    sd = {k: v for k, v in _hf_state_dict("llama").items() if ".mlp." not in k}
+    for l in range(BASE["num_layers"]):
+        p = f"model.layers.{l}.block_sparse_moe."
+        sd[p + "gate.weight"] = rng.randn(experts, h).astype(np.float32)
+        for e in range(experts):
+            for name, shape in (("w1", (i, h)), ("w2", (h, i)), ("w3", (i, h))):
+                sd[p + f"experts.{e}.{name}.weight"] = rng.randn(*shape).astype(np.float32) * 0.1
+    return sd
+
+
 @pytest.mark.parametrize("where", ["import", "backbone", "export", "config"])
 def test_mixtral_weights_raise(tmp_path, where):
-    tcfg, _ = _cfgs("llama")
-    sd = _torch_sd(_hf_state_dict("llama"))
-    sd[thf._MOE_KEY] = torch.zeros(4, 64)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        if where == "import":
-            thf.llama_params_from_hf(sd, tcfg, device="cpu")
-        elif where == "backbone":
-            torch.save(sd, tmp_path / "pytorch_model.bin")
-            thf.load_pretrained_backbone(str(tmp_path), tcfg, device="cpu")
-        elif where == "export":
-            params = thf.llama_params_from_hf(_torch_sd(_hf_state_dict("llama")), tcfg,
-                                              device="cpu")
-            params["layers"]["moe_router"] = torch.zeros(2, 64, 4)
-            thf.hf_state_dict_from_params(tcfg, params)
-        else:
-            (tmp_path / "config.json").write_text(
-                json.dumps({"model_type": "mixtral", "num_local_experts": 8}))
-            ttrain.model_config_from_name(str(tmp_path), ModelArguments())
+    # Mixtral (MoE) weights raised until the port had MoE layers; now each
+    # route takes them as the JAX package does: the import, the backbone
+    # load (which turns a MoE config to "mixtral" routing with the drop-free
+    # capacity factor E / K), the export and the configuration from a
+    # config.json
+    tcfg, jcfg = _cfgs("llama", moe_num_experts=4)
+    sd = _mixtral_sd()
+    if where == "import":
+        got = thf.llama_params_from_hf(_torch_sd(sd), tcfg, device="cpu")
+        _assert_trees_equal(got, jhf.llama_params_from_hf(sd, jcfg))
+        assert got["layers"]["moe_w_gate"].shape == (2, 4, 64, 128)
+    elif where == "backbone":
+        torch.save(_torch_sd(sd), tmp_path / "pytorch_model.bin")
+        got = thf.load_pretrained_backbone(str(tmp_path), tcfg, device="cpu")
+        _assert_trees_equal(got, jhf.load_pretrained_backbone(str(tmp_path), jcfg))
+        assert (tcfg.moe_routing, tcfg.moe_capacity_factor) == ("mixtral", 2.0)
+        assert (jcfg.moe_routing, jcfg.moe_capacity_factor) == ("mixtral", 2.0)
+    elif where == "export":
+        params = thf.llama_params_from_hf(_torch_sd(sd), tcfg, device="cpu")
+        got = thf.hf_state_dict_from_params(tcfg, params)
+        want = jhf.hf_state_dict_from_params(jcfg, _numpy_tree(params))
+        _assert_trees_equal(got, want)
+        assert got.keys() == sd.keys()
+    else:
+        (tmp_path / "config.json").write_text(
+            json.dumps({"model_type": "mixtral", "num_local_experts": 8}))
+        got = ttrain.model_config_from_name(str(tmp_path), ModelArguments())
+        want = jtrain.model_config_from_name(str(tmp_path), JModelArguments()).__dict__
+        assert {k: want[k] for k in got.__dict__} == got.__dict__
+        assert (got.moe_num_experts, got.moe_top_k) == (8, 2)
 
 
 # ---------------------------------------------------------------------------

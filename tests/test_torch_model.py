@@ -231,11 +231,16 @@ def test_out_of_slice_features_raise():
     from llark_tpu_torch.inference.server import BatchedServer
 
     _, _, tcfg, tparams = _models("llama_gqa")
+    # MoE layers came into the port: the router and expert stacks replace
+    # the dense MLP, and a forward without a cache returns the layers'
+    # metrics in the cache's place (tests/test_torch_moe.py holds the values)
     moe = ModelConfig.tiny(moe_num_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tdecoder.init_decoder_params(moe, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tdecoder.decoder_forward(moe, tparams, input_ids=torch.tensor([[1, 2]]))
+    mparams = tdecoder.init_decoder_params(moe, torch.Generator().manual_seed(0), "cpu")
+    assert {"moe_router", "moe_w_gate", "moe_w_up", "moe_w_down"} <= set(mparams["layers"])
+    assert "w_up" not in mparams["layers"]
+    logits, metrics = tdecoder.decoder_forward(moe, mparams, input_ids=torch.tensor([[1, 2]]))
+    assert tuple(logits.shape) == (1, 2, moe.vocab_size)
+    assert set(metrics) == {"moe_aux_loss", "moe_dropped_frac"}
     # LoRA factors came into the port: zero-delta factors (B = 0) serve the
     # base model's logits (tests/test_torch_lora.py holds the values)
     from llark_tpu_torch.models.lora import init_lora_params

@@ -409,7 +409,8 @@ def test_out_of_slice_options_raise(tmp_path, option):
     # each option the port has no slice for, or whose setting the JAX
     # package refuses (llark_tpu/train/train.py:259-302), raises before any
     # work; report_to="tensorboard" came into the port with LoRA and writes
-    # TensorBoard events beside the JSONL stream
+    # TensorBoard events beside the JSONL stream; MoE, and a Mixtral
+    # directory, came into the port with MoE layers and train
     model_args, data_args, training_args = _train_args(tmp_path, "unused.tar", 1)
     error, match = NotImplementedError, "later slice|checkpoint-I/O slice"
     if option == "lora":
@@ -419,18 +420,32 @@ def test_out_of_slice_options_raise(tmp_path, option):
         # a quantized base is frozen: it needs LoRA or a frozen backbone
         training_args.bits = int(option[-1])
         error, match = ValueError, "requires lora_enable"
-    elif option == "moe":
-        model_args.moe_num_experts = 4
+    elif option in ("moe", "hf_dir"):
+        _write_shards(str(tmp_path))
+        model_args, data_args, training_args = _train_args(
+            tmp_path, str(tmp_path / "mir-train-00000.tar"), 1, freeze_backbone=True)
+        training_args.eval_steps = 0
+        if option == "moe":
+            model_args.moe_num_experts = 4
+        else:
+            # a Mixtral directory (config.json alone: random init) gives
+            # the architecture and its experts
+            (tmp_path / "config.json").write_text(json.dumps(
+                {"model_type": "mixtral", "num_local_experts": 4, "hidden_size": 64,
+                 "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4,
+                 "num_key_value_heads": 2, "vocab_size": 256}))
+            model_args.model_name_or_path = str(tmp_path)
+        result = train(model_args, data_args, training_args, device="cpu")
+        assert result["final_step"] == 1 and np.isfinite(result["losses"][0])
+        assert result["cfg"].moe_num_experts == 4
+        with open(tmp_path / "out" / "metrics.jsonl") as f:
+            record = json.loads(f.readline())
+        assert 0.0 <= record["moe_dropped_frac"] < 1.0 and record["moe_aux_loss"] > 0
+        return
     elif option == "multihost":
         training_args.multihost = True
     elif option == "mesh":
         training_args.mesh_shape = (1, 2, 1)
-    elif option == "hf_dir":
-        # HF directories import since the checkpoint-I/O slice; a Mixtral
-        # (MoE) one does not
-        (tmp_path / "config.json").write_text(
-            json.dumps({"model_type": "mixtral", "num_local_experts": 8}))
-        model_args.model_name_or_path = str(tmp_path)
     else:
         _write_shards(str(tmp_path))
         model_args, data_args, training_args = _train_args(
