@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port (llark_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # every phase
-    python3 chip_smoke.py --phase 22  # one phase alone: 17 (checkpoint I/O),
-                                      # 20 (the CLAP path), 21 (Jukebox) or
-                                      # 22 (Mixture-of-Experts)
+    python3 chip_smoke.py --phase 23  # one phase alone: 17 (checkpoint I/O),
+                                      # 20 (the CLAP path), 21 (Jukebox),
+                                      # 22 (Mixture-of-Experts) or 23 (native
+                                      # I/O, annotation and preprocessing)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -305,6 +306,28 @@ Phases, in order; any failure exits non-zero before the final line:
      MixtralForCausalLM's (control: the experts rolled by one). Printed: the
      bytes a batch-1 decode step reads and their floor, prefill ms, decode
      ms/token, the serving figures of phase 7, the parts' seconds.
+ 23. native I/O, annotation and preprocessing (`run_native_phase`): (a)
+     both native libraries (`native/audioproc.cpp`, `native/tarloader.cpp`)
+     compiled afresh with g++, their seconds; phase 20's 8 WAVs read at 48
+     kHz and phase 21's at 44.1 kHz through `read_wav` (the native library)
+     and through the numpy routes called by name, seconds a second of audio
+     for each, the samples within NATIVE_READ_TOL (1e-4) in the interior and
+     `peak_normalize` within PEAK_TOL (1e-6) of x / max|x|; (b) 8 seeded
+     synthbench clips of 30 s (every family) as 44.1 kHz WAVs through
+     `python -m llark_tpu_torch.preprocessing.pipeline_cli` crop
+     --multicrop, annotate (the DSP chain, a worker a core) and
+     crop-annotations, rows/s each, then `pack_webdataset` and the shards
+     read back through the native tar loader and the Python reader, equal
+     samples; (c) BeatNet and KeyNet on the card against the same modules on
+     the CPU for each clip, fp32 with TF32 off, within ANNOTATOR_TOL (1e-5)
+     relative to max (control: the card with TF32 products must land above
+     it), the neural chain's key, tempos, beats and downbeats equal on the
+     card and the CPU, and synthbench's scores of the DSP and neural chains
+     on these clips; (d) the native calls of phase 17 (train() and
+     `from_webdataset` read their shards through the native tar loader),
+     phase 20 (8 parses and resamples in the CLAP CLI's card run; its host
+     share) and phase 21 (8 parses; its host seconds), each gated in its
+     phase; the parts' seconds.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -319,6 +342,7 @@ Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -336,10 +360,13 @@ import time
 import numpy as np
 import torch
 
+from llark_tpu_torch.audio import io as audio_io
+from llark_tpu_torch.audio import neural, synthbench
+from llark_tpu_torch.audio.annotate import annotate_elem
 from llark_tpu_torch.audio.io import DEFAULT_SR, read_wav, write_wav
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
-from llark_tpu_torch.data.webdataset import TarShardWriter
+from llark_tpu_torch.data.webdataset import TarShardReader, TarShardWriter
 from llark_tpu_torch.encoders import extract_cli
 from llark_tpu_torch.encoders.jukebox import encode as jb_encode
 from llark_tpu_torch.encoders.jukebox import import_torch as jb_import
@@ -379,6 +406,8 @@ from llark_tpu_torch.ops import int4_matmul as int4_ops
 from llark_tpu_torch.ops import int8_matmul as int8_ops
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 from llark_tpu_torch.models.utils import load_pretrained_model, save_model_metadata
+from llark_tpu_torch.native import build as native_build
+from llark_tpu_torch.preprocessing import pack_webdataset
 from llark_tpu_torch.train import flops
 from llark_tpu_torch.train import train as train_mod
 from llark_tpu_torch.train.checkpoint import CheckpointManager
@@ -2112,9 +2141,12 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
     training_args.profile_dir = ""
     for fn in (attn_ops.flash_attention_fwd, attn_ops.flash_attention_bwd):
         fn.launches = 0
+    native_build.calls.clear()
     with first_step_params() as seen:
         result, train_s = seconds(lambda: train(model_args, data_args, training_args,
                                                 device="cuda"))
+    train_tar = native_build.calls["tar_samples"]
+    check(train_tar > 0, "train() read no sample through the native tar loader")
     run_cfg, tok = result["cfg"], result["bundle"].tokenizer
     losses = result["losses"]
     fwd, bwd = attn_ops.flash_attention_fwd.launches, attn_ops.flash_attention_bwd.launches
@@ -2158,11 +2190,17 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
     meta["tokenizer"] = {"type": "word", **tok.to_dict()}
     with open(meta_path, "w") as f:
         json.dump(meta, f, indent=2)
+    native_build.calls.clear()
     one, one_launches = run_webdataset_cli("one at a time", run_dir, shard, ids, [], smi)
     eng, eng_launches = run_webdataset_cli(
         "engine mode (a)", run_dir, shard, ids,
         ["--continuous-batching", "8", "--kv-block-size", "128", "--kv-cache-int8",
          "--prefill-chunk", "128"], smi)
+    cli_tar = native_build.calls["tar_samples"]
+    NATIVE_READS["phase 17, the native tar loader"] = (
+        f"train() {train_tar} samples, from_webdataset twice {cli_tar}")
+    check(cli_tar == 2 * len(ids), f"from_webdataset read {cli_tar} samples through the native "
+          f"tar loader, not 2 x {len(ids)}")
     check(one_launches["flash_fwd"] == CKPT_LAYERS * len(ids),
           f"one at a time: {one_launches['flash_fwd']} flash-prefill launches, not "
           f"{CKPT_LAYERS} x {len(ids)}")
@@ -3259,7 +3297,15 @@ def run_clap_path(directory: str, smi: str) -> None:
     card_dir, cpu_dir = os.path.join(directory, "card"), os.path.join(directory, "cpu")
     # (b) and (d): the card's run, profiled, so that its device time and
     # idle share are this run's
+    native_build.calls.clear()
     run, busy_ms = run_extract(wavs, card_dir, "cuda", profile=True)
+    calls = dict(native_build.calls)
+    NATIVE_READS["phase 20, extract_cli clap on the card"] = (
+        f"native calls {calls}; {run.seconds:.3f} s for {run.n} WAVs, read + resample + prepare "
+        f"{run.host_s:.3f} s, {run.host_s / run.seconds:.1%} of it (PR 17 on the numpy routes: "
+        f"5.547-7.041 s, 85.2-96.5 %)")
+    check(calls.get("parse_wav") == len(names) and calls.get("resample") == len(names),
+          f"extract_cli clap read its WAVs with native calls {calls}")
     print(f"  (b) extract_cli on the card ({smi}): {len(names)} WAVs ({audio_s} s of 44.1 kHz "
           f"audio) in {run.seconds:.3f} s after the encoder's init, profiled: "
           f"{run.n / run.seconds:.3f} clips/s; read + resample + prepare {run.host_s:.3f} s on "
@@ -3525,7 +3571,15 @@ def run_jukebox_path(directory: str, smi: str) -> None:
 
     out = os.path.join(directory, "card")
     t0 = time.perf_counter()
+    native_build.calls.clear()
     run, busy_ms, ns = run_jukebox_cli(wavs, out, profile=True)
+    calls = dict(native_build.calls)
+    NATIVE_READS["phase 21, extract_cli jukebox on the card"] = (
+        f"native calls {calls}; {run.seconds:.3f} s for {run.n} WAVs, read + prepare "
+        f"{run.host_s:.3f} s, {run.host_s / run.seconds:.1%} of it (PR 18 on the numpy parse: "
+        f"5.939-6.493 clips/s, 12.0-13.8 %)")
+    check(calls.get("parse_wav") == len(names) and not calls.get("resample"),
+          f"extract_cli jukebox read its WAVs with native calls {calls}")
     frames = check_jukebox_files(names, out)
     mtimes = {n: os.path.getmtime(os.path.join(out, n)) for n in os.listdir(out)}
     again, _, _ = run_jukebox_cli(wavs, out, skip_existing=True)
@@ -4236,6 +4290,307 @@ def run_moe_path(directory: str, smi: str) -> None:
     print("  (a)-(f) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(timings.items())))
 
 
+# ---------------------------------------------------------------------------
+# phase 23: native I/O, annotation and preprocessing
+# ---------------------------------------------------------------------------
+
+# the native read against the numpy routes, in the interior (the middle
+# three quarters: the two resamplers treat the edges otherwise), as the JAX
+# package states it; peak normalisation, x * (1 / peak) against x / peak
+NATIVE_READ_TOL = 1e-4
+PEAK_TOL = 1e-6
+# BeatNet and KeyNet on the card against the same modules on the CPU,
+# relative to max: both fp32 with TF32 off (cuDNN and cuBLAS against the
+# CPU's kernels), so they differ by summation order alone. The phase also
+# reads the card with TF32 products, which must land above it
+ANNOTATOR_TOL = 1e-5
+PREP_SECONDS = 30.0  # the pipeline's crop length
+PREP_FAMILIES = synthbench.FAMILIES + synthbench.FAMILIES[:2]  # 8 clips, every family
+PREP_ENCODING = (250, 4800)  # a 25 s crop's pooled Jukebox frames at 10 fps
+# what phases 17, 20 and 21 read through the native library, for (d)
+NATIVE_READS: dict = {}
+
+
+def start_native_builds(pool, directory: str) -> list:
+    """Both libraries compiled afresh into `directory`, each in its own
+    thread of `pool` (the loaded ones stay as they are): futures of
+    (source, seconds)."""
+    src_dir = os.path.dirname(os.path.abspath(native_build.__file__))
+    os.makedirs(directory, exist_ok=True)
+
+    def build(src):
+        t0 = time.perf_counter()
+        native_build.compile_native(os.path.join(src_dir, src), os.path.join(directory, src + ".so"),
+                                    native_build.EXTRA_FLAGS[src])
+        return src, time.perf_counter() - t0
+
+    return [pool.submit(build, src) for src in native_build.EXTRA_FLAGS]
+
+
+def numpy_read(path: str, sr: int) -> np.ndarray:
+    """read_wav through the numpy routes, called by name."""
+    with open(path, "rb") as f:
+        samples, src_sr = audio_io._parse_wav_numpy(f.read())
+    if src_sr != sr:
+        samples = audio_io._resample_numpy(samples, src_sr, sr)
+    return samples.astype(np.float32)
+
+
+def native_reads(directory: str, smi: str) -> None:
+    """(a): phase 20's WAVs at 48 kHz and phase 21's at 44.1 kHz through
+    read_wav (the native library) and through the numpy routes; samples
+    within NATIVE_READ_TOL in the interior, peak_normalize within PEAK_TOL."""
+    # the builds run while the WAVs are written, and end before the reads;
+    # the libraries this process uses are loaded (built at first use) then
+    # too, so no read below pays for a build
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        builds = start_native_builds(pool, os.path.join(directory, "build"))
+        loads = [pool.submit(native_build.load, src) for src in native_build.EXTRA_FLAGS]
+        sets = (("phase 20's", write_clap_wavs(os.path.join(directory, "clap")), CLAP_WAVS, 48000),
+                ("phase 21's", write_jukebox_wavs(os.path.join(directory, "jukebox")),
+                 JUKEBOX_WAVS, DEFAULT_SR))
+        builds = dict(f.result() for f in builds)
+        for f in loads:
+            f.result()
+    print(f"  (a) native build ({smi}): " + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items())
+          + f" (g++ {' '.join(native_build.CXX_FLAGS)}, in parallel)")
+    for label, names, wavs, sr in sets:
+        paths = [os.path.join(directory, "clap" if sr == 48000 else "jukebox", n) for n in names]
+        audio_s = sum(s for s, _ in wavs)
+        native_build.calls.clear()
+        native, native_s = seconds(lambda: [read_wav(p, sr)[0] for p in paths])
+        calls = dict(native_build.calls)
+        plain, numpy_s = seconds(lambda: [numpy_read(p, sr) for p in paths])
+        worst, worst_peak = 0.0, 0.0
+        for got, want in zip(native, plain):
+            check(got.shape == want.shape and got.dtype == np.float32,
+                  f"{label} read: {got.shape} {got.dtype} against the numpy route's {want.shape}")
+            n = len(got)
+            worst = max(worst, float(np.abs(got[n // 8: n - n // 8] - want[n // 8: n - n // 8]).max()))
+            keep = got.copy()
+            normed = audio_io.peak_normalize(got)
+            check(np.array_equal(got, keep), "peak_normalize changed its input")
+            worst_peak = max(worst_peak, float(np.abs(normed - got / np.abs(got).max()).max()))
+        print(f"  (a) {label} {len(paths)} WAVs ({audio_s} s of 44.1 kHz audio) to {sr} Hz on the "
+              f"host ({smi}): native {native_s:.3f} s ({native_s / audio_s:.2e} s a second of "
+              f"audio), numpy routes {numpy_s:.3f} s ({numpy_s / audio_s:.2e}), "
+              f"{numpy_s / native_s:.1f}x; native calls {calls}; worst interior |d| {worst:.3e} "
+              f"(gate {NATIVE_READ_TOL}); peak_normalize against x / max|x| {worst_peak:.3e} "
+              f"(gate {PEAK_TOL})")
+        check(calls.get("parse_wav") == len(paths) and calls.get("resample", 0) == (
+            len(paths) if sr != DEFAULT_SR else 0), f"{label} read: native calls {calls}")
+        check(worst <= NATIVE_READ_TOL, f"{label} read: native and numpy differ by {worst:.3e}")
+        check(worst_peak <= PEAK_TOL, f"peak_normalize differs from x / max|x| by {worst_peak:.3e}")
+
+
+def pipeline_cli(*args: str) -> tuple:
+    """`python -m llark_tpu_torch.preprocessing.pipeline_cli` as a user runs
+    it, from the repo root: (its last line of output, its wall seconds,
+    Python's start-up and imports included)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "llark_tpu_torch.preprocessing.pipeline_cli",
+                           *args], cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"pipeline_cli {args[0]} exited {proc.returncode}:\n"
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout.strip().splitlines()[-1], wall
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def preprocessing_run(directory: str, smi: str) -> tuple:
+    """(b): 8 seeded synthbench clips of 30 s (every family) as 44.1 kHz
+    WAVs -> `pipeline_cli crop --multicrop`, `annotate` (the DSP chain, a
+    worker a core), `crop-annotations` -> `pack_webdataset` -> the shards
+    read back natively and in Python. Returns (the clips' truths, the
+    annotate rows by clip)."""
+    raw, crops = os.path.join(directory, "raw"), os.path.join(directory, "crops")
+    os.makedirs(raw)
+    truths, rows = [], []
+    for i, family in enumerate(PREP_FAMILIES):
+        audio, truth = synthbench.make_clip(SEED + 2300 + i, PREP_SECONDS, sr=DEFAULT_SR,
+                                            family=family)
+        write_wav(os.path.join(raw, f"clip{i}.wav"), audio, DEFAULT_SR)
+        truths.append(truth)
+        rows.append({"id": f"clip{i}", "family": family})
+    with open(os.path.join(directory, "rows.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    n = len(rows)
+    ann, cropped = os.path.join(directory, "ann.jsonl"), os.path.join(directory, "cropped.jsonl")
+    said, crop_s = pipeline_cli("crop", "--input-dir", raw, "--output-dir", crops, "--multicrop")
+    want = [f"clip{i}-start0.000-end30.000.wav" for i in range(n)]
+    check(sorted(os.listdir(crops)) == sorted(want), f"crop wrote {sorted(os.listdir(crops))}")
+    said_ann, ann_s = pipeline_cli("annotate", "--input-jsonl", os.path.join(directory, "rows.jsonl"),
+                                   "--audio-dir", raw, "--output", ann)
+    annotated = sorted(read_jsonl(ann), key=lambda r: int(r["id"][4:]))
+    check([r["id"] for r in annotated] == [r["id"] for r in rows], f"annotate: {said_ann}")
+    fields = ("key", "tempo_in_beats_per_minute_madmom", "tempo_in_beats_per_minute_librosa",
+              "downbeats_librosa", "downbeats_madmom", "chords")
+    check(all(all(k in r for k in fields) for r in annotated), "annotate: a field is missing")
+    said_crop, crop_ann_s = pipeline_cli("crop-annotations", "--annotations-file", ann,
+                                         "--audio-dir", crops, "--output", cropped)
+    crop_rows = read_jsonl(cropped)
+    check(sorted(r["id"] for r in crop_rows) == sorted(w[:-4] for w in want)
+          and all(r["end_secs"] == 25.0 for r in crop_rows), f"crop-annotations: {said_crop}")
+    workers = os.cpu_count()
+    print(f"  (b) pipeline_cli on the host ({smi}; {workers} workers, each CLI's wall with "
+          f"Python's start-up): crop --multicrop {n} WAVs of {PREP_SECONDS:.0f} s in "
+          f"{crop_s:.2f} s ({n / crop_s:.2f} rows/s); annotate (DSP chain) {ann_s:.2f} s "
+          f"({n / ann_s:.2f} rows/s, {ann_s / (n * PREP_SECONDS):.2e} s a second of audio); "
+          f"crop-annotations {crop_ann_s:.2f} s ({n / crop_ann_s:.2f} rows/s)")
+
+    # pack_webdataset over the cropped rows, with an encoding and two
+    # questions each, then the shards read back both ways
+    rng = np.random.RandomState(SEED + 23)
+    enc_dir = os.path.join(directory, "encs")
+    os.makedirs(enc_dir)
+    instruct = os.path.join(directory, "instruct.jsonl")
+    with open(instruct, "w") as f:
+        for r in crop_rows:
+            np.save(os.path.join(enc_dir, r["id"] + ".npy"),
+                    rng.randn(*PREP_ENCODING).astype(np.float32))
+            r["response"] = [
+                {"question": "What is the key of this piece?", "answer": r["key"]},
+                {"question": "What is the tempo?",
+                 "answer": f"{r['tempo_in_beats_per_minute_madmom']} BPM"}]
+            f.write(json.dumps(r) + "\n")
+    pattern = os.path.join(directory, "shards", "train-%05d.tar")
+    _, pack_s = seconds(lambda: pack_webdataset.main(
+        ["--instruct-jsonl", instruct, "--encodings-dir", enc_dir, "--output-pattern", pattern,
+         "--max-count", "4"]))
+    shards = sorted(os.path.join(os.path.dirname(pattern), p)
+                    for p in os.listdir(os.path.dirname(pattern)))
+    native_build.calls.clear()
+    native, native_s = seconds(lambda: list(TarShardReader(shards)))
+    tar_samples = native_build.calls["tar_samples"]
+    plain, plain_s = seconds(lambda: list(TarShardReader(shards, use_native=False)))
+    check(tar_samples == n and native_build.calls["tar_samples"] == n,
+          f"the native tar loader read {tar_samples} samples, the Python reader's run "
+          f"{native_build.calls['tar_samples'] - tar_samples}")
+    check([s["__key__"] for s in native] == [s["__key__"] for s in plain]
+          and len(native) == n, "the two readers gave other keys")
+    for a, b in zip(native, plain):
+        check(sorted(a) == sorted(b) and a["json"] == b["json"]
+              and np.array_equal(a["audio_encoding.pyd"], b["audio_encoding.pyd"]),
+              f"sample {a['__key__']} differs between the native and the Python reader")
+    mb = sum(os.path.getsize(s) for s in shards) / 1e6
+    print(f"  (b) pack_webdataset {n} rows ({PREP_ENCODING[0]} x {PREP_ENCODING[1]} fp32 "
+          f"encodings) into {len(shards)} shards ({mb:.1f} MB) in {pack_s:.2f} s "
+          f"({n / pack_s:.1f} rows/s); read back native {native_s:.3f} s ({n / native_s:.1f} "
+          f"rows/s), Python tarfile {plain_s:.3f} s ({n / plain_s:.1f} rows/s); samples equal")
+    return truths, annotated
+
+
+@contextlib.contextmanager
+def shared_features(clips: list, feats: list):
+    """The neural annotators' host features computed once a clip and
+    shared by the card's chain and the CPU's (the same numpy on the same
+    audio), so the phase pays for them once."""
+    by_id = {id(a): f for a, f in zip(clips, feats)}
+    saved = neural.beat_features, neural.key_features
+
+    def beat(audio, sr, *args, **kw):
+        return by_id[id(audio)][0] if id(audio) in by_id else saved[0](audio, sr, *args, **kw)
+
+    def key(audio, sr, *args, **kw):
+        return by_id[id(audio)][1] if id(audio) in by_id else saved[1](audio, sr, *args, **kw)
+
+    neural.beat_features, neural.key_features = beat, key
+    try:
+        yield
+    finally:
+        neural.beat_features, neural.key_features = saved
+
+
+def neural_on_card(clips: list, smi: str) -> list:
+    """(c): BeatNet and KeyNet on the card against the same modules on the
+    CPU for each clip, with the TF32 control; the neural chain on the card
+    and on the CPU, equal. Returns the card's elements."""
+    sr = DEFAULT_SR
+    with concurrent.futures.ThreadPoolExecutor(len(clips)) as pool:
+        feats, feat_s = seconds(lambda: list(pool.map(
+            lambda a: (neural.beat_features(a, sr), neural.key_features(a, sr)), clips)))
+    card_nets, cpu_nets = neural.load_nets(device="cuda"), neural.load_nets(device="cpu")
+    worst, ctl, chain_s = {}, {}, {}
+    for f_beat, f_key in feats:
+        for i, (name, x, run) in enumerate((("BeatNet", f_beat, neural.beat_activations),
+                                            ("KeyNet", f_key, neural.key_logits))):
+            card, cpu = card_nets[i], cpu_nets[i]
+            want = torch.from_numpy(run(cpu, x))
+            with tf32_products():
+                got = torch.from_numpy(run(card, x))  # the net keeps TF32 off itself
+                with torch.no_grad():
+                    tf32 = card.compute(torch.from_numpy(x).cuda()).cpu()
+            for d, err in ((worst, rel_err(got, want)[0]), (ctl, rel_err(tf32, want)[0])):
+                d[name] = max(d.get(name, 0.0), err)
+    print(f"  (c) BeatNet / KeyNet on the card ({smi}) against the CPU, fp32 with TF32 off, "
+          f"{len(clips)} clips (features {feat_s:.2f} s on the host, a thread a clip): worst "
+          f"rel-to-max {worst['BeatNet']:.3e} / {worst['KeyNet']:.3e} (gate {ANNOTATOR_TOL}); "
+          f"control, TF32 products {ctl['BeatNet']:.3e} / {ctl['KeyNet']:.3e}")
+    for name in worst:
+        check(worst[name] <= ANNOTATOR_TOL, f"{name}: the card reads {worst[name]:.3e} from the "
+              f"CPU, over {ANNOTATOR_TOL}")
+        check(ctl[name] > ANNOTATOR_TOL, f"{name}: TF32 products read {ctl[name]:.3e}, within "
+              f"{ANNOTATOR_TOL}: the gate cannot tell them from fp32")
+    elems = {}
+    with shared_features(clips, feats):
+        for where, device in (("card", "cuda"), ("CPU", "cpu")):
+            chain = neural.neural_annotators(device=device)[1:]  # chords: the DSP stage
+            elems[where], chain_s[where] = seconds(lambda: [
+                annotate_elem({"audio": a, "audio_sample_rate": sr}, annotators=chain)
+                for a in clips])
+    fields = ("key", "tempo_in_beats_per_minute_madmom", "tempo_in_beats_per_minute_librosa",
+              "downbeats_librosa", "downbeats_madmom")
+    differ = [(i, k) for i, (a, b) in enumerate(zip(elems["card"], elems["CPU"]))
+              for k in fields if a[k] != b[k]]
+    beats = sum(len(e["downbeats_librosa"]) for e in elems["card"])
+    print(f"  (c) the neural chain (key, beats, downbeats, tempo) on the card {chain_s['card']:.2f} s, "
+          f"on the CPU {chain_s['CPU']:.2f} s (features shared): {beats} beats; fields that differ "
+          f"{differ or 'none'}")
+    check(not differ, f"the neural chain differs between the card and the CPU in {differ}")
+    return elems["card"]
+
+
+def native_paths_report(smi: str) -> None:
+    """(d): what phases 17, 20 and 21 read through the native library in
+    this run, and the CLIs' host shares."""
+    if not NATIVE_READS:
+        print("  (d) phases 17, 20 and 21 did not run in this call")
+        return
+    for label, reading in NATIVE_READS.items():
+        print(f"  (d) {label} ({smi}): {reading}")
+
+
+def run_native_phase(directory: str, smi: str) -> None:
+    """Phase 23: native I/O, annotation and preprocessing."""
+    print(f"phase 23 on {smi}: the native audio and tar libraries (g++ on the host), the "
+          f"preprocessing CLIs, the DSP and neural annotators ({len(PREP_FAMILIES)} synthbench "
+          f"clips of {PREP_SECONDS:.0f} s)")
+    timings = {}
+    _, timings["a"] = seconds(lambda: native_reads(os.path.join(directory, "a"), smi))
+    (truths, dsp_rows), timings["b"] = seconds(
+        lambda: preprocessing_run(os.path.join(directory, "b"), smi))
+    raw = os.path.join(directory, "b", "raw")
+    clips = [read_wav(os.path.join(raw, f"clip{i}.wav"))[0] for i in range(len(truths))]
+    card, timings["c"] = seconds(lambda: neural_on_card(clips, smi))
+    # the neural chain's chord stage is the DSP one: the rows' chords
+    for elem, row in zip(card, dsp_rows):
+        elem["chords"] = row["chords"]
+    label = f"{len(truths)} clips of {len(set(PREP_FAMILIES))} families"
+    for name, elems in (("DSP chain (annotate's rows)", dsp_rows), ("neural chain, the card", card)):
+        scores = synthbench.score_annotations(zip(elems, truths), PREP_SECONDS, family=label)
+        print(f"  (c) synthbench scores, {name}: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v) for k, v in scores.items()}))
+    native_paths_report(smi)
+    print("  (a)-(c) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
+
+
 def checkpoint_io_alone(directory: str, smi: str) -> None:
     """Phase 17 without the phases before it: its training shard first."""
     shard = write_shards(directory, ModelConfig.llama2_7b())
@@ -4246,7 +4601,8 @@ def checkpoint_io_alone(directory: str, smi: str) -> None:
 ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          20: ("CLAP path", run_clap_path),
          21: ("Jukebox path", run_jukebox_path),
-         22: ("Mixture-of-Experts at Mixtral-8x7B width", run_moe_path)}
+         22: ("Mixture-of-Experts at Mixtral-8x7B width", run_moe_path),
+         23: ("native I/O, annotation and preprocessing", run_native_phase)}
 
 
 def set_up_card() -> tuple:
@@ -4343,6 +4699,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_moe_path(tmp, smi))
     print(f"phase 22 (Mixture-of-Experts at Mixtral-8x7B width): {phase_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, phase_s = seconds(lambda: run_native_phase(tmp, smi))
+    print(f"phase 23 (native I/O, annotation and preprocessing) on {smi}: {phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

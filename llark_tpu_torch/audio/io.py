@@ -1,5 +1,5 @@
 """Audio I/O: WAV read/write, resampling, conversion, cropping
-(counterpart of llark_tpu/audio/io.py, on its numpy paths).
+(counterpart of llark_tpu/audio/io.py).
 
   * read_wav(path, target_sr=44100) -> (mono float32 samples, target_sr):
     a RIFF parse (PCM 8/16/24/32, float32/64; channels mixed to mono) and
@@ -8,14 +8,18 @@
     installed, the WAV path otherwise;
   * crop policies and the `-start{:.3f}-end{:.3f}` naming.
 
-The JAX package calls a g++-built native library for the parse, the
-resample and peak normalisation where it builds, and these numpy paths
-otherwise; the numpy resample matches the native one in the interior to
-1e-4. The port's native library comes with a later slice.
+The parse, the resample and peak normalisation run in the port's native
+library (`native/audioproc.cpp`, built with g++ at first use; a failed
+build raises). The numpy routes `_parse_wav_numpy` and `_resample_numpy`
+stay: the parse takes a WAV the native parser refuses, as the JAX package
+does, and a caller may name either; the numpy resample matches the native
+one in the interior to 1e-4.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
 import struct
 import subprocess
 from typing import List, Optional, Tuple
@@ -23,6 +27,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from llark_tpu_torch import storage
+from llark_tpu_torch.native.build import calls, load_library
+
+log = logging.getLogger(__name__)
 
 DEFAULT_SR = 44100
 CROP_SECONDS = 30.0
@@ -80,7 +87,32 @@ def _parse_wav_numpy(data: bytes) -> Tuple[np.ndarray, int]:
 
 
 def parse_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
-    """Decode WAV bytes to (mono float32 samples, sample_rate)."""
+    """Decode WAV bytes to (mono float32 samples, sample_rate) in the native
+    library; a file it refuses goes to the numpy parser, which reads it or
+    raises ValueError."""
+    lib = load_library()
+    calls["parse_wav"] += 1
+    buf = np.frombuffer(data, np.uint8)
+    n_frames = ctypes.c_long()
+    channels = ctypes.c_int()
+    sr = ctypes.c_int()
+    u8 = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    rc = lib.ljt_parse_wav(
+        u8, len(data), None, ctypes.byref(n_frames), ctypes.byref(channels), ctypes.byref(sr)
+    )
+    if rc == 0:
+        out = np.empty(n_frames.value, np.float32)
+        rc = lib.ljt_parse_wav(
+            u8,
+            len(data),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            ctypes.byref(n_frames),
+            ctypes.byref(channels),
+            ctypes.byref(sr),
+        )
+        if rc == 0:
+            return out, sr.value
+    log.debug("native WAV parse refused the file (rc=%d); numpy parser", rc)
     return _parse_wav_numpy(data)
 
 
@@ -150,19 +182,31 @@ def _resample_numpy(x: np.ndarray, sr_in: int, sr_out: int,
 
 
 def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """Resample mono float audio."""
+    """Resample mono float audio in the native library."""
     x = np.ascontiguousarray(x, np.float32)
     if sr_in == sr_out:
         return x
-    return _resample_numpy(x, sr_in, sr_out)
+    lib = load_library()
+    calls["resample"] += 1
+    n_out = lib.ljt_resample_len(len(x), sr_in, sr_out)
+    out = np.empty(n_out, np.float32)
+    lib.ljt_resample(
+        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(x), sr_in,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_out, sr_out,
+        16, 512, 14.769656459379492,
+    )
+    return out
 
 
 def peak_normalize(x: np.ndarray) -> np.ndarray:
-    """x / max|x| (x itself when silent), as a new array: the input is
-    never changed."""
+    """x / max|x| (x itself when silent) in the native library, as a new
+    array: the library works in place on a copy, so the input is never
+    changed."""
     x = np.array(x, np.float32, copy=True, order="C")
-    peak = np.abs(x).max()
-    return x / peak if peak > 0 else x
+    lib = load_library()
+    calls["peak_normalize"] += 1
+    lib.ljt_peak_normalize(x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(x))
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ with reflect padding of n_fft // 2, the periodic Hann window
 0.5 - 0.5 cos(2 pi n / N), the power spectrogram, the HTK mel scale, no
 filterbank norm, and 10 log10(max(mel, 1e-10)) (AmplitudeToDB, top_db
 None). The window, the mel scale and the filterbank stay numpy; the
-framing, the FFT and the log are torch on the input's device.
+framing, the FFT and the log are torch on the input's device. torch is
+imported where it is used, so that the host-only users of the numpy half
+(`audio/dsp.py`, and through it the preprocessing CLIs and their worker
+processes) start without it.
 """
 
 from __future__ import annotations
@@ -15,7 +18,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -80,6 +82,8 @@ def stft_power(
     center: bool = True,
 ) -> torch.Tensor:
     """Power spectrogram [..., frames, n_fft//2+1] in fp32, on audio's device."""
+    import torch
+
     if window is None:
         window = hann_window(n_fft)
     win = torch.as_tensor(np.asarray(window, np.float32), device=audio.device)
@@ -108,6 +112,8 @@ def log_mel_spectrogram(
     amin: float = 1e-10,
 ) -> torch.Tensor:
     """[..., T] -> [..., frames, n_mels] in dB (AmplitudeToDB, top_db=None)."""
+    import torch
+
     power = stft_power(audio, n_fft, hop)
     fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm))
     mel = torch.matmul(power, fb.to(power.device).T)

@@ -22,6 +22,7 @@ import contextlib
 import io
 import json
 import logging
+import os
 import pickle
 import tarfile
 from typing import Any, Dict, Iterator, List, Optional, Sequence
@@ -62,15 +63,53 @@ def split_key_field(name: str) -> tuple:
 
 
 class TarShardReader:
-    """Iterate samples from one or more tar shards, in order, with Python's
-    tarfile (the JAX package's optional native loader yields the same
-    order)."""
+    """Iterate samples from one or more tar shards.
 
-    def __init__(self, paths: Sequence[str], handler: str = "warn"):
+    Local plain-tar shards stream through the native C++ loader
+    (`native/tarloader.cpp`): file reads and the ustar parse run on
+    background threads that read shards ahead, in the order of the
+    sequential Python path. A gzipped, remote or missing shard sends every
+    shard to the Python `tarfile` reader, as does `use_native=False`,
+    `LLARK_TPU_NO_NATIVE_TAR=1` or `handler="raise"`.
+    """
+
+    def __init__(
+        self, paths: Sequence[str], handler: str = "warn", use_native: bool = True
+    ):
         self.paths = list(paths)
         self.handler = handler  # "warn" | "raise"
+        self.use_native = use_native and not os.environ.get("LLARK_TPU_NO_NATIVE_TAR")
+
+    @staticmethod
+    def _native_parsable(path: str) -> bool:
+        """The C++ loader reads raw ustar only: a gzipped (magic 0x1f8b),
+        missing or short file would yield no sample there, while the Python
+        tarfile path reads it. Remote shards take the Python streaming
+        reader."""
+        if storage.is_remote(path):
+            return False
+        try:
+            with open(path, "rb") as f:
+                head = f.read(512)
+        except OSError:
+            return False
+        if len(head) < 512 or head[:2] == b"\x1f\x8b":
+            return False
+        return head[257:262] == b"ustar"
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if self.use_native and self.handler != "raise":
+            from llark_tpu_torch.native import tarloader
+
+            bad = [p for p in self.paths if not self._native_parsable(p)]
+            if not bad:
+                yield from self._iter_native(tarloader)
+                return
+            log.warning(
+                "native tar loader cannot parse %s (gzipped/missing/short/"
+                "remote); using the Python reader for all %d shard(s)",
+                bad[0], len(self.paths),
+            )
         for path in self.paths:
             try:
                 yield from self._iter_shard(path)
@@ -78,6 +117,19 @@ class TarShardReader:
                 if self.handler == "raise":
                     raise
                 log.warning("skipping corrupt shard %s: %s", path, e)
+
+    def _iter_native(self, tarloader) -> Iterator[Dict[str, Any]]:
+        for raw in tarloader.iter_samples(self.paths):
+            sample: Dict[str, Any] = {"__key__": raw["__key__"]}
+            for field, data in raw.items():
+                if field == "__key__":
+                    continue
+                try:
+                    sample[field] = decode_member(f"{raw['__key__']}.{field}", data)
+                except Exception as e:  # noqa: BLE001 — skip-and-warn contract
+                    log.warning("skipping corrupt member %s.%s: %s",
+                                raw["__key__"], field, e)
+            yield sample
 
     def _iter_shard(self, path: str) -> Iterator[Dict[str, Any]]:
         with contextlib.ExitStack() as stack:

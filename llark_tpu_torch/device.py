@@ -2,11 +2,13 @@
 
 Entry points run on the card unless the caller asks for the CPU: with no
 GPU and no explicit `device="cpu"` they raise instead of quietly running
-on the host.
+on the host. `full_fp32` keeps fp32 products in full precision (no TF32)
+inside a block, for the paths whose result a TF32 rounding would move.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -22,3 +24,15 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """No TF32 in cuDNN convolutions or cuBLAS products inside the block,
+    whatever the caller's flags say; they are restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

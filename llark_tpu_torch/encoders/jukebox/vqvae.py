@@ -18,29 +18,16 @@ cuDNN would otherwise run them in TF32, its default.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, Dict, List, Union
 
 import torch
 import torch.nn.functional as F
 
-from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.device import full_fp32, resolve_device
 from llark_tpu_torch.encoders.jukebox.config import JukeboxVQVAEConfig
 
 Params = Dict[str, Any]
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """No TF32 in cuDNN convolutions or cuBLAS products inside the block,
-    whatever the caller's flags say; they are restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int,

@@ -22,11 +22,17 @@ each with its `blocks` (a list) and its `downsample` (None in the last).
 `levels` (a list of dicts with `stages`, each with its `res` list) and
 `codebooks`, and the prior's `x_emb`, `pos_emb` and `layers` stacked
 [depth // 3, 3, ...].
+
+`annotator_params_from_numpy` takes the neural annotators' flat tree
+(`llark_tpu/audio/neural.py` `load_params`: "beat/conv0_w" [k, c_in, c_out],
+"beat/head_w" [in, out], ...) and returns the state dicts of the port's
+`BeatNet` and `KeyNet`: a convolution as `Conv1d`'s [c_out, c_in, k], a
+dense weight as `Linear`'s [out, in].
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -185,3 +191,25 @@ def jukebox_params_from_numpy(
     _check_vq_tree(vq_tree)
     _check_prior_tree(prior_tree)
     return (_float_tree(vq_tree, dev), _float_tree(prior_tree, dev, dtype or torch.float32))
+
+
+def annotator_params_from_numpy(
+    tree: Mapping,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The neural annotators' numpy tree -> {"beat": state dict, "key":
+    state dict} of fp32 tensors on `device` (the GPU unless the caller asks
+    for the CPU), in the layout of `audio.neural.BeatNet` / `KeyNet`."""
+    dev = resolve_device(device)
+    out: Dict[str, Dict[str, torch.Tensor]] = {"beat": {}, "key": {}}
+    for name, leaf in tree.items():
+        net, param = name.split("/")
+        layer, kind = param.rsplit("_", 1)  # "conv0", "w"
+        arr = np.asarray(leaf, np.float32)
+        if kind == "w":
+            # [k, c_in, c_out] -> [c_out, c_in, k]; [in, out] -> [out, in]
+            arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+        module = f"convs.{layer[len('conv'):]}" if layer.startswith("conv") else layer
+        out[net][f"{module}.{'weight' if kind == 'w' else 'bias'}"] = _to_tensor(
+            arr, dev, torch.float32)
+    return out

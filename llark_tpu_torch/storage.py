@@ -10,6 +10,7 @@ these helpers, so the remote-storage slice can add
 from __future__ import annotations
 
 import contextlib
+import glob as _glob
 import os
 import re
 from typing import IO, Iterator, List
@@ -50,6 +51,11 @@ def write_bytes(path: str, data: bytes) -> None:
 
 def exists(path: str) -> bool:
     return os.path.exists(_local(path))
+
+
+def fs_glob(pattern: str) -> List[str]:
+    """Sorted matches of a glob pattern."""
+    return sorted(_glob.glob(_local(pattern)))
 
 
 def listdir(path: str) -> List[str]:

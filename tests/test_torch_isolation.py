@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import llark_tpu_torch
+from llark_tpu_torch.audio.neural import neural_annotators
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.generate import Generator
 from llark_tpu_torch.interop.from_jax import params_from_numpy
@@ -57,7 +58,12 @@ def test_port_imports_without_jax_or_reference():
                 "encoders.clap.import_hf", "encoders.jukebox", "encoders.jukebox.config",
                 "encoders.jukebox.conditioner", "encoders.jukebox.vqvae",
                 "encoders.jukebox.prior", "encoders.jukebox.import_torch",
-                "encoders.jukebox.encode", "interop.from_jax"):
+                "encoders.jukebox.encode", "interop.from_jax", "native", "native.build",
+                "native.tarloader", "audio.dsp", "audio.annotate", "audio.neural",
+                "audio.synthbench", "dataset_utils", "dataset_utils.midi", "evaluation",
+                "evaluation.utils", "preprocessing", "preprocessing.jsonify",
+                "preprocessing.jsonify_cli", "preprocessing.pack_webdataset",
+                "preprocessing.pipeline_cli", "preprocessing.wavcaps_filters"):
         assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -83,6 +89,9 @@ def test_entry_points_refuse_to_run_on_cpu_by_default():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy(tree, cfg)
     assert params_from_numpy(tree, cfg, "cpu")["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        neural_annotators()
+    assert neural_annotators(device="cpu")[1].device.type == "cpu"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
