@@ -4,8 +4,10 @@
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --phase 23  # one phase alone: 17 (checkpoint I/O),
                                       # 20 (the CLAP path), 21 (Jukebox),
-                                      # 22 (Mixture-of-Experts) or 23 (native
-                                      # I/O, annotation and preprocessing)
+                                      # 22 (Mixture-of-Experts), 23 (native
+                                      # I/O, annotation and preprocessing) or
+                                      # 24 (the annotator trainer, the CLAP
+                                      # text tower and the harness)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -65,15 +67,15 @@ Phases, in order; any failure exits non-zero before the final line:
   9. one training step's loss and projector gradient at 7B width, 2 layers,
      through the flash kernels and through the plain attention path (2
      flash backward launches);
- 10. the adapter stage at Llama-2-7B width, 8 layers (ADAPTER_LAYERS,
+ 10. the adapter stage at Llama-2-7B width, 4 layers (ADAPTER_LAYERS,
      cut from 32 for the time limit; fp32 parameters, frozen backbone, remat) through `train()` on shards written to a temp
      dir: batch 2 x 2 accumulation steps, 1024 tokens, 256 x 4800 audio
      frames; the loss must fall;
  11. the run-of-record flags (the whole model trains) at 7B width, 2
      layers (FULL_LAYERS), likewise; for both: median step ms, tokens/s, MFU, peak
      memory, launches of the flash forward and backward per step (the
-     backward exactly one per layer per micro-batch: 64 in the adapter
-     stage) and the card's idle share in a torch.profiler trace of one step;
+     backward exactly one per layer per micro-batch: 8 a step in the
+     adapter stage) and the card's idle share in a torch.profiler trace of one step;
  12. the training kernels' timings at the phase-8 shape beside their plain
      versions and PyTorch's scaled_dot_product_attention (the whole
      backward, delta included, against SDPA's backward with the same mask;
@@ -145,7 +147,7 @@ Phases, in order; any failure exits non-zero before the final line:
      remat; rank 64, alpha 16, dropout 0.05, 512 positions, batch 2 x 2,
      phase 10's shard), each run through `train()` (`run_lora`): (a) QLoRA
      on an int8 base, 32 layers, 4 steps; (b) on an int4 base (rows layout,
-     group 128), 32 layers, 3 steps; (c) LoRA on the float base, 4 layers
+     group 128), 32 layers, 3 steps; (c) LoRA on the float base, 2 layers
      (LORA_CUT_LAYERS), 3 steps, then `merge_lora`; (d) one micro-batch under
      each remat policy ("full", "dots", "dots_narrow"), 4 layers, int8 base;
      (e) (a)'s run directory through `load_pretrained_model` ->
@@ -327,7 +329,34 @@ Phases, in order; any failure exits non-zero before the final line:
      `from_webdataset` read their shards through the native tar loader),
      phase 20 (8 parses and resamples in the CLAP CLI's card run; its host
      share) and phase 21 (8 parses; its host seconds), each gated in its
-     phase; the parts' seconds.
+     phase; the parts' seconds;
+ 24. the annotator trainer, the CLAP text tower and the evaluation harness
+     (`run_annotator_text_phase`), each gate beside a TF32 control that must
+     fail it: (a) 2 synthbench clips a family at 12 s (12 beat clips, 10 key
+     clips; `build_datasets` makes each clip once for both); from one numpy
+     initial tree and the same batches, BeatNet (batch 16, crop 1000) and
+     KeyNet (batch 64) on the card, with cuDNN and with it off: the first
+     step before Adam against float64 on the CPU (its loss within
+     ANNOTATOR_LOSS_TOL, 1e-5, relative; each gradient within
+     ANNOTATOR_GRAD_TOL, 1e-3, in L2 relative to its norm), then
+     ANNOTATOR_GATE_STEPS (5) Adam steps' losses within ANNOTATOR_STEPS_TOL
+     (1.5e-4) relative of the CPU's fp32 run (controls: the card with TF32
+     products, the worse net in each gate); then `train_annotators
+     .main` on the card, 300 steps each at lr 1e-3 from RandomState(0) into
+     a temporary --out: steps/s and the host's batch-building share a net,
+     the mean loss over the last 50 steps below the first 50's; the file in
+     the committed file's keys, shapes and dtypes, read by
+     `neural_annotators(weights=..., device="cuda")` to annotate one clip;
+     (b) the CLAP text tower at ClapTextConfig.base() (RoBERTa-base, fp32,
+     TF32 off), random weights drawn on the card from the seed, written as
+     an HF directory (model.safetensors + config.json): 64 texts (the
+     harness's genre label set and seeded completions) through
+     `make_text_embedder` at batch 32, max_len 77: texts/s, device ms, the
+     parameter bytes; the first 16 on the CPU: within TEXT_TOL (1e-5)
+     relative to max; (c) `harness genre --embedder clap` on that directory
+     over a 16-row results / labels pair with --device cuda and --device
+     cpu (in process, through `harness.main`): the same metrics JSON; the
+     parts' seconds.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -346,10 +375,10 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import io
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import shutil
@@ -362,12 +391,16 @@ import torch
 
 from llark_tpu_torch.audio import io as audio_io
 from llark_tpu_torch.audio import neural, synthbench
+from llark_tpu_torch.audio import train_annotators as ta
 from llark_tpu_torch.audio.annotate import annotate_elem
 from llark_tpu_torch.audio.io import DEFAULT_SR, read_wav, write_wav
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardReader, TarShardWriter
+from llark_tpu_torch.device import full_fp32
+from llark_tpu_torch.evaluation import harness
 from llark_tpu_torch.encoders import extract_cli
+from llark_tpu_torch.encoders.clap import text as clap_text
 from llark_tpu_torch.encoders.jukebox import encode as jb_encode
 from llark_tpu_torch.encoders.jukebox import import_torch as jb_import
 from llark_tpu_torch.encoders.jukebox import prior as jb_prior
@@ -1701,8 +1734,9 @@ TRAIN_ABS_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 3e-2
 # phase 10's depths, cut so that the script keeps inside its time limit
 # (train() writes the whole state at its end: 27 GB of fp32 parameters at
-# 32 layers); the adapter stage from 32, the run-of-record flags from 4
-ADAPTER_LAYERS = 8
+# 32 layers); the adapter stage from 32 (to 8, then to 4 to pay for phase
+# 24), the run-of-record flags from 4
+ADAPTER_LAYERS = 4
 FULL_LAYERS = 2
 
 
@@ -1968,7 +2002,6 @@ def time_flash_bwd(gen):
 # a 32-layer export writes 27 GB of fp32 on the host, and reads as much
 # back, within the script's limit: depth is cut to 2 layers (from 4 in PR 19)
 CKPT_LAYERS = 2
-ST_DTYPE_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16"}
 
 
 def seconds(fn):
@@ -1980,25 +2013,6 @@ def seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def write_safetensors(path: str, tensors: dict) -> None:
-    """A .safetensors file written by the format itself (no package): the
-    header's length as 8 little-endian bytes, a JSON header of dtype, shape
-    and data offsets, padded to 8 bytes, then the raw little-endian data."""
-    header, offset = {"__metadata__": {"format": "pt"}}, 0
-    for name, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": ST_DTYPE_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for t in tensors.values():
-            f.write(t.contiguous().view(torch.uint8).numpy().data)
-
-
 def write_safetensors_shards(directory: str, sd: dict, n_shards: int = 2) -> int:
     """`sd` as `n_shards` .safetensors files and their index; bytes written."""
     keys = list(sd)
@@ -2006,7 +2020,7 @@ def write_safetensors_shards(directory: str, sd: dict, n_shards: int = 2) -> int
     for s in range(n_shards):
         fname = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
         part = {k: sd[k] for k in keys[s::n_shards]}
-        write_safetensors(os.path.join(directory, fname), part)
+        hf.write_safetensors(os.path.join(directory, fname), part)
         weight_map.update(dict.fromkeys(part, fname))
         total += os.path.getsize(os.path.join(directory, fname))
     with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
@@ -2240,12 +2254,13 @@ def run_checkpoint_io(directory: str, train_shard: str, smi: str) -> None:
 # the JAX package's QLoRA configuration (README.md): rank 64, alpha 16,
 # dropout 0.05, remat, 512 positions; batch 2 x 2
 LORA_SEQ = 512
-# the depth of run (c), cut from 32 (its checkpoint alone was 27 GB) so
-# that the script keeps inside its time limit (PERF.md section 4). (b) keeps 32:
+# the depth of run (c), cut from 32 (its checkpoint alone was 27 GB; to 4,
+# then to 2 to pay for phase 24) so that the script keeps inside its time
+# limit (PERF.md section 4). (b) keeps 32:
 # at 8 layers the bf16 plain step's own LoRA-B gradient lies 3.1e-2-3.4e-2
 # from the same step in fp32, above the 3e-2 gate, and the kernel route
 # lies nearer to fp32 than that (tools/qlora_gate_depth.py)
-LORA_CUT_LAYERS = 4
+LORA_CUT_LAYERS = 2
 LORA_FLAGS = dict(lora_enable=True, lora_r=64, lora_alpha=16, lora_dropout=0.05)
 # one step against plain products and plain attention (bf16 both): the
 # phase-9 gates (loss 1e-2 absolute, the gradient 3e-2 relative to max) on
@@ -4591,6 +4606,265 @@ def run_native_phase(directory: str, smi: str) -> None:
     print("  (a)-(c) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the annotator trainer, the CLAP text tower and the harness
+# ---------------------------------------------------------------------------
+
+TRAIN_CLIPS = 2  # a family: 12 beat clips, 10 key clips (percussion has no key)
+TRAIN_STEPS = 300  # each net, as `train_annotators --steps-beat/--steps-key`
+# the trainer's gate (phase 24 (a)): the first step against float64 on the CPU, its loss
+# (relative) and each gradient tensor (L2, relative); then 5 Adam steps' losses (relative)
+# against the CPU's fp32 run
+ANNOTATOR_LOSS_TOL, ANNOTATOR_GRAD_TOL = 1e-5, 1e-3
+ANNOTATOR_GATE_STEPS, ANNOTATOR_STEPS_TOL = 5, 1.5e-4
+TEXT_TOL = 1e-5  # relative to max, the text tower card vs CPU, fp32
+TEXT_BATCH, TEXT_MAX_LEN, TEXT_CPU_ROWS = 32, 77, 16
+GENRES = ("blues", "classical", "country", "disco", "hiphop", "jazz", "metal", "pop",
+          "reggae", "rock")
+TEXT_MOODS = ("a calm", "an energetic", "a dark", "a bright", "a laid-back", "a driving")
+TEXT_PARTS = ("guitars", "saxophone", "strings", "synths", "piano", "a drum machine",
+              "brass", "a fiddle")
+
+
+def text_inputs(n: int) -> tuple:
+    """The harness's genre label set and seeded model completions: n texts,
+    and each completion's genre."""
+    rng = np.random.RandomState(SEED)
+    genres = [GENRES[i] for i in rng.randint(len(GENRES), size=n - len(GENRES))]
+    completions = [f"This is {TEXT_MOODS[rng.randint(len(TEXT_MOODS))]} {g} track with "
+                   f"{TEXT_PARTS[rng.randint(len(TEXT_PARTS))]} at {60 + rng.randint(120)} BPM."
+                   for g in genres]
+    return list(GENRES) + completions, genres
+
+
+@contextlib.contextmanager
+def mock_attr(obj, name: str, value):
+    """`obj.name` is `value` inside the block, restored after."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def first_step(net: str, init: dict, batch: tuple, device: str, flags,
+               dtype: torch.dtype = torch.float32) -> tuple:
+    """The trainer's first step before Adam: its loss and each parameter's
+    gradient (numpy, by parameter name) on `batch`, under `flags`, with the
+    net and the batch's floats in `dtype`."""
+    model = ta.trainable_net(net, init, device).to(dtype)
+    xb, yb = (torch.from_numpy(a).to(device) for a in batch)
+    xb, yb = xb.to(dtype), yb.to(dtype) if yb.is_floating_point() else yb
+    with flags():
+        loss = (ta.beat_loss if net == "beat" else ta.key_loss)(model, xb, yb)
+        loss.backward()
+    return loss.item(), {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def no_cudnn():
+    """fp32 products with cuDNN off (convolutions through the native CUDA path)."""
+    with full_fp32(), torch.backends.cudnn.flags(enabled=False, benchmark=False, allow_tf32=False):
+        yield
+
+
+def trainer_gate(beat_data, key_data, smi: str) -> None:
+    """(a)'s gate, from one numpy initial tree (the trainer's own draw) and
+    the same batches, on the card with cuDNN and with cuDNN off. First the
+    trainer's first step before Adam against the same step in float64 on
+    the CPU: the loss within ANNOTATOR_LOSS_TOL relative, each parameter's
+    gradient within ANNOTATOR_GRAD_TOL in L2 relative to its norm (BeatNet's
+    dilated convolutions sum with heavy cancellation: an fp32 route that
+    sums in plain order reads ~3e-4 there, cuDNN ~3e-7, and the CPU's fp32
+    step is printed beside them). Then ANNOTATOR_GATE_STEPS Adam steps,
+    each step's loss within ANNOTATOR_STEPS_TOL of the CPU's fp32 run. Adam
+    normalises each element's step, so an element whose gradient lies within
+    rounding of zero steps either way: after a step the weights read the
+    summation order, not the trainer, and the limit sits above what the
+    correct fp32 routes read. TF32 products must fail each gate."""
+    init = {**ta.init_tree(neural.beat_param_shapes(), torch.Generator().manual_seed(0)),
+            **ta.init_tree(neural.key_param_shapes(), torch.Generator().manual_seed(1))}
+
+    def steps(net: str, device: str):
+        rng = np.random.RandomState(SEED)
+        if net == "beat":
+            return ta.train_beat(*beat_data, ANNOTATOR_GATE_STEPS, 16, 1000, 1e-3, rng, init,
+                                 device)
+        return ta.train_key(*key_data, ANNOTATOR_GATE_STEPS, 64, 1e-3, rng, init, device)
+
+    def first_gap(run, ref) -> tuple:
+        per = {k: float(np.linalg.norm(run[1][k] - g) / np.linalg.norm(g))
+               for k, g in ref[1].items()}
+        worst = max(per, key=per.get)
+        return abs(run[0] - ref[0]) / abs(ref[0]), per[worst], worst
+
+    def loss_gap(run, ref) -> float:
+        return max(abs(a - b) / abs(b) for a, b in zip(run.losses, ref.losses))
+
+    tf32 = {"loss": 0.0, "gradient": 0.0, "steps": 0.0}
+    for net in ("beat", "key"):
+        rng = np.random.RandomState(SEED)  # the trainer's first batch
+        batch = (ta.beat_batches(*beat_data, 16, 1000, rng) if net == "beat"
+                 else ta.key_batches(*key_data, 64, rng))()
+        exact = first_step(net, init, batch, "cpu", contextlib.nullcontext, torch.float64)
+        firsts = {"card": first_step(net, init, batch, "cuda", full_fp32),
+                  "card, cuDNN off": first_step(net, init, batch, "cuda", no_cudnn),
+                  "card TF32": first_step(net, init, batch, "cuda", tf32_products),
+                  "CPU fp32": first_step(net, init, batch, "cpu", full_fp32)}
+        first = {name: first_gap(r, exact) for name, r in firsts.items()}
+        ref = steps(net, "cpu")
+        runs = {"card": steps(net, "cuda")}
+        with no_cudnn():
+            runs["card, cuDNN off"] = steps(net, "cuda")
+        with tf32_products(), mock_attr(ta, "full_fp32", contextlib.nullcontext):
+            runs["card TF32"] = steps(net, "cuda")
+        print(f"  (a) {net} on {smi}, one initial tree, the same batches: the first step against "
+              "float64 on the CPU, " + "; ".join(
+                  f"{name} loss {g[0]:.3e}, worst gradient {g[1]:.3e} in L2 ({g[2]})"
+                  for name, g in first.items())
+              + f"; {ANNOTATOR_GATE_STEPS} steps' losses against the CPU in fp32, " + "; ".join(
+                  f"{name} {loss_gap(r, ref):.3e}" for name, r in runs.items()))
+        for name in ("card", "card, cuDNN off"):
+            loss, grad, worst = first[name]
+            check(loss <= ANNOTATOR_LOSS_TOL and grad <= ANNOTATOR_GRAD_TOL,
+                  f"{net}, {name}: the first step reads loss {loss:.3e}, {worst}'s gradient "
+                  f"{grad:.3e}")
+            gap = loss_gap(runs[name], ref)
+            check(gap <= ANNOTATOR_STEPS_TOL, f"{net}, {name}: {ANNOTATOR_GATE_STEPS} steps' "
+                  f"losses read {gap:.3e}")
+        tf32 = {"loss": max(tf32["loss"], first["card TF32"][0]),
+                "gradient": max(tf32["gradient"], first["card TF32"][1]),
+                "steps": max(tf32["steps"], loss_gap(runs["card TF32"], ref))}
+    control("TF32 products, the first step's loss, the worse net", tf32["loss"],
+            ANNOTATOR_LOSS_TOL)
+    control("TF32 products, the first step's gradients, the worse net", tf32["gradient"],
+            ANNOTATOR_GRAD_TOL)
+    control(f"TF32 products, {ANNOTATOR_GATE_STEPS} steps' losses, the worse net",
+            tf32["steps"], ANNOTATOR_STEPS_TOL)
+
+
+def run_annotator_training(directory: str, smi: str) -> None:
+    """(a): the trainer at the networks' full width on the card."""
+    (beat_data, key_data), data_s = seconds(
+        lambda: ta.build_datasets(TRAIN_CLIPS, ta.TRAIN_SEED_BASE))
+    print(f"  (a) datasets: {len(beat_data[0])} beat clips, {len(key_data[0])} key clips of "
+          f"12 s in {data_s:.2f} s ({ta.CLIP_THREADS} threads, one clip a seed)")
+    trainer_gate(beat_data, key_data, smi)
+    out = os.path.join(directory, "annotators.npz")
+    argv = ["--clips-per-family", str(TRAIN_CLIPS), "--steps-beat", str(TRAIN_STEPS),
+            "--steps-key", str(TRAIN_STEPS), "--batch", "16", "--crop", "1000", "--lr", "1e-3",
+            "--eval-n", "0", "--out", out, "--device", "cuda"]
+    (beat, key), run_s = seconds(lambda: ta.main(argv))
+    for name, r in (("BeatNet", beat), ("KeyNet", key)):
+        first, last = float(np.mean(r.losses[:50])), float(np.mean(r.losses[-50:]))
+        print(f"  (a) {name}: {len(r.losses)} steps on {smi}, {len(r.losses) / r.seconds:.1f} "
+              f"steps/s, building batches on the host {r.batch_seconds / r.seconds:.1%} of the "
+              f"wall time; mean loss over the first 50 steps {first:.4f}, the last 50 {last:.4f}")
+        check(last < first, f"{name}: the loss did not fall ({first:.4f} -> {last:.4f})")
+    rng = np.random.RandomState(SEED)
+    for name, fn in (("BeatNet", lambda: ta.train_beat(*beat_data, 20, 16, 1000, 1e-3, rng,
+                                                      device="cuda")),
+                     ("KeyNet", lambda: ta.train_key(*key_data, 20, 64, 1e-3, rng, device="cuda"))):
+        profile_device(fn, None, top=4, what=f"  (a) 20 {name} steps, profiled")
+    with np.load(neural.WEIGHTS_PATH) as z:
+        committed = {k: (z[k].shape, z[k].dtype) for k in z.files}
+    with np.load(out) as z:
+        written = {k: (z[k].shape, z[k].dtype) for k in z.files}
+    check(written == committed, f"the written file's keys, shapes or dtypes differ from the "
+          f"committed one's: {written} against {committed}")
+    audio, _ = synthbench.make_clip(ta.TRAIN_SEED_BASE, 12.0, family=synthbench.FAMILIES[0])
+    elem = annotate_elem({"audio": audio, "audio_sample_rate": synthbench.SR},
+                         annotators=neural.neural_annotators(weights=out, device="cuda"))
+    beats = elem["downbeats_madmom"]
+    print(f"  (a) `train_annotators` ({run_s:.1f} s, its datasets included) wrote "
+          f"{os.path.getsize(out)} bytes; through neural_annotators(device='cuda') one 12 s clip "
+          f"reads key {elem['key']!r}, tempo {elem['tempo_in_beats_per_minute_madmom']}, "
+          f"{len(beats)} beats")
+    check(isinstance(elem["key"], str) and np.isfinite(elem["tempo_in_beats_per_minute_madmom"]),
+          "the trained annotators gave no key or tempo")
+
+
+def run_text_tower(directory: str, smi: str) -> str:
+    """(b): the CLAP text tower at ClapTextConfig.base() on the card against
+    the CPU; returns the checkpoint directory."""
+    cfg = clap_text.ClapTextConfig.base()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state, init_s = seconds(lambda: clap_text.random_init(cfg, gen))
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    ckpt = os.path.join(directory, "clap_text")
+    _, write_s = seconds(lambda: clap_text.save_clap_text_checkpoint(ckpt, cfg, state))
+    del state
+    embed, load_s = seconds(lambda: clap_text.make_text_embedder(
+        ckpt, batch_size=TEXT_BATCH, max_len=TEXT_MAX_LEN, device="cuda"))
+    texts, _ = text_inputs(64)
+    vecs, cold_s = seconds(lambda: embed(texts))
+    vecs, warm_s = seconds(lambda: embed(texts))
+    device_ms = profile_device(lambda: embed(texts), warm_s * 1e3, top=4,
+                               what=f"  (b) {len(texts)} texts, the tower on {smi}")
+    check(vecs.shape == (len(texts), cfg.projection_dim) and np.isfinite(vecs).all(),
+          f"text embeddings {vecs.shape}, finite {np.isfinite(vecs).all()}")
+    ids = embed.tokenize(texts[:TEXT_CPU_ROWS])
+    card = clap_text.clap_text_embed(embed.model, ids).cpu()
+    with tf32_products():
+        with torch.no_grad():
+            tf32 = embed.model.compute(torch.from_numpy(ids).cuda()).cpu()
+    _, cpu_model = clap_text.load_clap_text_encoder(ckpt, device="cpu")
+    cpu, cpu_s = seconds(lambda: clap_text.clap_text_embed(cpu_model, ids))
+    err, ctl = rel_err(card, cpu)[0], rel_err(tf32, cpu)[0]
+    print(f"  (b) ClapTextConfig.base(): {n_bytes} parameter bytes (fp32), drawn on the card "
+          f"{init_s:.2f} s, written {write_s:.2f} s, loaded {load_s:.2f} s; {len(texts)} texts "
+          f"at batch {TEXT_BATCH}, max_len {ids.shape[1]}: {len(texts) / warm_s:.1f} texts/s warm "
+          f"({cold_s:.2f} s cold), device {'not measured' if device_ms is None else f'{device_ms:.2f} ms'}; the first {TEXT_CPU_ROWS} texts on "
+          f"the CPU {cpu_s:.2f} s: card vs CPU {err:.3e} relative to max (gate {TEXT_TOL})")
+    check(err <= TEXT_TOL, f"the text tower on the card reads {err:.3e} from the CPU")
+    control("the text tower with TF32 products", ctl, TEXT_TOL)
+    return ckpt
+
+
+def run_harness_genre(directory: str, ckpt: str, smi: str) -> None:
+    """(c): `harness genre --embedder clap` over 16 rows on the card and on
+    the CPU: the same metrics JSON."""
+    texts, genres = text_inputs(len(GENRES) + 16)
+    results, labels = os.path.join(directory, "results.csv"), os.path.join(directory, "labels.jsonl")
+    with open(results, "w", newline="") as f:
+        w = csv.DictWriter(f, ["example_id", "prompt", "response", "model_completion"])
+        w.writeheader()
+        for i, text in enumerate(texts[len(GENRES):]):
+            w.writerow({"example_id": str(i), "prompt": "What genre is this?",
+                        "response": genres[i], "model_completion": text})
+    with open(labels, "w") as f:
+        for i, g in enumerate(genres):
+            f.write(json.dumps({"example_id": str(i), "genre": g}) + "\n")
+    out = {}
+    for where, device in (("card", "cuda"), ("CPU", "cpu")):
+        buf = io.StringIO()
+        argv = ["genre", "--results", results, "--labels", labels, "--label-set",
+                ",".join(GENRES), "--embedder", "clap", "--clap-checkpoint", ckpt,
+                "--device", device]
+        with contextlib.redirect_stdout(buf):
+            _, took = seconds(lambda: harness.main(argv))
+        out[where] = (buf.getvalue().strip().splitlines()[-1], took)
+    print(f"  (c) `harness genre --embedder clap` over {len(genres)} rows: on the card ({smi}) "
+          f"{out['card'][1]:.2f} s {out['card'][0]}; on the CPU {out['CPU'][1]:.2f} s "
+          f"{out['CPU'][0]}")
+    metrics = json.loads(out["card"][0])
+    check(metrics["n"] == len(genres), f"the harness scored {metrics['n']} rows")
+    check(out["card"][0] == out["CPU"][0], "the harness's metrics differ between the card and "
+          "the CPU")
+
+
+def run_annotator_text_phase(directory: str, smi: str) -> None:
+    """Phase 24: the annotator trainer, the CLAP text tower and the harness."""
+    print(f"phase 24 on {smi}: the annotator trainer at full width, the CLAP text tower at "
+          f"RoBERTa-base width and `harness genre --embedder clap`")
+    timings = {}
+    _, timings["a"] = seconds(lambda: run_annotator_training(directory, smi))
+    ckpt, timings["b"] = seconds(lambda: run_text_tower(directory, smi))
+    _, timings["c"] = seconds(lambda: run_harness_genre(directory, ckpt, smi))
+    print("  (a)-(c) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
+
+
 def checkpoint_io_alone(directory: str, smi: str) -> None:
     """Phase 17 without the phases before it: its training shard first."""
     shard = write_shards(directory, ModelConfig.llama2_7b())
@@ -4602,7 +4876,9 @@ ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          20: ("CLAP path", run_clap_path),
          21: ("Jukebox path", run_jukebox_path),
          22: ("Mixture-of-Experts at Mixtral-8x7B width", run_moe_path),
-         23: ("native I/O, annotation and preprocessing", run_native_phase)}
+         23: ("native I/O, annotation and preprocessing", run_native_phase),
+         24: ("the annotator trainer, the CLAP text tower and the harness",
+              run_annotator_text_phase)}
 
 
 def set_up_card() -> tuple:
@@ -4702,6 +4978,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_native_phase(tmp, smi))
     print(f"phase 23 (native I/O, annotation and preprocessing) on {smi}: {phase_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, phase_s = seconds(lambda: run_annotator_text_phase(tmp, smi))
+    print(f"phase 24 (the annotator trainer, the CLAP text tower, the harness) on {smi}: "
+          f"{phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

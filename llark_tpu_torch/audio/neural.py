@@ -150,12 +150,17 @@ class BeatNet(nn.Module):
         self.convs = _convs(BEAT_LAYERS)
         self.head = nn.Linear(*BEAT_HEAD)
 
-    def compute(self, feats: torch.Tensor) -> torch.Tensor:
-        """The forward under the caller's TF32 flags."""
-        h = feats.t().unsqueeze(0)  # [1, C, T]
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, n_mels] -> (beat, downbeat) logits [B, T, 2], under the
+        caller's TF32 flags (the trainer's forward)."""
+        h = x.transpose(1, 2)  # [B, C, T]
         for conv in self.convs:
             h = torch.relu(conv(h))
-        return torch.sigmoid(self.head(h[0].t()))
+        return self.head(h.transpose(1, 2))
+
+    def compute(self, feats: torch.Tensor) -> torch.Tensor:
+        """The forward under the caller's TF32 flags."""
+        return torch.sigmoid(self.logits(feats[None])[0])
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         with full_fp32():
@@ -171,13 +176,18 @@ class KeyNet(nn.Module):
         self.fc0 = nn.Linear(*KEY_HIDDEN)
         self.fc1 = nn.Linear(KEY_HIDDEN[1], KEY_CLASSES)
 
-    def compute(self, chroma: torch.Tensor) -> torch.Tensor:
-        """The forward under the caller's TF32 flags."""
-        h = chroma.t().unsqueeze(0)
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, 12] -> key logits [B, 24], under the caller's TF32 flags
+        (the trainer's forward)."""
+        h = x.transpose(1, 2)
         for conv in self.convs:
             h = torch.relu(conv(h))
-        pooled = torch.cat([h[0].mean(dim=1), h[0].amax(dim=1)])
+        pooled = torch.cat([h.mean(dim=2), h.amax(dim=2)], dim=-1)
         return self.fc1(torch.relu(self.fc0(pooled)))
+
+    def compute(self, chroma: torch.Tensor) -> torch.Tensor:
+        """The forward under the caller's TF32 flags."""
+        return self.logits(chroma[None])[0]
 
     def forward(self, chroma: torch.Tensor) -> torch.Tensor:
         with full_fp32():

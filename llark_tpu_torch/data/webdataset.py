@@ -177,7 +177,10 @@ class TarShardWriter:
         if self._tar is None:
             path = self.pattern % self.shard_idx
             storage.makedirs_for(path)
-            self._tar = tarfile.open(fileobj=storage.fopen(path, "wb"), mode="w")
+            # a remote shard is stream-written ("w|") straight to the object store
+            mode = "w|" if storage.is_remote(path) else "w"
+            self._fileobj = storage.fopen(path, "wb")
+            self._tar = tarfile.open(fileobj=self._fileobj, mode=mode)
             self.written_paths.append(path)
 
     def write(self, sample: Dict[str, Any]) -> None:
@@ -213,10 +216,9 @@ class TarShardWriter:
 
     def close(self):
         if self._tar is not None:
-            f = self._tar.fileobj
             self._tar.close()
-            f.close()  # tarfile leaves a file object it was given open
-            self._tar = None
+            self._fileobj.close()  # tarfile leaves a file object it was given open
+            self._tar = self._fileobj = None
 
     def __enter__(self):
         return self

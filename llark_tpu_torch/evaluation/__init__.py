@@ -1,4 +1,5 @@
-"""Evaluation utilities; the harness (llark_tpu/evaluation/harness.py) is to come."""
+"""Evaluation utilities and the scripted harness over inference CSVs
+(`python -m llark_tpu_torch.evaluation.harness`)."""
 
 from llark_tpu_torch.evaluation.utils import (  # noqa: F401
     VALID_KEYS,

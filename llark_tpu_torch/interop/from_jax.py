@@ -28,6 +28,12 @@ each with its `blocks` (a list) and its `downsample` (None in the last).
 "beat/head_w" [in, out], ...) and returns the state dicts of the port's
 `BeatNet` and `KeyNet`: a convolution as `Conv1d`'s [c_out, c_in, k], a
 dense weight as `Linear`'s [out, in].
+
+`clap_text_params_from_numpy` takes the CLAP text tower's tree
+(`llark_tpu/encoders/clap/text.py` `init_text_params` or
+`text_params_from_hf`: `embeddings`, a `layers` list with q/k/v fused as
+`qkv_w` [h, 3h], `pooler`, `proj`) and returns the port's `ClapTextModel`
+holding it; a dense weight [in, out] becomes `Linear`'s [out, in].
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.encoders.clap.htsat import HTSATConfig
+from llark_tpu_torch.encoders.clap.text import ClapTextConfig, ClapTextModel, build_text_model
 from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig
 from llark_tpu_torch.encoders.jukebox.prior import _layer_param_shapes
 from llark_tpu_torch.models.decoder import Params, torch_dtype
@@ -213,3 +220,44 @@ def annotator_params_from_numpy(
         out[net][f"{module}.{'weight' if kind == 'w' else 'bias'}"] = _to_tensor(
             arr, dev, torch.float32)
     return out
+
+
+# the JAX text tree's leaves by ClapTextModel state-dict name (a layer's
+# under "layers.<i>."); every 2-D weight but the embedding tables is a dense
+# weight stored [in, out]
+_TEXT_TOP = {
+    "word.weight": ("embeddings", "word"), "position.weight": ("embeddings", "position"),
+    "token_type.weight": ("embeddings", "token_type"), "ln.weight": ("embeddings", "ln_g"),
+    "ln.bias": ("embeddings", "ln_b"), "pooler.weight": ("pooler", "w"),
+    "pooler.bias": ("pooler", "b"), "proj1.weight": ("proj", "w1"), "proj1.bias": ("proj", "b1"),
+    "proj2.weight": ("proj", "w2"), "proj2.bias": ("proj", "b2"),
+}
+_TEXT_LAYER = {
+    "qkv.weight": "qkv_w", "qkv.bias": "qkv_b", "proj.weight": "proj_w", "proj.bias": "proj_b",
+    "n1.weight": "n1_g", "n1.bias": "n1_b", "fc1.weight": "fc1_w", "fc1.bias": "fc1_b",
+    "fc2.weight": "fc2_w", "fc2.bias": "fc2_b", "n2.weight": "n2_g", "n2.bias": "n2_b",
+}
+_TEXT_TABLES = ("word.", "position.", "token_type.")
+
+
+def clap_text_params_from_numpy(
+    tree: Mapping,
+    cfg: ClapTextConfig,
+    device: Union[str, torch.device] = "cuda",
+) -> ClapTextModel:
+    """The JAX-layout CLAP text tree (numpy leaves) -> the port's
+    ClapTextModel in fp32 on `device` (the GPU unless the caller asks for
+    the CPU)."""
+    dev = resolve_device(device)
+    if len(tree["layers"]) != cfg.num_layers:
+        raise ValueError(f"the tree has {len(tree['layers'])} layers, the config "
+                         f"num_layers={cfg.num_layers}")
+    state = {name: tree[a][b] for name, (a, b) in _TEXT_TOP.items()}
+    for li, layer in enumerate(tree["layers"]):
+        state.update({f"layers.{li}.{name}": layer[key] for name, key in _TEXT_LAYER.items()})
+    for name, leaf in state.items():
+        arr = np.asarray(leaf, np.float32)
+        if arr.ndim == 2 and not name.startswith(_TEXT_TABLES):
+            arr = arr.T
+        state[name] = torch.from_numpy(np.array(arr, order="C"))
+    return build_text_model(cfg, state, dev)

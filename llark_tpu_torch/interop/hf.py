@@ -102,6 +102,27 @@ def read_safetensors(path: str) -> StateDict:
     return out
 
 
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """A .safetensors file written by the format itself (no package): the
+    header's length as 8 little-endian bytes, a JSON header of dtype, shape
+    and data offsets, padded to 8 bytes, then the raw little-endian data.
+    The inverse of `read_safetensors`, for its dtypes."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().view(torch.uint8).numpy().data)
+
+
 def _load_one(path: str) -> StateDict:
     if path.endswith(".safetensors"):
         return read_safetensors(path)

@@ -161,6 +161,20 @@ def subsequence_pos(seq: Sequence[int], subseq: Sequence[int]) -> int:
     return -1
 
 
+def adapt_tokenizer_for_denoising(tokenizer, num_sentinels: int = 100):
+    """Append `<extra_id_k>` sentinel tokens (UL2-style denoising vocab;
+    reference: m2t/llava/model/mpt/adapt_tokenizer.py:1-45). Returns the
+    tokenizer with `sentinel_token_ids` attached."""
+    sentinels = [f"<extra_id_{k}>" for k in range(num_sentinels)]
+    tokenizer.add_tokens(sentinels, special_tokens=True)
+    if getattr(tokenizer, "pad_token", None) is None:
+        tokenizer.pad_token = getattr(tokenizer, "eos_token", "[PAD]")
+    tokenizer.sentinel_token_ids = [
+        tokenizer.convert_tokens_to_ids(s) for s in sentinels
+    ]
+    return tokenizer
+
+
 def prompt_end_token_sequence(bundle: TokenizerBundle) -> List[int]:
     """Token ids of '\\n### Assistant:' with any tokenizer-prepended artifact
     (BOS / word-start token) stripped (reference m2t/tokenizer.py:41-58)."""
@@ -179,6 +193,14 @@ def extract_prompt_tokens(ids: Sequence[int], end_seq: Sequence[int]) -> List[in
     if pos == -1:
         return list(ids)
     return list(ids[: pos + len(end_seq)])
+
+
+def extract_response_tokens(ids: Sequence[int], end_seq: Sequence[int]) -> List[int]:
+    """Everything after the prompt-end sequence."""
+    pos = subsequence_pos(ids, end_seq)
+    if pos == -1:
+        return list(ids)
+    return list(ids[pos + len(end_seq) :])
 
 
 class WordTokenizer:

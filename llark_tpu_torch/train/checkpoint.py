@@ -16,15 +16,15 @@ Layout: `<dir>/checkpoint-<step>/state.pt` holding {"params", "opt_state",
 writes it (no second host copy of the whole state), and restore maps them
 to the CPU and copies them into the live tensors. A checkpoint is
 written under a temporary name and renamed when complete, so a run cut
-during a save resumes from the previous one.
+during a save resumes from the previous one. A `scheme://` directory
+(`gs://`, `memory://`) is written through the storage seam, where the
+reference hands such URLs to orbax; there the rename is a copy.
 """
 
 from __future__ import annotations
 
 import io
-import os
 import re
-import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -61,6 +61,8 @@ class CheckpointManager:
 
     def steps(self):
         """Steps of the complete checkpoints in the directory, ascending."""
+        if not storage.exists(self.directory):  # a remote prefix nothing was written under
+            return []
         found = (_CKPT_RE.match(n) for n in storage.listdir(self.directory))
         return sorted(int(m.group(1)) for m in found if m)
 
@@ -80,15 +82,20 @@ class CheckpointManager:
         }
         final = self._path(step)
         tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(payload, os.path.join(tmp, "state.pt"))
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
+        storage.rmtree(tmp)
+        path = storage.join(tmp, "state.pt")
+        storage.makedirs_for(path)
+        if storage.is_remote(path):
+            with storage.fopen(path, "wb") as f:
+                torch.save(payload, f)
+        else:  # by name: torch writes a local file from C++
+            torch.save(payload, path)
+        storage.rmtree(final)
+        storage.move(tmp, final)
         if self.save_projector:
             self._save_projector(step, state.params)
         for old in self.steps()[: -self.save_total_limit]:
-            shutil.rmtree(self._path(old), ignore_errors=True)
+            storage.rmtree(self._path(old))
 
     def _save_projector(self, step: int, params: Dict[str, Any]) -> None:
         """Side-save of the adapter weights as a plain npz (host-readable
@@ -113,9 +120,12 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        payload = torch.load(
-            os.path.join(self._path(step), "state.pt"), map_location="cpu", weights_only=True
-        )
+        state_pt = storage.join(self._path(step), "state.pt")
+        if storage.is_remote(state_pt):
+            with storage.fopen(state_pt, "rb") as f:
+                payload = torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
+        else:
+            payload = torch.load(state_pt, map_location="cpu", weights_only=True)
         saved = dict(iter_leaves(payload["params"]))
         for path, t in iter_leaves(state.params):
             if path not in saved or saved[path].shape != t.shape:

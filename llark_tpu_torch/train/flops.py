@@ -82,6 +82,16 @@ def train_flops_per_token(
     return matmul + attn
 
 
+def infer_flops_per_token(
+    cfg: ModelConfig, seq_len: int, multimodal: bool = True
+) -> float:
+    """Model FLOPs per token, FORWARD only (prefill/decode accounting):
+    2 * N_matmul + causal attention 2 * L * (T/2) * 2 * d_attn."""
+    matmul = 2.0 * matmul_param_count(cfg, multimodal)
+    attn = 2.0 * cfg.num_layers * seq_len * cfg.num_heads * cfg.head_dim
+    return matmul + attn
+
+
 def train_mfu(
     cfg: ModelConfig,
     seq_len: int,

@@ -58,6 +58,8 @@ pooled embeddings within JUKEBOX_GOLD_ATOL (the JAX package's bar,
 chip_smoke.py phase 21 (a)); the same with TF32 products must fail it.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1368,3 +1370,122 @@ def test_moe_int8_experts_launch_the_int8_kernel_per_expert(dev):
         finally:
             i8.int8_matmul = saved
     assert _rel_to_max(got, want) <= MOE_INT8_TOL
+
+
+# ---------------------------------------------------------------------------
+# the CLAP text tower and the annotator trainer: no hand-written kernel
+# (cuBLAS products, cuDNN convolutions), fp32 with TF32 off; held against
+# the CPU within TEXT_TOL / TRAIN_* as chip_smoke.py phase 24 holds them,
+# each beside a TF32 control that must fail its gate
+# ---------------------------------------------------------------------------
+
+TEXT_TOL = 1e-5
+# the first step against float64: its loss (relative) and each gradient (L2,
+# relative); then each of 5 Adam steps' losses against the CPU in fp32
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STEPS_TOL = 1e-5, 1e-3, 1.5e-4
+
+
+def _text_tower_on(dev, tf32=False):
+    from llark_tpu_torch.encoders.clap import text
+
+    cfg = text.ClapTextConfig.base()
+    state = text.random_init(cfg, torch.Generator().manual_seed(0))
+    ids = text.hashed_token_ids(["a calm jazz tune with saxophone", "metal", "pop with synths",
+                                 "a slow blues in E"], 24, cfg.vocab_size, cfg.pad_token_id)
+    want = text.clap_text_embed(text.build_text_model(cfg, state, "cpu"), ids)
+    model = text.build_text_model(cfg, state, dev)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with torch.no_grad():
+            ids_dev = torch.from_numpy(ids).to(dev)
+            got = model.compute(ids_dev) if tf32 else text.clap_text_embed(model, ids_dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return got.cpu(), want
+
+
+def test_clap_text_base_on_the_card_matches_the_cpu(dev):
+    got, want = _text_tower_on(dev)
+    assert got.shape == (4, 512) and bool(torch.isfinite(got).all())
+    assert _rel_to_max(got, want) <= TEXT_TOL
+
+
+def test_clap_text_base_with_tf32_products_falls_outside_text_tol(dev):
+    got, want = _text_tower_on(dev, tf32=True)
+    assert _rel_to_max(got, want) > TEXT_TOL
+
+
+def _trainer_data():
+    from llark_tpu_torch.audio import neural
+    from llark_tpu_torch.audio import train_annotators as ta
+
+    rng = np.random.RandomState(0)
+    beat = ([rng.randn(600, neural.BEAT_N_MELS).astype(np.float32) for _ in range(3)],
+            [(rng.rand(600, 2) < 0.05).astype(np.float32) for _ in range(3)])
+    key = rng.rand(6, 120, 12).astype(np.float32), rng.randint(24, size=6).astype(np.int32)
+    init = {**ta.init_tree(neural.beat_param_shapes(), torch.Generator().manual_seed(0)),
+            **ta.init_tree(neural.key_param_shapes(), torch.Generator().manual_seed(1))}
+    return beat, key, init
+
+
+def _first_step(net, device, tf32=False, dtype=torch.float32):
+    # the trainer's first step before Adam: (loss, {parameter: gradient})
+    from llark_tpu_torch.audio import train_annotators as ta
+    from llark_tpu_torch.device import full_fp32
+
+    beat, key, init = _trainer_data()
+    rng = np.random.RandomState(1)
+    draw = ta.beat_batches(*beat, 4, 400, rng) if net == "beat" else ta.key_batches(*key, 4, rng)
+    model = ta.trainable_net(net, init, device).to(dtype)
+    xb, yb = (torch.from_numpy(a).to(device) for a in draw())
+    xb, yb = xb.to(dtype), yb.to(dtype) if yb.is_floating_point() else yb
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        with contextlib.ExitStack() as stack:
+            if tf32:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            else:
+                stack.enter_context(full_fp32())
+            loss = (ta.beat_loss if net == "beat" else ta.key_loss)(model, xb, yb)
+            loss.backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return loss.item(), {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+
+
+def _first_step_gaps(got, want):
+    grads = max(np.linalg.norm(got[1][k] - g) / np.linalg.norm(g) for k, g in want[1].items())
+    return abs(got[0] - want[0]) / abs(want[0]), grads
+
+
+def _steps(net, device):
+    from llark_tpu_torch.audio import train_annotators as ta
+
+    beat, key, init = _trainer_data()
+    if net == "beat":
+        return ta.train_beat(*beat, 5, 4, 400, 1e-3, np.random.RandomState(1), init, device)
+    return ta.train_key(*key, 5, 4, 1e-3, np.random.RandomState(1), init, device)
+
+
+@pytest.mark.parametrize("net", ["beat", "key"])
+def test_trainer_steps_on_the_card_match_the_cpu(dev, net):
+    # chip_smoke.py phase 24 (a)'s gate: the first step's loss and gradients
+    # before Adam against float64, then the losses of 5 Adam steps against
+    # the CPU in fp32 (Adam turns rounding-level gradients of near-zero
+    # elements into lr-sized steps of either sign, so the weights after a
+    # step read the summation order, not the trainer)
+    exact = _first_step(net, "cpu", dtype=torch.float64)
+    loss, grad = _first_step_gaps(_first_step(net, dev), exact)
+    assert loss <= TRAIN_LOSS_TOL and grad <= TRAIN_GRAD_TOL
+    card, cpu = _steps(net, dev), _steps(net, "cpu")
+    assert next(card.net.parameters()).device.type == "cuda"
+    assert max(abs(a - b) / abs(b) for a, b in zip(card.losses, cpu.losses)) <= TRAIN_STEPS_TOL
+
+
+def test_trainer_steps_with_tf32_products_fall_outside_the_first_step_gate(dev):
+    for net in ("beat", "key"):
+        loss, grad = _first_step_gaps(_first_step(net, dev, tf32=True),
+                                      _first_step(net, "cpu", dtype=torch.float64))
+        assert loss > TRAIN_LOSS_TOL or grad > TRAIN_GRAD_TOL, net

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 import llark_tpu_torch
+from llark_tpu_torch.audio import train_annotators
 from llark_tpu_torch.audio.neural import neural_annotators
 from llark_tpu_torch.config import ModelConfig
+from llark_tpu_torch.encoders.clap import text
+from llark_tpu_torch.evaluation import harness
 from llark_tpu_torch.generate import Generator
 from llark_tpu_torch.interop.from_jax import params_from_numpy
 from llark_tpu_torch.models.fusion import init_llark_params
@@ -63,7 +66,12 @@ def test_port_imports_without_jax_or_reference():
                 "audio.synthbench", "dataset_utils", "dataset_utils.midi", "evaluation",
                 "evaluation.utils", "preprocessing", "preprocessing.jsonify",
                 "preprocessing.jsonify_cli", "preprocessing.pack_webdataset",
-                "preprocessing.pipeline_cli", "preprocessing.wavcaps_filters"):
+                "preprocessing.pipeline_cli", "preprocessing.wavcaps_filters",
+                "audio.train_annotators", "encoders.clap.text", "evaluation.harness",
+                "instruct", "instruct.captioning", "instruct.data_validation",
+                "instruct.fetch_openai", "instruct.json_utils", "instruct.prompting",
+                "instruct.fewshot_examples", "instruct.fewshot_examples.mirqa",
+                "instruct.fewshot_examples.reasoning_qa", "keys", "notebook_lib"):
         assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -109,3 +117,28 @@ def test_chip_smoke_fails_without_a_gpu(where, tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_new_entry_points_refuse_to_run_on_cpu_by_default(tmp_path):
+    """The annotator trainer, `harness genre --embedder clap` and
+    `make_text_embedder` default to the GPU and raise without one; given
+    the CPU they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    cfg = text.ClapTextConfig.tiny(num_layers=1)
+    ckpt = text.save_clap_text_checkpoint(
+        str(tmp_path / "clap"), cfg, text.random_init(cfg, torch.Generator().manual_seed(0)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        text.make_text_embedder(ckpt)
+    assert text.make_text_embedder(ckpt, device="cpu")(["a tune"]).shape == (1, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_annotators.main(["--steps-beat", "1", "--out", str(tmp_path / "w.npz")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_annotators.train_key([], [], 1, 1, 1e-3, None)
+    (tmp_path / "r.csv").write_text("example_id,prompt,response,model_completion\n1,,,jazz\n")
+    (tmp_path / "l.jsonl").write_text('{"example_id": "1", "genre": "jazz"}\n')
+    argv = ["genre", "--results", str(tmp_path / "r.csv"), "--labels", str(tmp_path / "l.jsonl"),
+            "--label-set", "jazz,rock", "--embedder", "clap", "--clap-checkpoint", ckpt]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.main(argv)
+    harness.main(argv + ["--device", "cpu"])

@@ -448,3 +448,14 @@ def test_paged_cache_chunks_and_decode_match_jax(name, quant, paged_refs):
     _check_cache(tcache, ref["cache"], quant)
     # parking blocks 0 and 1 were never written
     assert float(tcache["k"][:, :2].abs().sum()) == 0.0
+
+
+def test_audio_encoder_config_matches_jax():
+    import dataclasses as dc
+
+    from llark_tpu.models import AudioEncoderConfig as JAudioEncoderConfig
+    from llark_tpu_torch.models import AudioEncoderConfig
+
+    assert dc.asdict(AudioEncoderConfig()) == dc.asdict(JAudioEncoderConfig())
+    kw = dict(use_audio_start_end=False, audio_patch_token="<p>")
+    assert dc.asdict(AudioEncoderConfig(**kw)) == dc.asdict(JAudioEncoderConfig(**kw))

@@ -22,6 +22,8 @@ import optax
 import pytest
 import torch
 
+from llark_tpu import conversation as jconv
+from llark_tpu import tokenization as jtok
 from llark_tpu.config import (
     DataArguments as JDataArguments,
     ModelConfig as JaxConfig,
@@ -38,7 +40,9 @@ from llark_tpu.train import checkpoint as jcheckpoint
 from llark_tpu.train import flops as jflops
 from llark_tpu.train import step as jstep
 from llark_tpu.train.state import TrainState as JTrainState
+from llark_tpu_torch import conversation as tconv
 from llark_tpu_torch import storage
+from llark_tpu_torch import tokenization as ttok
 from llark_tpu_torch.config import DataArguments, ModelArguments, ModelConfig, TrainingArguments
 from llark_tpu_torch.data.pipeline import make_data_module
 from llark_tpu_torch.data.webdataset import TarShardWriter
@@ -463,13 +467,14 @@ def test_out_of_slice_options_raise(tmp_path, option):
 
 def test_out_of_slice_settings_raise():
     # the "dots" remat policies and the LoRA mask came into the port with
-    # LoRA; an unknown policy and remote storage still raise
+    # LoRA; an unknown policy still raises. Remote storage goes through
+    # fsspec as in the JAX package: a scheme it does not know raises there
     for policy in ("dots", "dots_narrow"):
         assert ModelConfig.tiny(remat_policy=policy).remat_policy == policy
     with pytest.raises(ValueError, match="remat_policy"):
         ModelConfig.tiny(remat_policy="everything")
-    with pytest.raises(NotImplementedError, match="remote storage"):
-        storage.fopen("gs://bucket/shard-00000.tar")
+    with pytest.raises(ValueError, match="Protocol not known"):
+        storage.fopen("nosuch://bucket/shard-00000.tar")
     tree = {"embed": torch.zeros(1), "lm_head": torch.zeros(1), "mm_projector": {"kernel": torch.zeros(1)},
             "layers": {"wq": torch.zeros(1), "wq_lora_a": torch.zeros(1), "wq_lora_b": torch.zeros(1)}}
     assert tstep.trainable_mask(tree, lora=True) == {
@@ -489,6 +494,58 @@ def test_flops_match_jax():
         tflops.train_flops_per_token(big, 1024) * 1000.0 / 1e15)
     if not torch.cuda.is_available():
         assert tflops.train_mfu(big, 1024, 1000.0) is None  # no card, no peak
+
+
+@pytest.mark.parametrize("arch", ["llama", "mpt"])
+def test_infer_flops_per_token_matches_jax(arch):
+    for seq, mm in ((1, True), (64, True), (2048, False)):
+        assert tflops.infer_flops_per_token(ModelConfig.tiny(arch), seq, mm) == \
+            jflops.infer_flops_per_token(JaxConfig.tiny(arch), seq, mm)
+    big = ModelConfig.llama2_7b()
+    assert tflops.infer_flops_per_token(big, 1024) == jflops.infer_flops_per_token(
+        JaxConfig.llama2_7b(), 1024)
+
+
+CONV_TURNS = [{"from": "human", "value": "<audio>\nWhat is the tempo?"},
+              {"from": "gpt", "value": "About 120 BPM."}, {"from": "other", "value": "x"}]
+
+
+@pytest.mark.parametrize("name", ["v1_2", "vicuna_v1", "mpt"])
+def test_conversation_templates_match_jax(name):
+    conv, jc = tconv.CONVERSATION_TEMPLATES[name], jconv.CONVERSATION_TEMPLATES[name]
+    assert sorted(tconv.CONVERSATION_TEMPLATES) == sorted(jconv.CONVERSATION_TEMPLATES)
+    assert conv.sep_style.name == jc.sep_style.name
+    assert [s.name for s in tconv.SeparatorStyle] == [s.name for s in jconv.SeparatorStyle]
+    assert (conv.system, conv.roles, conv.sep, conv.sep2, conv.header) == \
+        (jc.system, jc.roles, jc.sep, jc.sep2, jc.header)
+    for speaker in ("human", "GPT", "narrator"):
+        assert conv.role_for(speaker) == jc.role_for(speaker)
+    messages = [(conv.roles[0], "hi"), (conv.roles[1], "hello"), (conv.roles[0], "tempo?"),
+                (conv.roles[1], None)]
+    assert conv.get_prompt(messages) == jc.get_prompt(messages)
+    assert tconv.format_turn("gpt", "ok", conv) == jconv.format_turn("gpt", "ok", jc)
+    assert tconv.format_conversation(CONV_TURNS, conv=conv) == \
+        jconv.format_conversation(CONV_TURNS, conv=jc)
+    assert tconv.format_conversation(CONV_TURNS, header=conv.header, conv=conv) == \
+        jconv.format_conversation(CONV_TURNS, header=jc.header, conv=jc)
+    assert tconv.default_conversation == tconv.CONVERSATION_TEMPLATES["v1_2"]
+    assert (tconv.conv_vicuna_v1, tconv.conv_mpt) == (
+        tconv.CONVERSATION_TEMPLATES["vicuna_v1"], tconv.CONVERSATION_TEMPLATES["mpt"])
+    bad = tconv.Conversation(sep_style=None)
+    with pytest.raises(ValueError, match="separator style"):
+        bad.get_prompt(messages)
+
+
+def test_denoising_sentinels_and_response_tokens_match_jax():
+    tok = ttok.adapt_tokenizer_for_denoising(WordTokenizer(64), num_sentinels=10)
+    jt = jtok.adapt_tokenizer_for_denoising(JWordTokenizer(64), num_sentinels=10)
+    assert tok.sentinel_token_ids == jt.sentinel_token_ids and len(set(tok.sentinel_token_ids)) == 10
+    assert tok.convert_tokens_to_ids("<extra_id_0>") == tok.sentinel_token_ids[0]
+    assert tok.pad_token == jt.pad_token
+    ids, end = [5, 6, 7, 8, 9, 10], [7, 8]
+    for seq in (end, [9], [42], []):
+        assert ttok.extract_response_tokens(ids, seq) == jtok.extract_response_tokens(ids, seq)
+    assert ttok.extract_response_tokens(ids, end) == [9, 10]
 
 
 def test_cli_parses_flags_and_runs_on_the_card_by_default(tmp_path):
