@@ -5,9 +5,10 @@
     python3 chip_smoke.py --phase 23  # one phase alone: 17 (checkpoint I/O),
                                       # 20 (the CLAP path), 21 (Jukebox),
                                       # 22 (Mixture-of-Experts), 23 (native
-                                      # I/O, annotation and preprocessing) or
+                                      # I/O, annotation and preprocessing),
                                       # 24 (the annotator trainer, the CLAP
-                                      # text tower and the harness)
+                                      # text tower and the harness) or 25
+                                      # (parallelism)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -357,6 +358,38 @@ Phases, in order; any failure exits non-zero before the final line:
      over a 16-row results / labels pair with --device cuda and --device
      cpu (in process, through `harness.main`): the same metrics JSON; the
      parts' seconds.
+ 25. parallelism (`run_parallel_phase`): two ranks on the one card, spawned
+     by `parallel/launch.py` LocalWorld over gloo (NCCL refuses two ranks on
+     one device; `parallel/comm.py` gives gloo the fp32 all-reduces of CUDA
+     tensors and stages the rest through the host), each rank's K1 / K2 /
+     K3+K4 / K5 launch counts set to 0 before its sharded run and read
+     after it, each > 0; every reference runs on rank 0 in the same job:
+     (a) `ShardedGenerator` on (1, 1, 2), Llama-2-7B width cut to 8 layers
+     (P25_LAYERS), bf16 weights from the seed, fp32 compute, phase 4's 4
+     requests, greedy, 32 tokens: each rank's local q [4, 16, 384, 128];
+     prefill logits within LOGITS_TOL of `Generator` on the whole tree, the
+     streams equal to its greedy tokens up to each row's first top-2 margin
+     under NEAR_TIE (phase 19's convention); (b) `BatchedServer(mesh=(1, 1,
+     2))` in phase 7's mode (a) (paged 128-token blocks, int8 KV,
+     prefill_chunk 256) from an int8 tree, 8 requests x 16 tokens: K2 in
+     paged int8 alone and K5 on each rank, the 8 prompts' prefill logits
+     within LOGITS_TOL of one process, each stream equal to the one-process
+     engine's up to a step whose teacher-forced top-2 margin is under
+     ENGINE_NEAR_TIE (5e-2: the teacher-forced forward attends unquantized
+     K/V); (c) FSDP (1, 2, 1) full training at 2 layers (fp32 parameters,
+     bf16 compute, remat), 2 x 512 positions, 2 AdamW steps at lr 1e-4:
+     loss and grad norm within 2 x the bf16 floor (one process bf16 against
+     one process fp32, both measured here) of one process in bf16; (d) the
+     pipeline on (1, 2), one layer a stage, M = 2: loss and every gradient
+     (relative L2) within 2 x the floor measured likewise; (e)
+     `ring_attention` over the 2 ranks at q / k / v [1, 32, 8192, 128]
+     fp32, causal, against plain full attention: max |d| <= RING_TOL
+     (2e-5); (f) `extract_cli clap --data-parallel` over the 2 ranks on
+     phase 20's 8 WAVs against the one-process CLI: within CLAP_TOL (1e-6);
+     (g) one NCCL rank alone: an all-reduce through its communicator, then
+     `ShardedGenerator` on `make_mesh((1, 1, 1))` at 4 layers, tokens equal
+     to `Generator`'s. Printed: each part's seconds, each rank's peak
+     memory, beside the card's name and power limit.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -431,7 +464,7 @@ from llark_tpu_torch.models import lora as lora_mod
 from llark_tpu_torch.models import moe as moe_mod
 from llark_tpu_torch.models import quant
 from llark_tpu_torch.models.decoder import _quantize_kv, decoder_forward
-from llark_tpu_torch.models.fusion import build_inputs_embeds, init_llark_params
+from llark_tpu_torch.models.fusion import build_inputs_embeds, init_llark_params, llark_forward
 from llark_tpu_torch.ops import _build
 from llark_tpu_torch.ops import attention as attn_ops
 from llark_tpu_torch.ops import decode_attention as dec_ops
@@ -4871,6 +4904,489 @@ def checkpoint_io_alone(directory: str, smi: str) -> None:
     run_checkpoint_io(os.path.join(directory, "ckpt"), shard, smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: parallelism, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+P25_LAYERS = 8  # (a), (b): Llama-2-7B width, cut from 32 layers
+P25_TRAIN_LAYERS = 2  # (c), (d)
+P25_SEQ = 512  # (c), (d): training positions a row
+P25_SERVE_NEW = 16  # (b): new tokens a request
+P25_GEN_LAYERS = 4  # (g)
+# (b)'s streams against the one-process engine's: a stream may leave it at a
+# step whose top-2 margin, read from a teacher-forced forward that attends
+# the unquantized K/V (the engine attends the int8 cache), is under this
+ENGINE_NEAR_TIE = 5e-2
+# (c), (d): the sharded step against the one-process step on the same tree
+# and rows, within P25_FLOOR_MULT x the bf16 rounding floor this phase
+# measures: the one-process step in bf16 against the same step in fp32
+P25_FLOOR_MULT = 2.0
+RING_S, RING_TOL = 8192, 2e-5  # (e): fp32, absolute
+
+
+def _p25_reset() -> None:
+    attn_ops.flash_attention_fwd.launches = 0
+    attn_ops.flash_attention_bwd.launches = 0
+    dec_ops.reset_launch_counts()
+    int8_ops.int8_matmul.launches = 0
+    int4_ops.int4_matmul.launches = 0
+
+
+def _p25_counts() -> dict:
+    return {"K1": attn_ops.flash_attention_fwd.launches,
+            "K2": dec_ops.flash_decode_attention.launches,
+            "K2 paged_int8": dec_ops.flash_decode_attention.launches_by_mode["paged_int8"],
+            "K3+K4": attn_ops.flash_attention_bwd.launches,
+            "K5": int8_ops.int8_matmul.launches, "K6": int4_ops.int4_matmul.launches}
+
+
+def _p25_start() -> int:
+    """A rank's job: fp32 products without TF32 (as set_up_card sets them
+    in the main process), launch counts and peak memory at 0; its rank."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _p25_reset()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.distributed.get_rank()
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _p25_batch(bundle: TokenizerBundle, reqs) -> tuple:
+    """The requests as one right-padded batch (spec_batch's layout)."""
+    plens = np.array([len(r.input_ids) for r in reqs], np.int32)
+    s = int(np.ceil(plens.max() / 128) * 128)
+    ids = np.full((len(reqs), s), bundle.pad_token_id, np.int32)
+    for i, r in enumerate(reqs):
+        ids[i, :len(r.input_ids)] = r.input_ids
+    audio = np.stack([r.audio_encoding for r in reqs])
+    return ids, plens, audio, np.full((len(reqs),), audio.shape[1], np.int32)
+
+
+@torch.inference_mode()
+def _p25_tp_serving() -> dict:
+    """(a) ShardedGenerator on (1, 1, 2) against Generator on the same tree
+    (rank 0 runs the reference first)."""
+    from llark_tpu_torch.parallel import comm, mesh as pmesh
+    from llark_tpu_torch.parallel.serving import ShardedGenerator
+
+    rank = _p25_start()
+    # bf16 weights, fp32 compute: the one-process and tensor-parallel runs
+    # differ by the fp32 order of wo / w_down's sums alone, so phase 19's
+    # fp32 NEAR_TIE convention holds the tokens
+    cfg = ModelConfig.llama2_7b(num_layers=P25_LAYERS, use_flash_decode=True,
+                                param_dtype="bfloat16", dtype="float32")
+    bundle, rows, _ = requests(cfg)
+    batch = spec_batch(bundle, rows)
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    out = {}
+    if rank == 0:
+        ref, margins, near = greedy_reference(cfg, params, bundle.audio_patch_id, batch, 1024)
+        logits, _ = Generator(cfg, params, bundle.audio_patch_id, max_cache_len=1024).prefill(*batch)
+        out.update(ref=ref, margins=margins, near=near, ref_logits=logits.float().cpu())
+        del logits
+    torch.distributed.barrier()
+    mesh = pmesh.make_mesh((1, 1, 2), device="cuda")
+    gen_cfg = GenerationConfig(max_new_tokens=SPEC_NEW, stop_text="")
+    sharded = ShardedGenerator(mesh, cfg, params, bundle.audio_patch_id, gen_cfg,
+                               max_cache_len=1024, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    _p25_reset()
+    t0 = time.perf_counter()
+    logits, _ = sharded.prefill(*batch)
+    tokens = sharded.generate(*batch)
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, counts=_p25_counts(), tokens=tokens,
+               logits=logits.float().cpu(), peak=_peak_gib(),
+               q_shape=(batch[0].shape[0], sharded.local_cfg.num_heads, batch[0].shape[1],
+                        cfg.head_dim),
+               transport=comm.transport(mesh.get_group("tensor")))
+    return out
+
+
+def _teacher_margins(cfg: ModelConfig, params, patch_id: int, reqs, streams) -> np.ndarray:
+    """Top-2 logit margins [n, steps] of each stream's steps, from one
+    forward over prompt + stream (no cache)."""
+    seqs = [np.concatenate([r.input_ids, np.asarray(s[:-1], np.int32)]) for r, s in zip(reqs, streams)]
+    width = max(len(s) for s in seqs)
+    ids = np.zeros((len(seqs), width), np.int32)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = s
+    dev = torch.device("cuda")
+    audio = np.stack([r.audio_encoding for r in reqs])
+    logits, _ = llark_forward(
+        cfg, params, torch.as_tensor(ids, device=dev),
+        audio_encodings=torch.as_tensor(audio, device=dev), audio_patch_id=patch_id,
+        audio_frame_counts=torch.full((len(seqs),), audio.shape[1], device=dev),
+        seq_lengths=torch.as_tensor([len(s) for s in seqs], device=dev))
+    out = np.zeros((len(seqs), len(streams[0])), np.float32)
+    for i, r in enumerate(reqs):
+        p = len(r.input_ids)
+        top2 = logits[i, p - 1:p - 1 + len(streams[i])].topk(2, dim=-1).values
+        out[i, :top2.shape[0]] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return out
+
+
+@torch.inference_mode()
+def _p25_tp_engine() -> dict:
+    """(b) BatchedServer(mesh=(1, 1, 2)) in phase 7's mode (a) from an int8
+    tree, 8 requests x 16 tokens, against the one-process engine; prefill
+    logits of the 8 prompts, sharded against one process."""
+    from llark_tpu_torch.parallel import mesh as pmesh
+
+    rank = _p25_start()
+    cfg = ModelConfig.llama2_7b(num_layers=P25_LAYERS, use_flash_decode=True,
+                                param_dtype="bfloat16", dtype="float32", kv_cache_quant=True)
+    bundle, _, _ = requests(cfg)
+    params = quant.quantize_params_int8_incremental(
+        cfg, init_llark_params(cfg, seed=SEED, device="cuda"))
+    gen_cfg = GenerationConfig(max_new_tokens=P25_SERVE_NEW, stop_text="")
+    kw = dict(SERVING_BASE, tokenizer=bundle.tokenizer, kv_block_size=128, prefill_chunk=256)
+    batch = _p25_batch(bundle, serving_requests(cfg, bundle, 8, SEED))
+    tensors = [torch.as_tensor(a, device="cuda") for a in batch]
+    tensors[0] = tensors[0].long()
+    out = {}
+    if rank == 0:
+        reqs = serving_requests(cfg, bundle, 8, SEED)
+        ref = [r.tokens for r in BatchedServer(cfg, params, bundle.audio_patch_id, gen_cfg,
+                                               **kw).serve(reqs)]
+        logits, _ = prefill(cfg, params, *tensors, bundle.audio_patch_id, 1024)
+        out.update(ref=ref, ref_logits=logits.float().cpu(),
+                   margins=_teacher_margins(cfg, params, bundle.audio_patch_id, reqs, ref))
+        del logits
+    torch.distributed.barrier()
+    mesh = pmesh.make_mesh((1, 1, 2), device="cuda")
+    server = BatchedServer(cfg, params, bundle.audio_patch_id, gen_cfg, mesh=mesh, **kw)
+    del params
+    torch.cuda.empty_cache()
+    _p25_reset()
+    t0 = time.perf_counter()
+    tokens = [r.tokens for r in server.serve(serving_requests(cfg, bundle, 8, SEED))]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _p25_counts()
+    _p25_reset()
+    logits, _ = prefill(server.cfg, server.params, *tensors, bundle.audio_patch_id, 1024)
+    out.update(seconds=serve_s, counts=counts, prefill_counts=_p25_counts(), tokens=tokens,
+               logits=logits.float().cpu(), peak=_peak_gib(),
+               local_wq=tuple(server.params["layers"]["wq"]["q"].shape))
+    return out
+
+
+def _p25_train_batch(cfg: ModelConfig, bundle: TokenizerBundle) -> dict:
+    """2 rows x P25_SEQ positions: phase 4's first two prompts, then words
+    from the seed, the labels on the second half; [256, 4800] encodings."""
+    rng = np.random.RandomState(SEED + 25)
+    rows = []
+    for i in (0, 1):
+        prompt = np.asarray(build_prompt_ids(PROMPTS[i], 256, bundle), np.int32)
+        rows.append(np.concatenate([prompt, rng.randint(100, 1900, P25_SEQ - len(prompt))]))
+    ids = np.stack(rows).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :P25_SEQ // 2] = -100
+    return {"input_ids": ids, "labels": labels,
+            "seq_lengths": np.array([P25_SEQ, P25_SEQ - 37], np.int32),
+            "audio_encodings": rng.randn(2, 256, cfg.mm_hidden_size).astype(np.float32),
+            "audio_frame_counts": np.array([256, 200], np.int32)}
+
+
+def _p25_train_setup():
+    from llark_tpu_torch.train import step as tstep
+
+    base = ModelConfig.llama2_7b(num_layers=P25_TRAIN_LAYERS)  # fp32 params, bf16, remat
+    bundle, _, _ = requests(base)
+    batch = _p25_train_batch(base, bundle)
+    return tstep, base, bundle, batch
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _p25_fsdp() -> dict:
+    """(c) two full-training steps (AdamW at lr 1e-4 from the first) on one
+    global batch on (1, 2, 1) against the one-process steps in bf16, whose
+    distance from the same steps in fp32 is the floor."""
+    from llark_tpu_torch.parallel import mesh as pmesh
+
+    rank = _p25_start()
+    tstep, base, bundle, batch = _p25_train_setup()
+
+    def run(cfg, mesh=None):
+        params = init_llark_params(cfg, seed=SEED, device="cuda")
+        rows = lambda x: x  # noqa: E731
+        if mesh is not None:
+            cfg, params = pmesh.shard_model(mesh, cfg, params)
+            rows = pmesh.batch_sharding(mesh)
+        tstep.ParamPartition(params, tstep.trainable_mask(params))
+        opt = tstep.AdamW(lambda count: 1e-4)
+        state = TrainState.create(params, opt)
+        fn = tstep.make_train_step(cfg, opt, audio_patch_id=bundle.audio_patch_id)
+        local = {k: torch.as_tensor(rows(v), device="cuda") for k, v in batch.items()}
+        got = []
+        for _ in range(2):
+            state, m = fn(state, local)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        return got
+
+    out = {}
+    if rank == 0:
+        out["bf16"], out["fp32"] = run(base), run(dataclasses.replace(base, dtype="float32"))
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = pmesh.make_mesh((1, 2, 1), device="cuda")
+    _p25_reset()
+    out["fsdp"], out["seconds"] = seconds(lambda: run(base, mesh))
+    out.update(counts=_p25_counts(), peak=_peak_gib())
+    return out
+
+
+def _p25_pipeline() -> dict:
+    """(d) one pipelined step on (1, 2), one layer a stage, M = 2, against
+    the one-process loss and gradients in bf16 (floor: the same in fp32);
+    rank 0 compares, the gradients read from the first moment."""
+    from llark_tpu_torch.parallel import mesh as pmesh
+    from llark_tpu_torch.parallel import pipeline as pipe
+    from llark_tpu_torch.train.state import iter_leaves
+
+    rank = _p25_start()
+    tstep, base, bundle, batch = _p25_train_setup()
+    tensors = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def reference(cfg):
+        params = init_llark_params(cfg, seed=SEED, device="cuda")
+        paths = [p for p, _ in iter_leaves(params)]
+        leaves = [t.requires_grad_() for _, t in iter_leaves(params)]
+        loss, _, _ = make_loss_fn(cfg, audio_patch_id=bundle.audio_patch_id)(params, tensors)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), dict(zip(paths, grads))
+
+    ref = {}
+    if rank == 0:
+        ref = {"bf16": reference(base), "fp32": reference(dataclasses.replace(base, dtype="float32"))}
+    torch.distributed.barrier()
+    mesh = pipe.make_pp_mesh(1, 2, device="cuda")
+    params = pipe.pp_shard_params(mesh, base, init_llark_params(base, seed=SEED, device="cuda"))
+    tstep.ParamPartition(params, tstep.trainable_mask(params))
+    opt = tstep.AdamW(lambda count: 0.0)  # the gradients, read from the first moment
+    state = TrainState.create(params, opt)
+    step = pipe.make_pp_train_step(base, opt, mesh, n_microbatches=2,
+                                   audio_patch_id=bundle.audio_patch_id)
+    _p25_reset()
+    (state, m), step_s = seconds(lambda: step(state, tensors))
+    out = {"seconds": step_s, "counts": _p25_counts(), "peak": _peak_gib(),
+           "loss": float(m["loss"]), "norm": float(m["grad_norm"])}
+    unclip = max(out["norm"], 1.0) / 0.1  # clip_by_global_norm(1.0), then 1 - b1
+    specs = dict(iter_leaves(pipe.pp_param_specs(base)))
+    trained = [p for p, t in iter_leaves(state.params) if t.requires_grad]
+    sq = {"pp": 0.0, "floor": 0.0, "bf16": 0.0, "fp32": 0.0}
+    for path, mu in zip(trained, state.opt_state["mu"]):
+        g = pmesh.gather_param(mesh, mu, specs[path]).float() * unclip
+        if rank == 0:
+            b, f = ref["bf16"][1][path].float(), ref["fp32"][1][path].float()
+            sq["pp"] += (g - b).double().square().sum().item()
+            sq["floor"] += (b - f).double().square().sum().item()
+            sq["bf16"] += b.double().square().sum().item()
+            sq["fp32"] += f.double().square().sum().item()
+    if rank == 0:
+        out.update(grad_err=(sq["pp"] / sq["bf16"]) ** 0.5, grad_floor=(sq["floor"] / sq["fp32"]) ** 0.5,
+                   ref_loss=ref["bf16"][0], fp32_loss=ref["fp32"][0])
+    return out
+
+
+@torch.inference_mode()
+def _p25_ring() -> dict:
+    """(e) ring attention at S = RING_S over 2 ranks against plain full
+    causal attention, fp32 (TF32 off)."""
+    from llark_tpu_torch.parallel import mesh as pmesh
+    from llark_tpu_torch.parallel.ring_attention import ring_attention
+
+    rank = _p25_start()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 26)
+    q, k, v = (torch.randn(1, 32, RING_S, 128, generator=g, device="cuda") for _ in range(3))
+    want = attn_ops.xla_attention(q, k, v, causal=True) if rank == 0 else None
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = pmesh.make_mesh((1, 1, 2), device="cuda")
+    got, ring_s = seconds(lambda: ring_attention(q, k, v, mesh, "tensor", causal=True))
+    out = {"seconds": ring_s, "peak": _peak_gib()}
+    if rank == 0:
+        out["err"] = (got - want).abs().max().item()
+    return out
+
+
+def _p25_clap(wavs: str, one: str, dp: str) -> dict:
+    """(f) `extract_cli clap --data-parallel` over the 2 ranks; rank 0 runs
+    the one-process CLI first."""
+    rank = _p25_start()
+    if rank == 0:
+        run_extract(wavs, one, "cuda")
+    torch.distributed.barrier()
+    _, dp_s = seconds(lambda: extract_cli.main(
+        ["clap", "--input-dir", wavs, "--output-dir", dp, "--batch-size", "8",
+         "--device", "cuda", "--data-parallel"]))
+    return {"seconds": dp_s, "peak": _peak_gib()}
+
+
+@torch.inference_mode()
+def _p25_nccl_one() -> dict:
+    """(g) a world of one NCCL rank: one all-reduce through its
+    communicator, then ShardedGenerator on make_mesh((1, 1, 1)) against
+    Generator on the same tree, 4 layers."""
+    from llark_tpu_torch.parallel import comm, mesh as pmesh
+    from llark_tpu_torch.parallel.serving import ShardedGenerator
+
+    _p25_start()
+    x = torch.ones(4, device="cuda")
+    torch.distributed.all_reduce(x)
+    mesh = pmesh.make_mesh((1, 1, 1), device="cuda")
+    cfg = ModelConfig.llama2_7b(num_layers=P25_GEN_LAYERS, use_flash_decode=True,
+                                param_dtype="bfloat16")
+    bundle, rows, _ = requests(cfg)
+    batch = spec_batch(bundle, rows)
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    gen_cfg = GenerationConfig(max_new_tokens=SPEC_NEW, stop_text="")
+    ref = Generator(cfg, params, bundle.audio_patch_id, gen_cfg, max_cache_len=1024).generate(*batch)
+    _p25_reset()
+    got = ShardedGenerator(mesh, cfg, params, bundle.audio_patch_id, gen_cfg,
+                           max_cache_len=1024, device="cuda").generate(*batch)
+    return {"backend": comm.backend(), "mesh": str(mesh), "sum": x.tolist(), "ref": ref,
+            "got": got, "counts": _p25_counts(), "peak": _peak_gib()}
+
+
+def _per_rank(results, smi: str, keys=("K1", "K2")) -> str:
+    return "; ".join(
+        f"rank {i}: " + ", ".join(f"{k} {r['counts'][k]}" for k in keys)
+        + f", peak {r['peak']:.2f} GiB" for i, r in enumerate(results)) + f" ({smi})"
+
+
+def run_parallel_phase(directory: str, smi: str) -> None:
+    """Phase 25: parallelism. Two ranks share the card over gloo (NCCL
+    refuses two ranks on one device; `parallel/comm.py` stages what gloo
+    does not take on CUDA through the host), spawned by
+    `parallel/launch.py` LocalWorld; then one NCCL rank alone."""
+    from llark_tpu_torch.parallel import comm
+    from llark_tpu_torch.parallel.launch import LocalWorld
+
+    torch.cuda.empty_cache()
+    timings = {}
+    with LocalWorld(2, backend="gloo", device="cuda", timeout_s=900) as world:
+        print(f"  2 ranks on cuda:0 over gloo; CUDA tensors travel as "
+              f"{comm.GLOO_CUDA_DIRECT} direct, the rest host-staged")
+
+        res, timings["a"] = seconds(lambda: world.run(_p25_tp_serving))
+        r0 = res[0]
+        rel, _ = rel_err(r0["logits"], r0["ref_logits"])
+        print(f"  (a) ShardedGenerator on (1, 1, 2), Llama-2-7B width, {P25_LAYERS} layers, bf16 "
+              f"weights, fp32 compute: prefill + {SPEC_NEW} tokens x 4 in {r0['seconds']:.2f} s on "
+              f"{smi}; prefill logits rel-to-max {rel:.3e} against one process; local q "
+              f"{list(r0['q_shape'])}; transport {r0['transport']}")
+        print(f"      {_per_rank(res, smi)}")
+        check(rel <= LOGITS_TOL, f"(a) prefill logits {rel:.3e} > {LOGITS_TOL}")
+        check(r0["q_shape"][1] == 16, f"(a) local q {r0['q_shape']} does not hold 16 heads")
+        check(all(r["tokens"] == r0["tokens"] for r in res), "(a) the ranks' tokens differ")
+        check(all(r["counts"]["K1"] > 0 and r["counts"]["K2"] > 0 for r in res),
+              "(a) a rank launched no K1 or no K2")
+        equal = check_streams("(a) tensor-parallel serving", r0["tokens"], r0["ref"], r0["near"],
+                              r0["margins"])
+        print(f"      streams equal to one process throughout: {equal}/4")
+
+        res, timings["b"] = seconds(lambda: world.run(_p25_tp_engine))
+        r0 = res[0]
+        rel, _ = rel_err(r0["logits"], r0["ref_logits"])
+        print(f"  (b) BatchedServer(mesh=(1, 1, 2)), mode (a) (paged 128-token blocks, int8 KV, "
+              f"prefill_chunk 256) from int8 weights, {P25_LAYERS} layers: 8 requests x "
+              f"{P25_SERVE_NEW} tokens in {r0['seconds']:.2f} s on {smi}; 8 prompts' prefill "
+              f"logits rel-to-max {rel:.3e}; local wq {list(r0['local_wq'])}")
+        print(f"      serve: {_per_rank(res, smi, ('K2 paged_int8', 'K5'))}")
+        print(f"      prefill: " + "; ".join(
+            f"rank {i}: K1 {r['prefill_counts']['K1']}, K5 {r['prefill_counts']['K5']}"
+            for i, r in enumerate(res)))
+        check(rel <= LOGITS_TOL, f"(b) prefill logits {rel:.3e} > {LOGITS_TOL}")
+        check(all(r["tokens"] == r0["tokens"] for r in res), "(b) the ranks' tokens differ")
+        for r in res:
+            check(r["counts"]["K2 paged_int8"] > 0 and r["counts"]["K5"] > 0
+                  and r["counts"]["K2"] == r["counts"]["K2 paged_int8"],
+                  f"(b) serve launches {r['counts']}")
+            check(r["prefill_counts"]["K1"] > 0 and r["prefill_counts"]["K5"] > 0,
+                  f"(b) prefill launches {r['prefill_counts']}")
+        same = 0
+        for i, (got, ref) in enumerate(zip(r0["tokens"], r0["ref"])):
+            check(len(got) == P25_SERVE_NEW, f"(b) stream {i} has {len(got)} tokens")
+            at = next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+            if at is None:
+                same += 1
+                continue
+            margin = float(r0["margins"][i, at])
+            print(f"      stream {i} leaves the one-process engine's at step {at} (teacher-forced "
+                  f"margin {margin:.3e})")
+            check(margin < ENGINE_NEAR_TIE, f"(b) stream {i} differs at step {at}, margin "
+                                            f"{margin:.3e} >= {ENGINE_NEAR_TIE}")
+        print(f"      streams equal to the one-process engine's throughout: {same}/8")
+
+        res, timings["c"] = seconds(lambda: world.run(_p25_fsdp))
+        r0 = res[0]
+        floor = max(max(_rel(b[0], f[0]), _rel(b[1], f[1])) for b, f in zip(r0["bf16"], r0["fp32"]))
+        worst = max(max(_rel(s[0], b[0]), _rel(s[1], b[1])) for s, b in zip(r0["fsdp"], r0["bf16"]))
+        print(f"  (c) FSDP (1, 2, 1) full training, {P25_TRAIN_LAYERS} layers, 2 x {P25_SEQ} "
+              f"positions, 2 steps in {r0['seconds']:.2f} s on {smi}: (loss, grad norm) "
+              f"{[tuple(round(x, 6) for x in s) for s in r0['fsdp']]}; one process bf16 "
+              f"{[tuple(round(x, 6) for x in s) for s in r0['bf16']]}; worst relative gap "
+              f"{worst:.3e} against the bf16 floor {floor:.3e} (one process bf16 against fp32; "
+              f"limit {P25_FLOOR_MULT:g} x floor)")
+        print(f"      {_per_rank(res, smi, ('K1', 'K3+K4'))}")
+        check(worst <= P25_FLOOR_MULT * floor, f"(c) FSDP step gap {worst:.3e} > "
+                                               f"{P25_FLOOR_MULT:g} x {floor:.3e}")
+        check(all(r["counts"]["K1"] > 0 and r["counts"]["K3+K4"] > 0 for r in res),
+              "(c) a rank launched no K1 or no K3+K4")
+
+        res, timings["d"] = seconds(lambda: world.run(_p25_pipeline))
+        r0 = res[0]
+        loss_gap, loss_floor = _rel(r0["loss"], r0["ref_loss"]), _rel(r0["ref_loss"], r0["fp32_loss"])
+        floor = max(loss_floor, r0["grad_floor"])
+        print(f"  (d) pipeline (1, 2), one layer a stage, M = 2: one step in {r0['seconds']:.2f} s on "
+              f"{smi}; loss {r0['loss']:.6f} against one process {r0['ref_loss']:.6f} (gap "
+              f"{loss_gap:.3e}), gradients relative L2 {r0['grad_err']:.3e}; the bf16 floor (one "
+              f"process bf16 against fp32): loss {loss_floor:.3e}, gradients "
+              f"{r0['grad_floor']:.3e}; limit {P25_FLOOR_MULT:g} x floor")
+        print(f"      {_per_rank(res, smi, ('K1', 'K3+K4'))}")
+        check(max(loss_gap, r0["grad_err"]) <= P25_FLOOR_MULT * floor,
+              f"(d) pipeline gap {max(loss_gap, r0['grad_err']):.3e} > {P25_FLOOR_MULT:g} x {floor:.3e}")
+        check(all(r["counts"]["K1"] > 0 and r["counts"]["K3+K4"] > 0 for r in res),
+              "(d) a stage launched no K1 or no K3+K4")
+
+        res, timings["e"] = seconds(lambda: world.run(_p25_ring))
+        err = res[0]["err"]
+        print(f"  (e) ring attention over 2 ranks, q/k/v [1, 32, {RING_S}, 128] fp32, causal: "
+              f"{res[0]['seconds']:.2f} s on {smi}; max |ring - full| {err:.3e} (limit "
+              f"{RING_TOL:g}); peak " + ", ".join(f"{r['peak']:.2f}" for r in res) + " GiB")
+        check(err <= RING_TOL, f"(e) ring attention {err:.3e} > {RING_TOL}")
+
+        wavs, one, dp = (os.path.join(directory, n) for n in ("wavs", "one", "dp"))
+        names = write_clap_wavs(wavs)
+        res, timings["f"] = seconds(lambda: world.run(_p25_clap, wavs, one, dp))
+        worst, worst_name, _ = embedding_diff(names, dp, one)
+        print(f"  (f) extract_cli clap --data-parallel over 2 ranks, 8 WAVs: {res[0]['seconds']:.2f} "
+              f"s on {smi}; worst |dp - one process| {worst:.3e} ({worst_name}; limit "
+              f"{CLAP_TOL:g}); peak " + ", ".join(f"{r['peak']:.2f}" for r in res) + " GiB")
+        check(worst <= CLAP_TOL, f"(f) data-parallel CLAP {worst:.3e} > {CLAP_TOL}")
+
+    with LocalWorld(1, backend="nccl", device="cuda", timeout_s=600) as world:
+        (r,), timings["g"] = seconds(lambda: world.run(_p25_nccl_one))
+    print(f"  (g) a world of one NCCL rank: backend {r['backend']}, all-reduce {r['sum']}, "
+          f"{r['mesh']}; ShardedGenerator {P25_GEN_LAYERS} layers: tokens equal to Generator's: "
+          f"{r['got'] == r['ref']}; K1 {r['counts']['K1']}, K2 {r['counts']['K2']}, peak "
+          f"{r['peak']:.2f} GiB ({smi})")
+    check(r["backend"] == "nccl" and r["sum"] == [1.0] * 4, f"(g) backend {r['backend']}")
+    check(r["got"] == r["ref"], "(g) ShardedGenerator on a world of one left Generator's tokens")
+    check(r["counts"]["K1"] > 0 and r["counts"]["K2"] > 0, f"(g) launches {r['counts']}")
+    print("  (a)-(g) seconds (ranks' start-up included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()) + f" ({smi})")
+
+
 # phases that `--phase N` runs alone: (label, fn(scratch directory, smi))
 ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          20: ("CLAP path", run_clap_path),
@@ -4878,7 +5394,8 @@ ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          22: ("Mixture-of-Experts at Mixtral-8x7B width", run_moe_path),
          23: ("native I/O, annotation and preprocessing", run_native_phase),
          24: ("the annotator trainer, the CLAP text tower and the harness",
-              run_annotator_text_phase)}
+              run_annotator_text_phase),
+         25: ("parallelism: two ranks sharing the card, one NCCL rank", run_parallel_phase)}
 
 
 def set_up_card() -> tuple:
@@ -4981,6 +5498,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_annotator_text_phase(tmp, smi))
     print(f"phase 24 (the annotator trainer, the CLAP text tower, the harness) on {smi}: "
+          f"{phase_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, phase_s = seconds(lambda: run_parallel_phase(tmp, smi))
+    print(f"phase 25 (parallelism: two ranks sharing the card, one NCCL rank) on {smi}: "
           f"{phase_s:.1f} s")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 

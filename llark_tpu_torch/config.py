@@ -259,7 +259,7 @@ def write_args_to_file(args_list, output_dir: str) -> None:
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, "args.txt")
     payload = {type(a).__name__: dataclasses.asdict(a) for a in args_list}
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"  # each writer its own (the ranks of a mesh run)
     with open(tmp, "w") as f:
         json.dump(payload, f, indent=2, default=str)
     os.replace(tmp, path)  # atomic: tolerate concurrent writers

@@ -223,7 +223,10 @@ def make_dataset_iterator(
             else None
         )
         urls = repeat_shards(urls, probs, seed=seed)
-    urls = split_by_host(urls)
+    if is_train:
+        # each batch shard its own shards; an eval stream is read whole by
+        # every rank, which takes its rows of each batch
+        urls = split_by_host(urls)
     rng = random.Random(seed)
     # eval-stream subsampling (reference rsample_frac: m2t/data_modules.py:709)
     subsample = None if is_train else data_args.eval_data_subsample

@@ -111,11 +111,14 @@ def split_by_host(
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
 ) -> List[str]:
-    """Deterministic per-host shard assignment (replaces wds.split_by_node)."""
+    """Deterministic per-reader shard assignment (replaces
+    wds.split_by_node). By default the reader is this rank's batch shard:
+    its coordinate over the ("data", "fsdp") axes of the mesh it made
+    (`parallel/mesh.py` current_batch_shard), so ranks that differ only in
+    "tensor" or "expert" read the same rows and batch shards disjoint ones.
+    Without a mesh, the rank in the default process group, if one is up."""
     if process_index is None or process_count is None:
-        import torch.distributed as dist
+        from llark_tpu_torch.parallel.mesh import current_batch_shard
 
-        up = dist.is_available() and dist.is_initialized()
-        process_index = dist.get_rank() if up else 0
-        process_count = dist.get_world_size() if up else 1
+        process_index, process_count = current_batch_shard()
     return [u for i, u in enumerate(urls) if i % process_count == process_index]

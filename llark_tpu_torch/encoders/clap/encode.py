@@ -22,6 +22,7 @@ import torch
 
 from llark_tpu_torch.audio.mel import log_mel_spectrogram
 from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.parallel.mesh import check_mesh, gather_rows, split_rows
 from llark_tpu_torch.encoders.clap.htsat import HTSATConfig, htsat_embed, init_htsat_params
 
 CLAP_SAMPLE_RATE = 48000
@@ -77,14 +78,13 @@ class ClapEncoder:
     cfg: HTSATConfig
     params: Dict[str, Any]
     device: Union[str, torch.device] = "cuda"
-    mesh: Any = None  # the JAX package's data-parallel route
+    # data-parallel extraction (`parallel/mesh.py` make_mesh): every rank
+    # embeds its rows of each batch and gets the whole batch back
+    mesh: Any = None
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "data-parallel CLAP extraction over a device mesh is Queue A item 9 "
-                "(parallelism) of the port; run one process per card with "
-                "--num-shards / --shard-index")
+            check_mesh(self.mesh)
         self.device = resolve_device(self.device)
 
     @classmethod
@@ -94,7 +94,15 @@ class ClapEncoder:
         return cls(cfg, init_htsat_params(cfg, seed, device), device, mesh)
 
     def embed_batch(self, audio: np.ndarray) -> np.ndarray:
-        """audio [B, clip_samples] prepared waveforms -> [B, out_dim] unit vectors."""
+        """audio [B, clip_samples] prepared waveforms -> [B, out_dim] unit
+        vectors. On a mesh the batch is padded to a multiple of the world
+        size, split over the ranks and gathered back, padding trimmed."""
+        if self.mesh is not None:
+            local = self._embed(split_rows(self.mesh, np.asarray(audio, np.float32)))
+            return gather_rows(local, len(audio))
+        return self._embed(audio)
+
+    def _embed(self, audio: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             x = torch.as_tensor(np.asarray(audio, np.float32), device=self.device)
             mel = log_mel_spectrogram(

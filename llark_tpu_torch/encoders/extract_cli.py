@@ -14,13 +14,15 @@
 Output: `{basename}.npy`: fp32 [T_pooled, 4800] for Jukebox (fps 10),
 [1, 512] unit vectors for CLAP, the format LLark's encodings directories
 hold. A fleet is N processes with --num-shards N --shard-index i. The
-model runs on the GPU unless --device cpu is given. --data-parallel (a
-device mesh) is Queue A item 9 of the port and raises.
+model runs on the GPU unless --device cpu is given. --data-parallel splits
+each batch over the ranks of a launched world (torchrun; one process alone
+is a world of one) and writes the same files as a run without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -74,11 +76,26 @@ class ClapRun(NamedTuple):
     embed_s: float
 
 
-def _refuse_data_parallel(ns) -> None:
-    if ns.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel (a device mesh) is Queue A item 9 (parallelism) of the port; "
-            "run one process per card with --num-shards / --shard-index")
+@contextlib.contextmanager
+def _data_parallel(ns):
+    """--data-parallel: a (world, 1, 1) mesh over the launched ranks
+    (torchrun; one process alone is a world of one), whose ranks split each
+    batch (llark_tpu/encoders/extract_cli.py:87-95, 216-221); None without
+    the flag. Every rank reads and prepares every clip; rank 0 writes."""
+    if not ns.data_parallel:
+        yield None
+        return
+    from llark_tpu_torch.parallel.mesh import mesh_session
+
+    with mesh_session((None, 1, 1), device=ns.device) as mesh:
+        log.info("data-parallel encode over %d ranks", mesh.shape[0])
+        yield mesh
+
+
+def _writer(mesh) -> bool:
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == 0
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +125,7 @@ def _load_state_dict(path: str) -> dict:
     return strip_module(sd)
 
 
-def build_jukebox_encoder(ns):
+def build_jukebox_encoder(ns, mesh=None):
     """The encoder `run_jukebox` runs: an importer's .npz bundle, openai
     state dicts (--checkpoint + --prior-checkpoint), --tiny, or random
     full-width weights; the prior computes in bf16 on every route but
@@ -116,9 +133,8 @@ def build_jukebox_encoder(ns):
     from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig, JukeboxVQVAEConfig
     from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder, reference_conds
 
-    _refuse_data_parallel(ns)
     kw = dict(pool_frames_per_second=ns.fps, transfer_dtype=ns.transfer_dtype,
-              output_dtype=ns.output_dtype, device=ns.device)
+              output_dtype=ns.output_dtype, device=ns.device, mesh=mesh)
     if ns.checkpoint and ns.checkpoint.endswith(".npz"):
         # an importer's bundle (weights + conditioner tables)
         enc = JukeboxEncoder.from_npz(ns.checkpoint, **kw)
@@ -157,6 +173,11 @@ def build_jukebox_encoder(ns):
 
 
 def run_jukebox(ns) -> JukeboxRun:
+    with _data_parallel(ns) as mesh:
+        return _run_jukebox(ns, build_jukebox_encoder(ns, mesh), _writer(mesh))
+
+
+def _run_jukebox(ns, enc, write: bool) -> JukeboxRun:
     from llark_tpu_torch.audio.io import read_wav
     from llark_tpu_torch.encoders.jukebox.encode import (
         JUKEBOX_SAMPLE_RATE,
@@ -164,7 +185,6 @@ def run_jukebox(ns) -> JukeboxRun:
         prepare_audio,
     )
 
-    enc = build_jukebox_encoder(ns)
     os.makedirs(ns.output_dir, exist_ok=True)
     files = list_shard(ns.input_dir, ns.num_shards, ns.shard_index,
                        ns.skip_existing, ns.output_dir)
@@ -194,8 +214,9 @@ def run_jukebox(ns) -> JukeboxRun:
         acts, counts = next(stream)  # asks batches() for the next group first
         encode_s += time.perf_counter() - t1 - (host_s - host_before)
         for i, name in enumerate(group):
-            _save_npy(storage.join(ns.output_dir, _npy_name(name)),
-                      acts[i, : counts[i]].astype(np.float32))
+            if write:
+                _save_npy(storage.join(ns.output_dir, _npy_name(name)),
+                          acts[i, : counts[i]].astype(np.float32))
             n_done += 1
     run = JukeboxRun(n_done, time.perf_counter() - t0, host_s, encode_s)
     log.info("wrote %d embeddings in %.3f s (%.3f clips/s): read + prepare %.3f s, "
@@ -210,26 +231,27 @@ def run_jukebox(ns) -> JukeboxRun:
 
 
 def run_clap(ns) -> ClapRun:
-    from llark_tpu_torch.audio.io import read_wav
-    from llark_tpu_torch.encoders.clap.encode import (
-        CLAP_SAMPLE_RATE,
-        ClapEncoder,
-        prepare_clip,
-        quantize_roundtrip,
-    )
+    from llark_tpu_torch.encoders.clap.encode import ClapEncoder
     from llark_tpu_torch.encoders.clap.htsat import HTSATConfig
 
-    _refuse_data_parallel(ns)
-    if ns.checkpoint:
-        from llark_tpu_torch.encoders.clap.import_hf import load_clap_encoder
+    with _data_parallel(ns) as mesh:
+        if ns.checkpoint:
+            from llark_tpu_torch.encoders.clap.import_hf import load_clap_encoder
 
-        cfg, params = load_clap_encoder(ns.checkpoint, ns.device)
-        enc = ClapEncoder(cfg, params, ns.device)
-    elif ns.tiny:
-        enc = ClapEncoder.random_init(HTSATConfig.tiny(), device=ns.device)
-    else:
-        log.warning("no --checkpoint given: RANDOM weights (throughput/dev only)")
-        enc = ClapEncoder.random_init(device=ns.device)
+            cfg, params = load_clap_encoder(ns.checkpoint, ns.device)
+            enc = ClapEncoder(cfg, params, ns.device, mesh)
+        elif ns.tiny:
+            enc = ClapEncoder.random_init(HTSATConfig.tiny(), device=ns.device, mesh=mesh)
+        else:
+            log.warning("no --checkpoint given: RANDOM weights (throughput/dev only)")
+            enc = ClapEncoder.random_init(device=ns.device, mesh=mesh)
+        return _run_clap(ns, enc, _writer(mesh))
+
+
+def _run_clap(ns, enc, write: bool) -> ClapRun:
+    from llark_tpu_torch.audio.io import read_wav
+    from llark_tpu_torch.encoders.clap.encode import CLAP_SAMPLE_RATE, prepare_clip, quantize_roundtrip
+
     os.makedirs(ns.output_dir, exist_ok=True)
     files = list_shard(ns.input_dir, ns.num_shards, ns.shard_index,
                        ns.skip_existing, ns.output_dir)
@@ -251,8 +273,9 @@ def run_clap(ns) -> ClapRun:
         host_s += t2 - t1
         embed_s += time.perf_counter() - t2
         for i, name in enumerate(group):
-            _save_npy(storage.join(ns.output_dir, _npy_name(name)),
-                      emb[i : i + 1].astype(np.float32))
+            if write:
+                _save_npy(storage.join(ns.output_dir, _npy_name(name)),
+                          emb[i : i + 1].astype(np.float32))
             n_done += 1
     run = ClapRun(n_done, time.perf_counter() - t0, host_s, embed_s)
     log.info("wrote %d embeddings in %.3f s (%.3f clips/s): read + resample + prepare "
@@ -278,7 +301,8 @@ def build_parser() -> argparse.ArgumentParser:
         c.add_argument("--skip-existing", action="store_true")
         c.add_argument("--tiny", action="store_true", help="tiny configs (tests)")
         c.add_argument("--data-parallel", action="store_true",
-                       help="shard the clip batch over all local devices")
+                       help="split each clip batch over the ranks of the launched world "
+                            "(torchrun; one process alone is a world of one)")
         c.add_argument("--device", default="cuda",
                        help="device to run on (default: the GPU; 'cpu' runs the plain "
                             "PyTorch path)")

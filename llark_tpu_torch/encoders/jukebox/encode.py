@@ -29,6 +29,7 @@ from llark_tpu_torch.encoders.jukebox.config import JukeboxPriorConfig, JukeboxV
 from llark_tpu_torch.encoders.jukebox.prior import init_prior_params, prior_encode
 from llark_tpu_torch.encoders.jukebox.vqvae import encode_top, init_vqvae_params
 from llark_tpu_torch.models.decoder import torch_dtype
+from llark_tpu_torch.parallel.mesh import check_mesh, gather_rows, split_rows
 
 JUKEBOX_SAMPLE_RATE = 44100
 JUKEBOX_EXPECTED_SAMPLES_LEN = 1048576  # 2^20
@@ -101,14 +102,14 @@ class JukeboxEncoder:
     transfer_dtype: str = "float32"  # audio upload: "float32" | "int16"
     output_dtype: str = "float32"  # activation readback: "float32" | "bfloat16"
     device: Union[str, torch.device] = "cuda"
-    mesh: Any = None  # the JAX package's data-parallel route
+    # data-parallel extraction (`parallel/mesh.py` make_mesh): every rank
+    # encodes its rows of each batch (padded to a multiple of the world
+    # size) and gets the whole batch back, padding trimmed
+    mesh: Any = None
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "data-parallel Jukebox extraction over a device mesh is Queue A item 9 "
-                "(parallelism) of the port; run one process per card with "
-                "--num-shards / --shard-index")
+            check_mesh(self.mesh)
         self.device = resolve_device(self.device)
         self._frame_len = (pooled_frame_len(self.pool_frames_per_second)
                            if self.pool_frames_per_second else None)
@@ -179,7 +180,9 @@ class JukeboxEncoder:
     def _launch(self, audio: np.ndarray):
         """Enqueue one batch: (the host tensor that receives its result, the
         event that marks the copy done; None on the CPU, where the result is
-        ready on return)."""
+        ready on return). On a mesh, this rank's rows only."""
+        if self.mesh is not None:
+            audio = split_rows(self.mesh, audio)
         host_in = self._prepare_transfer(audio)
         if self.device.type != "cuda":
             return self._encode(host_in), None
@@ -202,7 +205,10 @@ class JukeboxEncoder:
         """Wait for a launched batch's copy: (acts fp32, frame counts)."""
         if copied is not None:
             copied.synchronize()
-        return host_out.float().numpy(), self._frame_counts(input_lengths)
+        acts = host_out.float().numpy()
+        if self.mesh is not None:
+            acts = gather_rows(acts, len(input_lengths))
+        return acts, self._frame_counts(input_lengths)
 
     def encode_batch(
         self, audio: np.ndarray, input_lengths: Optional[np.ndarray] = None

@@ -332,7 +332,7 @@ class Generator:
         absorb(token.cpu().numpy())
         emitted = 1
         chunk = max(1, int(gen_cfg.decode_chunk))
-        while emitted < gen_cfg.max_new_tokens and not done.all():
+        while emitted < gen_cfg.max_new_tokens and not self._finished(done):
             n = min(chunk, gen_cfg.max_new_tokens - emitted)
             toks, _last_logits, cache = decode_n(
                 self.cfg, gen_cfg, self.params, token, cache,
@@ -349,6 +349,11 @@ class Generator:
         if stop_text and tokenizer is not None:
             out = [self._trim_stop(ids, tokenizer, stop_text) for ids in out]
         return out
+
+    def _finished(self, done: np.ndarray) -> bool:
+        """Whether decoding stops: every row is done (a sharded generator
+        agrees on it across its batch shards)."""
+        return bool(done.all())
 
     @staticmethod
     def _trim_stop(ids: List[int], tokenizer, stop_text: str) -> List[int]:

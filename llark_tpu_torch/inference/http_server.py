@@ -18,12 +18,19 @@ engine thread owns the server and issues ALL of its device work (admit,
 then decode), so no two threads launch onto the card. Handlers wait on a
 per-request Event the engine sets once the request is done. The server
 binds the loopback interface unless told otherwise.
+
+With --mesh-shape (under torchrun, one process a rank) every rank loads the
+model and keeps its shards (`inference/server.py` mesh serving); rank 0
+runs the HTTP front end and its engine thread broadcasts each round's
+admitted requests to the other ranks, which run the same rounds
+(`follow`).
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import io
 import json
 import logging
@@ -36,8 +43,47 @@ import numpy as np
 import torch
 
 from llark_tpu_torch.inference.server import BatchedServer, Request
+from llark_tpu_torch.parallel import comm
 
 log = logging.getLogger(__name__)
+
+
+def engine_round(srv: BatchedServer, new_requests) -> bool:
+    """Queue the round's new requests, then admit and decode once; False
+    when there was nothing to do. Every rank of a mesh server runs the same
+    rounds on the same requests."""
+    srv._queue.extend(new_requests)
+    if not srv._queue and not srv._active():
+        return False
+    srv._admit()
+    srv._decode_round()
+    return True
+
+
+def _abort_all(srv: BatchedServer) -> None:
+    """Drop every queued and in-flight request of a failed round."""
+    srv._queue.clear()
+    for slot, r in enumerate(srv._slot_req):
+        if r is not None:
+            srv._slot_req[slot] = None
+            # paged: return the aborted row's pool blocks, which clearing
+            # the slot alone would leak
+            srv._release_blocks(slot)
+
+
+def follow(server: BatchedServer) -> None:
+    """A mesh server's rank other than 0: run the rounds rank 0's engine
+    broadcasts, on the same requests, until it stops."""
+    with torch.inference_mode():
+        while True:
+            stop, new_requests = comm.broadcast_object(None, 0, comm.world())
+            if stop:
+                return
+            try:
+                engine_round(server, new_requests)
+            except Exception:  # noqa: BLE001 -- rank 0 fails the same round
+                log.exception("engine step failed; dropping in-flight requests")
+                _abort_all(server)
 
 
 class OnlineEngine:
@@ -77,30 +123,26 @@ class OnlineEngine:
     def _loop(self) -> None:
         srv = self.server
         tracked = {}  # id -> (Request, Event)
-        while not self._stop.is_set():
+        while True:
+            stop = self._stop.is_set()
             with self._lock:
-                newly, self._pending = self._pending, []
+                newly, self._pending = ([], self._pending) if stop else (self._pending, [])
+            if srv.mesh is not None:
+                # the round's admissions (or the stop) go to every rank
+                comm.broadcast_object((stop, [req for req, _ in newly]), 0, comm.world())
+            if stop:
+                break
             for req, ev in newly:
                 tracked[id(req)] = (req, ev)
-                srv._queue.append(req)
             try:
-                if not srv._queue and not srv._active():
+                if not engine_round(srv, [req for req, _ in newly]):
                     time.sleep(self.idle_sleep_s)
-                else:
-                    srv._admit()
-                    srv._decode_round()
             except Exception as e:  # noqa: BLE001 -- one bad request must not
                 # end the serving loop: fail every queued and in-flight
                 # request with the error (each reply carries it) and go on
                 # taking new work
                 log.exception("engine step failed; failing in-flight requests")
-                srv._queue.clear()
-                for slot, r in enumerate(srv._slot_req):
-                    if r is not None:
-                        srv._slot_req[slot] = None
-                        # paged: return the aborted row's pool blocks, which
-                        # clearing the slot alone would leak
-                        srv._release_blocks(slot)
+                _abort_all(srv)
                 for req, ev in tracked.values():
                     req.error = f"{type(e).__name__}: {e}"
                     ev.set()
@@ -230,15 +272,7 @@ def serve_http(server: BatchedServer, bundle, host: str = "127.0.0.1", port: int
 
 
 def main(argv=None):
-    from llark_tpu_torch.infer import _common_prompt_prefix, build_prompt_ids
-    from llark_tpu_torch.inference.common import (
-        add_generation_args,
-        apply_serving_overrides,
-        check_serving_args,
-        load_draft,
-        make_gen_cfg,
-    )
-    from llark_tpu_torch.models.utils import load_pretrained_model
+    from llark_tpu_torch.inference.common import add_generation_args, check_serving_args
 
     p = argparse.ArgumentParser()
     p.add_argument("--checkpoint-dir", required=True)
@@ -249,8 +283,9 @@ def main(argv=None):
     p.add_argument("--max-audio-frames", type=int, default=256)
     p.add_argument("--prompt-buckets", default="128,512")
     p.add_argument("--mesh-shape", default=None,
-                   help="serve over a device mesh (a later slice of the port: "
-                        "refused)")
+                   help="serve over a (data, fsdp, tensor) mesh of the launched ranks, "
+                        "e.g. 1,1,2 under torchrun --nproc-per-node 2: rank 0 runs the "
+                        "HTTP front end, every rank the engine")
     p.add_argument("--device", default="cuda",
                    help="device to run on (default: the GPU; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -260,11 +295,24 @@ def main(argv=None):
     # not ignored; --speculative draft runs the fused draft-verify rounds in
     # the slot engine, --speculative ngram the host-proposal rounds
     check_serving_args(args)
-    if args.mesh_shape:
-        raise NotImplementedError(
-            "mesh serving comes with the multi-card serving slice of the port "
-            "(ROADMAP.md Queue A item 9)"
-        )
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if args.mesh_shape:
+            from llark_tpu_torch.parallel.mesh import mesh_session
+
+            shape = tuple(int(x) for x in args.mesh_shape.replace(",", " ").split())
+            mesh = stack.enter_context(mesh_session(shape, device=args.device))
+        _serve_main(args, mesh)
+
+
+def _serve_main(args, mesh) -> None:
+    from llark_tpu_torch.infer import _common_prompt_prefix, build_prompt_ids
+    from llark_tpu_torch.inference.common import (
+        apply_serving_overrides,
+        load_draft,
+        make_gen_cfg,
+    )
+    from llark_tpu_torch.models.utils import load_pretrained_model
 
     cfg, params, bundle = load_pretrained_model(args.checkpoint_dir, args.ckpt_num, args.device)
     cfg = apply_serving_overrides(args, cfg)
@@ -312,8 +360,12 @@ def main(argv=None):
         drain_max_active=args.drain_max_active,
         allow_divergent_spec=args.allow_divergent_spec,
         shared_prefix_ids=shared_prefix,
+        mesh=mesh,
         device=args.device,
     )
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        follow(server)
+        return
     httpd, engine = serve_http(server, bundle, args.host, args.port)
     log.info("serving on %s:%d (%d slots)", args.host, args.port, args.continuous_batching)
     try:

@@ -33,8 +33,16 @@ cache, a paged admission's cache dict and the decode rounds interleaved
 with chunked admission all see the same pool tensors, and each write lands
 before the next forward reads it.
 
-Not in this slice of the port: mesh serving (`mesh`) raises
-NotImplementedError.
+Mesh serving (`mesh`, a `parallel/mesh.py` make_mesh mesh): every rank
+builds the same server from the same full trees, keeps its shards
+(`shard_model`: Megatron/ZeRO specs, int8 and int4 trees adapted; the draft
+too) and runs the same engine loop on the same requests; the decoder sums
+over "tensor" after wo / w_down and gathers the logits, so every rank
+samples the same tokens, and its KV cache holds the rank's Hkv/t heads.
+The kernels run on each rank's local heads and shards. The engine's two
+wall-clock decisions (admit_max_wait_s, admit_reorder_age_s) are taken on
+rank 0 and broadcast, so the ranks never diverge; serve() returns the
+requests, complete, on every rank.
 """
 
 from __future__ import annotations
@@ -139,11 +147,13 @@ class BatchedServer:
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving comes with the multi-card serving slice of the port "
-                "(ROADMAP.md Queue A item 9)"
-            )
+            from llark_tpu_torch.parallel.mesh import shard_model
+
+            cfg, params = shard_model(mesh, cfg, params)
+            if draft_cfg is not None and draft_params is not None:
+                draft_cfg, draft_params = shard_model(mesh, draft_cfg, draft_params)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -581,7 +591,17 @@ class BatchedServer:
         if len(self._queue) >= want:
             return True
         oldest = min(r.submitted_at for r in self._queue)
-        return (time.time() - oldest) >= self.admit_max_wait_s
+        return self._agree((time.time() - oldest) >= self.admit_max_wait_s)
+
+    def _agree(self, decision: bool) -> bool:
+        """A wall-clock decision: on a mesh, rank 0's, broadcast to every
+        rank (ranks that decided on their own clocks would run different
+        programs and hang in a collective)."""
+        if self.mesh is None:
+            return decision
+        from llark_tpu_torch.parallel import comm
+
+        return bool(comm.broadcast_object(bool(decision), src=0, group=comm.world()))
 
     def _select_admit_group(self, width: int):
         """(bucket, members) for this admission wave, members FIFO-ordered.
@@ -594,7 +614,7 @@ class BatchedServer:
         no bucket are skipped here and fail when they reach the head."""
         q = self._queue
         if (self.admit_reorder and len(q) > 1
-                and (time.time() - q[0].submitted_at) < self.admit_reorder_age_s):
+                and self._agree((time.time() - q[0].submitted_at) < self.admit_reorder_age_s)):
             groups: Dict[int, List[Request]] = {}
             for r in q:
                 if self._check_prefix(r) is not None:

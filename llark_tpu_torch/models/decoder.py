@@ -46,6 +46,14 @@ MLP's weights and biases. A forward without a KV cache returns, in place of
 the cache, {"moe_aux_loss": the layers' load-balancing losses summed,
 "moe_dropped_frac": their dropped fractions meaned}, which the train step
 reads (llark_tpu/models/decoder.py:757-768).
+
+A sharded config (`parallel/mesh.py` `local_config`: this rank's widths, its
+mesh and specs in `cfg.shard`) runs the same code on the rank's shards:
+each layer's weights are all-gathered over "fsdp" before use, the
+column-parallel inputs carry the "tensor" axis's gradient sum, wo and
+w_down's partial products are summed over "tensor" in fp32 (their biases
+added after), the ALiBi slopes are the rank's heads' and the untied head's
+logits are gathered. The kernels see the local shapes.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from llark_tpu_torch.models.quant import (
 from llark_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
 from llark_tpu_torch.ops.decode_attention import _dense_view, decode_attention
 from llark_tpu_torch.ops.int8_matmul import matmul_f32
+from llark_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -320,13 +329,35 @@ def fold_seed(seed: int, *data: int) -> int:
     return seed >> 1
 
 
-def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed: Optional[int]):
+# tensor parallelism: the row-parallel products, whose outputs are partial
+# sums over the "tensor" axis (the others are column-parallel)
+ROW_PARALLEL = ("wo", "w_down")
+
+
+def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed: Optional[int],
+                tp=None):
     """Base dense + optional low-rank delta: y = xW + scale * ((drop(x) A) B)
     (llark_tpu/models/decoder.py:270-294); each product keeps an fp32
     accumulator and is rounded to `dtype`. Without `{name}_lora_a` in the
     layer tree it is `_dense`. `dropout_seed` (this layer's; None in
-    evaluation and serving) seeds the dropout mask of this target."""
-    y = _dense(x, lp[name], lp.get("b" + name[1:]), dtype)  # wq->bq, w_up->b_up
+    evaluation and serving) seeds the dropout mask of this target.
+
+    `tp`, the "tensor" group of a sharded config with more than one rank:
+    a row-parallel target's partial products (and its LoRA x A) are summed
+    over it in fp32 and rounded once, its bias added after the sum; a
+    column-parallel target's A, whole on every rank, gets its gradient
+    summed over it."""
+    row = tp is not None and name in ROW_PARALLEL
+    bias = lp.get("b" + name[1:])  # wq->bq, w_up->b_up
+    w = lp[name]
+    if row and not isinstance(w, dict):
+        y = comm.reduce_sum(matmul_f32(x, w.to(dtype)), tp).to(dtype)
+    elif row:
+        y = comm.reduce_sum(_dense(x, w, None, dtype), tp)
+    else:
+        y = _dense(x, w, bias, dtype)
+    if row and bias is not None:
+        y = y + bias.to(dtype)
     a = lp.get(f"{name}_lora_a")
     if a is None:
         return y
@@ -337,7 +368,11 @@ def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed:
         gen.manual_seed(fold_seed(dropout_seed, _LORA_TARGET_SALT[name]))
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         xl = torch.where(mask, x / keep, 0.0)
+    if tp is not None and not row:
+        a = comm.copy_to(a, tp)
     z = torch.matmul(xl, a.to(dtype))
+    if row:
+        z = comm.reduce_sum(z, tp)
     delta = torch.matmul(z, lp[f"{name}_lora_b"].to(dtype))
     return y + lora_scale(cfg) * delta
 
@@ -464,15 +499,24 @@ def _layer_forward(
     prefill_from_empty: bool = False,
     dropout_seed: Optional[int] = None,  # this layer's LoRA-dropout seed
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One decoder layer: (x out, the MoE metrics of `moe_ffn` or None)."""
+    """One decoder layer: (x out, the MoE metrics of `moe_ffn` or None).
+    With a sharded config (`parallel/mesh.py` `local_config`) the widths
+    are this rank's, the layer's weights are gathered over "fsdp" first
+    and the column-parallel inputs carry the tensor axis's gradient sum."""
     dtype = x.dtype
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shard = getattr(cfg, "shard", None)
+    tp = None
+    if shard is not None:
+        lp = shard.gather_layer(lp)
+        tp = shard.group("tensor") if shard.tensor > 1 else None
 
     def dense(name, z):
-        return _lora_dense(cfg, lp, name, z, dtype, dropout_seed)
+        return _lora_dense(cfg, lp, name, z, dtype, dropout_seed, tp)
 
     y = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    y = comm.copy_to(y, tp)
     q = dense("wq", y).reshape(b, s, nh, hd).transpose(1, 2)
     k = dense("wk", y).reshape(b, s, nkv, hd).transpose(1, 2)
     v = dense("wv", y).reshape(b, s, nkv, hd).transpose(1, 2)
@@ -541,14 +585,16 @@ def _layer_forward(
     x = x + dense("wo", attn)
 
     y = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-    if cfg.moe_num_experts > 0:
+    if cfg.moe_num_experts > 0:  # moe_ffn does its own tensor/expert sums
         out, metrics = moe_ffn(cfg, lp, y)
         return x + out, metrics
     if cfg.mlp_activation == "silu":
+        y = comm.copy_to(y, tp)
         gate = dense("w_gate", y)
         up = dense("w_up", y)
         z = F.silu(gate.float()).to(dtype) * up
     else:
+        y = comm.copy_to(y, tp)
         z = F.gelu(dense("w_up", y).float(), approximate="tanh").to(dtype)
     return x + dense("w_down", z), None
 
@@ -655,7 +701,7 @@ def decoder_forward(
 
     # layer-invariant inputs, computed once per forward
     rope = None if cfg.use_alibi else _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    slopes = alibi_slopes(cfg.num_heads, device=dev) if cfg.use_alibi else None
+    slopes = _alibi(cfg, dev) if cfg.use_alibi else None
     # remat: only where autograd records a training forward
     remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
     context_fn = _remat_context(cfg) if remat else None
@@ -695,8 +741,25 @@ def decoder_forward(
     return compute_logits(cfg, params, x, trainable_token_start), new_cache
 
 
+def _alibi(cfg: ModelConfig, device) -> torch.Tensor:
+    """ALiBi slopes of this rank's heads: the slopes of all heads, sliced
+    to the rank's block under tensor parallelism."""
+    shard = getattr(cfg, "shard", None)
+    if shard is None or shard.tensor == 1:
+        return alibi_slopes(cfg.num_heads, device=device)
+    r = shard.rank("tensor")
+    full = alibi_slopes(cfg.num_heads * shard.tensor, device=device)
+    return full[r * cfg.num_heads:(r + 1) * cfg.num_heads]
+
+
+def _top(cfg: ModelConfig, params: Params, name: str):
+    """A top-level weight, whole over "fsdp" on a sharded config."""
+    shard = getattr(cfg, "shard", None)
+    return params[name] if shard is None else shard.gather_top(name, params[name])
+
+
 def embed_tokens(cfg: ModelConfig, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][input_ids.long()].to(torch_dtype(cfg.dtype))
+    return _top(cfg, params, "embed")[input_ids.long()].to(torch_dtype(cfg.dtype))
 
 
 def compute_logits(
@@ -714,11 +777,21 @@ def compute_logits(
     rows train) also detaches the head's rows below the start."""
     dtype = hidden.dtype
     if cfg.tie_embeddings:
-        w = params["embed"]  # [V, H]
+        w = _top(cfg, params, "embed")  # [V, H]
         if trainable_token_start is not None:
             w = torch.cat([w[:trainable_token_start].detach(), w[trainable_token_start:]])
         return matmul_f32(hidden, w.to(dtype).t())
-    w = params["lm_head"]  # [H, V]
+    shard = getattr(cfg, "shard", None)
+    if shard is not None and shard.tensor > 1:
+        # column-parallel head: this rank's vocab/t columns, gathered
+        tp = shard.group("tensor")
+        local = _head_logits(dtype, comm.copy_to(hidden, tp), _top(cfg, params, "lm_head"))
+        return comm.gather(local, local.dim() - 1, tp, backward="split")
+    return _head_logits(dtype, hidden, _top(cfg, params, "lm_head"))
+
+
+def _head_logits(dtype: torch.dtype, hidden: torch.Tensor, w) -> torch.Tensor:
+    """hidden @ the untied LM head [H, V] (float or quantized) -> fp32."""
     if isinstance(w, dict):
         # a quantized head never reaches a kernel (nor does it in the JAX
         # package): fp32 logits from an fp32 accumulator

@@ -30,6 +30,7 @@ from llark_tpu_torch.models.decoder import (
     init_decoder_params,
     torch_dtype,
 )
+from llark_tpu_torch.parallel import comm
 from llark_tpu_torch.special_tokens import IGNORE_INDEX
 
 
@@ -61,9 +62,16 @@ def init_llark_params(
 
 
 def project_audio(cfg: ModelConfig, params: Params, audio_encodings: torch.Tensor) -> torch.Tensor:
-    """[B, T, mm_hidden] -> [B, T, hidden] in compute dtype."""
+    """[B, T, mm_hidden] -> [B, T, hidden] in compute dtype. On a sharded
+    config the kernel is gathered whole first (over "fsdp", then over
+    "tensor", whose ranks compute the same splice)."""
     dtype = torch_dtype(cfg.dtype)
-    w = params["mm_projector"]["kernel"].to(dtype)
+    w = params["mm_projector"]["kernel"]
+    shard = getattr(cfg, "shard", None)
+    if shard is not None:
+        w = comm.gather(comm.gather(w, 0, shard.group("fsdp")), 1, shard.group("tensor"),
+                        backward="split")
+    w = w.to(dtype)
     b = params["mm_projector"]["bias"].to(dtype)
     return torch.matmul(audio_encodings.to(dtype), w) + b
 

@@ -103,6 +103,23 @@ def strip_lora(params: Params) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def lora_layer_specs(cfg: ModelConfig, base_layer_specs: Dict[str, Any]) -> Dict[str, Any]:
+    """Partition specs of the stacked LoRA factors, derived from the base
+    weight's (llark_tpu/models/lora.py:103-118): A takes the input-dim
+    split, B the output-dim split; the rank dim is whole (r is small)."""
+    from llark_tpu_torch.parallel.mesh import P
+
+    specs: Dict[str, Any] = {}
+    for name in LORA_TARGETS:
+        base = base_layer_specs.get(name)
+        if base is None:
+            continue
+        _, in_axis, out_axis = tuple(base) + (None,) * (3 - len(tuple(base)))
+        specs[f"{name}_lora_a"] = P(None, in_axis, None)
+        specs[f"{name}_lora_b"] = P(None, None, out_axis)
+    return specs
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy; bfloat16, which numpy lacks, as float32."""
     t = t.detach().cpu()

@@ -25,6 +25,11 @@ took hold zeros and give zeros). Every shape is static, as the JAX capacity
 is: nothing reads a routing result back to the host, so the layer syncs
 nothing and stays capturable in a CUDA graph.
 
+On a sharded config (`parallel/mesh.py`) a rank holds E/e experts of the
+"expert" axis, their FFN widths split over "tensor": it routes every token
+as above (capacity and drops are those of the unsharded run), runs its own
+experts and sums the outputs over both axes.
+
 Expert stacks are [E, in, out] floats or weight-only quantized dicts
 (models/quant.py): int8 stacks run one product per expert through
 `quantized_dense` (the int8 kernel on the card), int4 stacks are
@@ -47,6 +52,7 @@ from llark_tpu_torch.models.quant import (
     is_quantized_int4,
     quantized_dense,
 )
+from llark_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -133,9 +139,29 @@ def moe_ffn(
     aux = e * (f * p).sum(-1).mean()
     dropped = 1.0 - dispatch.sum() / (b * s * k)
 
+    shard = getattr(cfg, "shard", None)
+    groups = shard.model_groups() if shard is not None else []
+    if groups:
+        # expert/tensor parallelism: every rank routed all its tokens
+        # alike; it runs its E/e experts (their FFN columns split over
+        # "tensor") and the partial outputs are summed over both axes. The
+        # gates and the dispatched tokens carry the sum of the ranks'
+        # gradients, so the replicated router and y get the whole of theirs.
+        el = e // shard.size("expert")
+        lo = shard.rank("expert") * el
+        for g in groups:
+            y = comm.copy_to(y, g)
+            combine = comm.copy_to(combine, g)
+        dispatch, combine = dispatch[:, :, lo:lo + el], combine[:, :, lo:lo + el]
+        e = el
     ein = torch.einsum("bsec,bsh->ebch", dispatch.to(dtype), y)
     eout = expert_mlp(cfg, lp, ein.reshape(e, b * c, h), dtype).reshape(e, b, c, h)
     out = torch.einsum("bsec,ebch->bsh", combine.to(dtype), eout)
+    if groups:
+        out = out.float()
+        for g in groups:
+            out = comm.reduce_sum(out, g)
+        out = out.to(dtype)
     return out, {"aux_loss": aux, "dropped_frac": dropped}
 
 

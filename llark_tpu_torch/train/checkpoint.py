@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import io
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,11 +112,17 @@ class CheckpointManager:
             np.savez(f, **out)
 
     @torch.no_grad()
-    def restore(self, state: TrainState, step: Optional[int] = None
+    def restore(self, state: TrainState, step: Optional[int] = None,
+                local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
                 ) -> Optional[Tuple[TrainState, Optional[Dict]]]:
         """Load a checkpoint (the latest by default) into the tensors of
         `state`, in place: their devices, dtypes and requires_grad flags
-        stay. Returns (state, data_state), or None if there is none."""
+        stay. Returns (state, data_state), or None if there is none.
+
+        Checkpoints hold whole tensors. On a mesh, `local(path, tensor)`
+        cuts this rank's shard of the saved params/<path> (and of its
+        optimizer moments), so a run saved on one mesh restores on another
+        or on none."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -128,15 +134,20 @@ class CheckpointManager:
             payload = torch.load(state_pt, map_location="cpu", weights_only=True)
         saved = dict(iter_leaves(payload["params"]))
         for path, t in iter_leaves(state.params):
-            if path not in saved or saved[path].shape != t.shape:
+            src = saved.get(path)
+            if src is not None and local is not None:
+                src = local(path, src)
+            if src is None or src.shape != t.shape:
                 raise ValueError(f"checkpoint-{step} does not hold params/{path} as {tuple(t.shape)}")
-            t.copy_(saved[path])
+            t.copy_(src)
         opt = payload["opt_state"]
+        # the moments of the trainable leaves, in their order
+        trained = [path for path, t in iter_leaves(state.params) if t.requires_grad]
         for key in ("mu", "nu"):
             if len(opt[key]) != len(state.opt_state[key]):
                 raise ValueError(f"checkpoint-{step} optimizer state covers other tensors")
-            for dst, src in zip(state.opt_state[key], opt[key]):
-                dst.copy_(src)
+            for i, (dst, src) in enumerate(zip(state.opt_state[key], opt[key])):
+                dst.copy_(src if local is None else local(trained[i], src))
         state.opt_state["count"] = int(opt["count"])
         state.step = int(payload["step"])
         return state, payload.get("data_state")

@@ -13,6 +13,12 @@ llark_tpu/train/step.py).
     micro-batch; a MoE config adds moe_aux_loss_weight x the load-balancing
     loss to the loss and reports it and the dropped fraction; make_eval_step:
     loss sums.
+
+On a sharded config (`parallel/mesh.py` `local_config`) the step runs on
+this rank's rows and shards: the loss is normalised by the global token
+count, the gradients summed over the batch shards, and the norm that clips
+them taken over every shard, so loss, norm and update equal the
+single-device step's.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from llark_tpu_torch.config import ModelConfig, TrainingArguments
 from llark_tpu_torch.models.decoder import fold_seed
 from llark_tpu_torch.models.fusion import causal_lm_loss, chunked_causal_lm_loss, llark_forward
+from llark_tpu_torch.parallel import comm
 from llark_tpu_torch.train.state import TrainState, iter_leaves, trainable_leaves
 
 Batch = Dict[str, torch.Tensor]
@@ -168,10 +175,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               leaves: List[torch.Tensor]) -> torch.Tensor:
+               leaves: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one step to `leaves` and `state` in place; returns the
-        global norm of `grads` before clipping."""
-        norm = global_norm(grads)
+        global norm of `grads` before clipping. On a mesh the caller passes
+        the norm over every shard (`sharded_grad_norm`): the leaves and
+        grads are this rank's shards, clipped and updated where they lie."""
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.max_norm
         lr = self.schedule(state["count"])
         t = state["count"] + 1
@@ -188,6 +198,48 @@ class AdamW:
             p.add_(-lr * u)
         state["count"] = t
         return norm
+
+
+def sharded_loss_share(shard, loss: torch.Tensor, n_tok: torch.Tensor, moe: Dict[str, torch.Tensor]):
+    """This rank's share of a micro-batch's loss on a mesh: its token-loss
+    sum over the GLOBAL token count (an all-reduce over the batch shards),
+    and its MoE metrics over the number of batch shards (they are means over
+    rows). The shares' sum over the batch shards, and the sum of their
+    gradients, are the single-device step's."""
+    n_glob = shard.batch_sum(n_tok)
+    share = loss * n_tok / n_glob.clamp_min(1)
+    nb = shard.batch_shards()
+    return share, n_glob, {k: v / nb for k, v in moe.items()}
+
+
+def sync_grads(shard, paths: List[str], grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each gradient over the batch shards that computed terms of it:
+    over "data" always, and over "fsdp" for a leaf the "fsdp" axis does not
+    split (a split leaf got its sum from the reduce-scatter of its gather).
+    Over "tensor" and "expert" the replicated leaves' gradients are whole
+    and equal already (`parallel/comm.py` copy_to / reduce_sum)."""
+    out = []
+    for path, g in zip(paths, grads):
+        axes = set(shard.flat_specs[path])
+        g = comm.all_reduce_fp32(g, shard.group("data"))
+        if "fsdp" not in axes:
+            g = comm.all_reduce_fp32(g, shard.group("fsdp"))
+        out.append(g)
+    return out
+
+
+def sharded_grad_norm(shard, paths: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm over the whole of every leaf: each rank's square
+    sums, a replicated leaf's divided by its number of copies, summed over
+    every rank."""
+    sizes = {axis: shard.size(axis) for axis in ("data", "fsdp", "tensor", "expert")}
+    total = None
+    for path, g in zip(paths, grads):
+        axes = set(shard.flat_specs[path])
+        copies = int(np.prod([n for axis, n in sizes.items() if axis not in axes]))
+        sq = g.float().square().sum() / copies
+        total = sq if total is None else total + sq
+    return torch.sqrt(comm.all_reduce_fp32(total, comm.world()))
 
 
 def make_optimizer(args: TrainingArguments) -> AdamW:
@@ -290,6 +342,8 @@ def make_train_step(
     n_micro = max(grad_accum_steps, 1)
     use_dropout = dropout_seed is not None and cfg.lora_dropout > 0.0
 
+    shard = getattr(cfg, "shard", None)
+
     def train_step(state: TrainState, batch: Batch):
         leaves = trainable_leaves(state.params)
         step_seed = fold_seed(dropout_seed, state.step) if use_dropout else None
@@ -297,6 +351,8 @@ def make_train_step(
         for i, micro in enumerate(_split(batch, n_micro)):
             seed = fold_seed(step_seed, i) if use_dropout else None
             loss, n_tok, moe = loss_fn(state.params, micro, seed)
+            if shard is not None:
+                loss, n_tok, moe = sharded_loss_share(shard, loss, n_tok, moe)
             loss = train_loss(cfg, loss, moe)
             # a leaf the loss does not reach (no audio in the batch) gets zeros
             g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
@@ -306,7 +362,14 @@ def make_train_step(
             moe_sums = {k: moe_sums.get(k, 0.0) + v.detach() for k, v in moe.items()}
         if n_micro > 1:
             grads = [g / n_micro for g in grads]
-        grad_norm = optimizer.update(grads, state.opt_state, leaves)
+        norm = None
+        if shard is not None:
+            paths = [p for p, t in iter_leaves(state.params) if t.requires_grad]
+            grads = sync_grads(shard, paths, grads)
+            norm = sharded_grad_norm(shard, paths, grads)
+            loss_sum = shard.batch_sum(loss_sum)
+            moe_sums = {k: shard.batch_sum(v) for k, v in moe_sums.items()}
+        grad_norm = optimizer.update(grads, state.opt_state, leaves, norm)
         state.step += 1
         metrics = {"loss": loss_sum / n_micro, "num_tokens": tokens, "grad_norm": grad_norm,
                    **{k: v / n_micro for k, v in moe_sums.items()}}
@@ -325,10 +388,14 @@ def make_eval_step(
     summed loss * tokens and the token count, so a caller averages over
     batches exactly."""
     loss_fn = make_loss_fn(cfg, audio_patch_id=audio_patch_id, loss_chunk=loss_chunk)
+    shard = getattr(cfg, "shard", None)
 
     @torch.no_grad()
     def eval_step(params, batch):
         loss, n_tok, _ = loss_fn(params, batch)
-        return {"loss_sum": loss * n_tok, "num_tokens": n_tok}
+        out = {"loss_sum": loss * n_tok, "num_tokens": n_tok}
+        if shard is not None:  # summed over the batch shards
+            out = {k: shard.batch_sum(v) for k, v in out.items()}
+        return out
 
     return eval_step

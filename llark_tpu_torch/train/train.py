@@ -11,7 +11,19 @@ Reference-parity orchestration (m2t/train.py:53-284):
   auto-resume from existing checkpoints ................. :255-260
   periodic + final save (projector side-save) ........... trainer.py:35-65
 
-One process on one card (the GPU unless the caller passes device="cpu").
+One process a rank (the GPU unless the caller passes device="cpu"). A
+`mesh_shape` larger than one device, or a run under `torchrun` (RANK,
+WORLD_SIZE, MASTER_ADDR in the environment; `multihost` across nodes),
+trains over a ("data", "fsdp", "tensor"[, "expert"]) mesh
+(`parallel/mesh.py`): every rank builds the same full tree from the seed
+and keeps its shards; each batch-shard rank reads its own split of the
+data shards, a batch of per_device_train_batch_size x
+gradient_accumulation_steps rows, so the global batch is that times
+data x fsdp (`compute_global_batch`); the step normalises by the global
+token count and clips by the norm over every shard (`train/step.py`).
+Logging at INFO and metrics tracking happen on rank 0 only. Checkpoints
+are gathered whole to rank 0 and written in the one-process format, so a
+run saved on one mesh restores on another or on none.
 A local HF checkpoint directory as `model_name_or_path` gives the
 architecture (its config.json), the tokenizer (where `transformers` is
 installed and the directory holds one) and the backbone weights
@@ -22,9 +34,7 @@ package's adapter format; `bits` 8 or 4 quantizes the frozen base on the
 card (int8, or int4 in the rows layout of the int4 kernel, group
 min(128, hidden)). A Mixtral directory, or `moe_num_experts` > 0, trains a
 Mixture-of-Experts decoder (`models/moe.py`), its load-balancing loss
-added to the loss and logged with the dropped fraction. Not in this slice
-of the port, each raising before any work: multihost and a mesh larger
-than one device (ROADMAP.md Queue A item 9).
+added to the loss and logged with the dropped fraction.
 """
 
 from __future__ import annotations
@@ -59,6 +69,18 @@ from llark_tpu_torch.models.quant import (
     quantize_params_int8_incremental,
 )
 from llark_tpu_torch.models.utils import save_model_metadata
+from llark_tpu_torch.parallel import comm
+from llark_tpu_torch.parallel.mesh import (
+    Shard,
+    Sharding,
+    batch_shard_index,
+    batch_sharding,
+    gather_param,
+    gather_params,
+    init_process_group,
+    make_mesh,
+    shard_model,
+)
 from llark_tpu_torch.special_tokens import IGNORE_INDEX
 from llark_tpu_torch.tokenization import TokenizerBundle, WordTokenizer
 from llark_tpu_torch.train.checkpoint import (
@@ -66,7 +88,7 @@ from llark_tpu_torch.train.checkpoint import (
     apply_pretrained_projector,
     load_projector_weights,
 )
-from llark_tpu_torch.train.state import TrainState
+from llark_tpu_torch.train.state import TrainState, iter_leaves
 from llark_tpu_torch.train.step import (
     ParamPartition,
     lr_schedule,
@@ -158,19 +180,8 @@ def build_tokenizer(model_args: ModelArguments, training_args: TrainingArguments
 
 
 def _check_slice(model_args: ModelArguments, training_args: TrainingArguments) -> None:
-    """Raise, before any work, on the options the port does not run and on
-    the settings the JAX package refuses (llark_tpu/train/train.py:259-302)."""
-    later = []
-    if training_args.multihost:
-        later.append("multihost")
-    if int(np.prod(training_args.mesh_shape)) > 1:
-        later.append(f"mesh_shape {tuple(training_args.mesh_shape)} (more than one device)")
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: not in this slice of the port (one card: full, "
-            "adapter or LoRA training); each comes with a later slice (ROADMAP.md "
-            "Queue A item 9)"
-        )
+    """Raise, before any work, on the settings the JAX package refuses
+    (llark_tpu/train/train.py:259-302)."""
     if training_args.lora_enable and training_args.lora_bias not in ("", "none"):
         raise NotImplementedError(
             "lora_bias != 'none' is not supported (our LoRA has no bias terms)"
@@ -236,6 +247,51 @@ def _pad_eval_batch(b: Dict[str, np.ndarray], target: int) -> Dict[str, np.ndarr
     }
 
 
+def compute_global_batch(training_args: TrainingArguments, mesh) -> int:
+    """Rows per optimizer step (llark_tpu/train/train.py:182-191). The
+    batch rides only the (data, fsdp) axes; counting "tensor" would inflate
+    the effective batch by the TP factor."""
+    n_batch_shards = 1 if mesh is None else batch_shard_index(mesh)[1]
+    return (training_args.per_device_train_batch_size
+            * max(training_args.gradient_accumulation_steps, 1) * n_batch_shards)
+
+
+def _train_mesh(training_args: TrainingArguments, cfg: ModelConfig, dev: torch.device):
+    """The run's mesh, or None for one process. The default shape puts every
+    rank on "fsdp" (llark_tpu/train/train.py:230-232); a MoE config gets a
+    trailing expert axis of 1 (:233-237)."""
+    shape = tuple(training_args.mesh_shape)
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+        torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1)
+    if not (training_args.multihost or launched or int(np.prod(shape)) > 1):
+        return None
+    if training_args.multihost and "WORLD_SIZE" not in os.environ \
+            and not torch.distributed.is_initialized():
+        # JAX: jax.distributed.initialize() from the TPU runtime
+        raise ValueError("multihost training needs the torchrun environment (RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT) on every node")
+    init_process_group(dev.type, world_size=max(int(np.prod(shape)), 1))
+    if int(np.prod(shape)) <= 1:
+        shape = (1, torch.distributed.get_world_size(), 1)
+    if cfg.moe_num_experts > 0 and len(shape) == 3:
+        shape = shape + (1,)
+    mesh = make_mesh(shape, device=dev.type)
+    if torch.distributed.get_rank() != 0:  # INFO on rank 0 only
+        logging.getLogger("llark_tpu_torch").setLevel(logging.WARNING)
+    log.info("mesh %s over %d ranks (%s)", dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             torch.distributed.get_world_size(), comm.transport())
+    return mesh
+
+
+def _gathered_state(shard: Shard, state: TrainState) -> TrainState:
+    """The whole train state from every rank's shards (a collective)."""
+    trained = [p for p, t in iter_leaves(state.params) if t.requires_grad]
+    moments = {key: [gather_param(shard.mesh, m, shard.flat_specs[p])
+                     for p, m in zip(trained, state.opt_state[key])] for key in ("mu", "nu")}
+    return TrainState(gather_params(shard.mesh, state.params, shard.specs),
+                      {"count": state.opt_state["count"], **moments}, state.step)
+
+
 def train(
     model_args: ModelArguments,
     data_args: DataArguments,
@@ -254,6 +310,9 @@ def train(
     bundle = build_tokenizer(model_args, training_args)
     if cfg.vocab_size < len(bundle.tokenizer):
         cfg = dataclasses.replace(cfg, vocab_size=int(math.ceil(len(bundle.tokenizer) / 128) * 128))
+
+    mesh = _train_mesh(training_args, cfg, dev)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
 
     params = init_llark_params(cfg, seed=training_args.seed, device=dev)
     if os.path.isdir(model_args.model_name_or_path):
@@ -292,7 +351,8 @@ def train(
         log.info("quantized frozen base weights to int%d", training_args.bits)
     # written after every change of cfg (lora_*), so load_pretrained_model
     # rebuilds the architecture the run trains
-    save_model_metadata(training_args.output_dir, cfg, bundle)
+    if rank0:
+        save_model_metadata(training_args.output_dir, cfg, bundle)
 
     # Reference flag semantics (m2t/train.py:143-164): tune_mm_mlp_adapter
     # alone does NOT freeze the backbone -- the run of record sets tune=True
@@ -309,6 +369,11 @@ def train(
         )
     else:
         mask = trainable_mask(params)  # every tensor trains
+    global_cfg, shard = cfg, None
+    if mesh is not None:
+        # every rank built the same full tree: keep this rank's shards
+        cfg, params = shard_model(mesh, cfg, params)
+        shard = cfg.shard
     ParamPartition(params, mask)
     optimizer = make_optimizer(training_args)
     state = TrainState.create(params, optimizer)
@@ -331,17 +396,24 @@ def train(
         save_projector=model_args.tune_mm_mlp_adapter,
     )
     start_step = 0
+    local = None
+    if shard is not None:
+        def local(path, t):
+            return Sharding(mesh, shard.flat_specs[path]).local(t.to(dev), path)
     if training_args.resume:
-        restored = ckpt.restore(state)
+        restored = ckpt.restore(state, local=local)
         if restored is not None:
             state, _ = restored
             start_step = state.step
             log.info("resumed from checkpoint at step %d", start_step)
 
     accum = max(training_args.gradient_accumulation_steps, 1)
-    global_batch = training_args.per_device_train_batch_size * accum
+    global_batch = compute_global_batch(training_args, mesh)
+    # each batch shard reads its own split of the data shards
+    # (data/shards.py split_by_host), a local batch of these rows
+    local_batch = training_args.per_device_train_batch_size * accum
     data_module = make_data_module(
-        bundle, data_args, batch_size=global_batch,
+        bundle, data_args, batch_size=local_batch,
         max_seq_len=training_args.model_max_length, mm_hidden_size=cfg.mm_hidden_size,
         seed=training_args.seed,
     )
@@ -360,8 +432,11 @@ def train(
     elif "eval_iterator" in data_module and not training_args.eval_steps:
         log.warning("--eval_data_path given but --eval_steps is 0: no eval pass will run")
     eval_fn = make_eval_step(cfg, audio_patch_id=bundle.audio_patch_id, loss_chunk=loss_chunk)
-    # eval holds the micro-batch a training micro-step holds, no more
+    # eval holds the micro-batch a training micro-step holds, no more; on a
+    # mesh every rank reads the whole eval stream and takes its rows of each
+    # global micro-batch
     eval_micro = max(global_batch // accum, 1)
+    eval_rows = batch_sharding(mesh) if mesh is not None else (lambda x: x)
 
     def run_eval(params) -> float:
         total, tokens = 0.0, 0
@@ -370,7 +445,8 @@ def train(
             n = next(iter(arrays.values())).shape[0]
             for lo in range(0, n, eval_micro):
                 mb = {k: v[lo:lo + eval_micro] for k, v in arrays.items()}
-                m = eval_fn(params, put(_pad_eval_batch(mb, eval_micro)))
+                padded = _pad_eval_batch(mb, eval_micro)
+                m = eval_fn(params, put({k: eval_rows(v) for k, v in padded.items()}))
                 total += float(m["loss_sum"])
                 tokens += int(m["num_tokens"])
         return total / max(tokens, 1)
@@ -382,7 +458,19 @@ def train(
     guard = PreemptionGuard(training_args.checkpoint_on_preemption)
     preempted = False
     schedule = lr_schedule(training_args)
-    tracker = MetricsWriter(training_args.output_dir, training_args.report_to)
+    tracker = MetricsWriter(training_args.output_dir,
+                            training_args.report_to if rank0 else "none")
+
+    def save(step: int) -> None:
+        data_state = {"seed": training_args.seed, "batches_seen": step}
+        if shard is None:
+            ckpt.save(step, state, data_state)
+            return
+        whole = _gathered_state(shard, state)
+        if rank0:
+            ckpt.save(step, whole, data_state)
+        torch.distributed.barrier()
+
     try:
         for i, batch in enumerate(iterator):
             step_i = start_step + i
@@ -423,8 +511,7 @@ def train(
                 log.info("step %d eval_loss %.4f", step_i + 1, ev)
                 tracker.log(step_i + 1, eval_loss=ev)
             if (step_i + 1) % training_args.save_steps == 0:
-                ckpt.save(step_i + 1, state,
-                          {"seed": training_args.seed, "batches_seen": step_i + 1})
+                save(step_i + 1)
             if guard.triggered:
                 log.warning("preemption: checkpointing at step %d and exiting", step_i + 1)
                 preempted = True
@@ -437,23 +524,27 @@ def train(
 
     final_step = state.step
     if final_step > start_step and final_step not in ckpt.steps():
-        ckpt.save(final_step, state, {"seed": training_args.seed, "batches_seen": final_step})
+        save(final_step)
     # re-save metadata now that the tokenizer has seen the data: the lazy
     # WordTokenizer interns word ids during training
-    save_model_metadata(training_args.output_dir, cfg, bundle)
+    if rank0:
+        save_model_metadata(training_args.output_dir, global_cfg, bundle)
     if training_args.lora_enable:
-        save_lora_adapter(os.path.join(training_args.output_dir, "adapter"), cfg, state.params,
-                          extra_non_lora={"embed": state.params["embed"]})
-        log.info("saved LoRA adapter to %s/adapter", training_args.output_dir)
+        whole = state.params if shard is None else gather_params(mesh, state.params, shard.specs)
+        if rank0:
+            save_lora_adapter(os.path.join(training_args.output_dir, "adapter"), global_cfg,
+                              whole, extra_non_lora={"embed": whole["embed"]})
+            log.info("saved LoRA adapter to %s/adapter", training_args.output_dir)
     return {
         "final_step": final_step,
         "losses": history,
         "eval_losses": eval_history,
         "wall_s": time.time() - t_start,
-        "state": state,
-        "cfg": cfg,
+        "state": state,  # this rank's shards on a mesh
+        "cfg": cfg,  # with this rank's widths on a mesh
         "bundle": bundle,
         "preempted": preempted,
+        "mesh": mesh,
     }
 
 
@@ -485,8 +576,14 @@ def main(argv=None):
         h = logging.StreamHandler()
         h.setFormatter(logging.Formatter("[%(asctime)s %(name)s] %(message)s"))
         pkg_log.addHandler(h)
+    import argparse
+
+    dev = argparse.ArgumentParser(add_help=False)
+    dev.add_argument("--device", default="cuda",
+                     help="device of every rank: the GPU (default), or 'cpu' (gloo)")
+    device = dev.parse_known_args(argv)[0].device
     model_args, data_args, training_args = parse_args(argv)
-    train(model_args, data_args, training_args)
+    train(model_args, data_args, training_args, device=device)
 
 
 if __name__ == "__main__":

@@ -299,7 +299,8 @@ def test_clap_encoder_needs_a_device_or_the_cpu_asked_for():
         tenc.ClapEncoder.random_init()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tenc.ClapEncoder(th.HTSATConfig.tiny(), {})
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    # data-parallel extraction takes a DeviceMesh (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tenc.ClapEncoder.random_init(th.HTSATConfig.tiny(), device="cpu", mesh=object())
     a = tenc.ClapEncoder.random_init(th.HTSATConfig.tiny(), seed=3, device="cpu")
     b = tenc.ClapEncoder.random_init(th.HTSATConfig.tiny(), seed=3, device="cpu")

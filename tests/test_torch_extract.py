@@ -179,10 +179,23 @@ def test_run_clap_returns_what_it_did(tmp_path):
                  id="argv2-Queue A item 9"),
 ])
 def test_jukebox_and_data_parallel_name_their_queue_items(tmp_path, argv, item):
-    os.makedirs(tmp_path / "wavs")
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv[:1] + ["--input-dir", str(tmp_path / "wavs"), "--output-dir",
-                              str(tmp_path / "out"), "--device", "cpu", "--tiny"] + argv[1:])
+    # Queue A item 9 brought --data-parallel into the port: one process alone
+    # is a world of one, which writes what a run without the flag writes and
+    # takes down the process group it brought up (two ranks with a batch
+    # that does not divide them: tests/test_torch_parallel.py)
+    wavs = str(tmp_path / "wavs")
+    write_wavs(wavs, {"a.wav": 1.0, "b.wav": 0.5, "c.wav": 0.25})
+    got = {}
+    for flag in ([], ["--data-parallel"]):
+        out = str(tmp_path / ("dp" if flag else "plain"))
+        rest = [a for a in argv[1:] if a != "--data-parallel"]
+        tcli.main(argv[:1] + ["--input-dir", wavs, "--output-dir", out, "--device", "cpu",
+                              "--tiny", "--batch-size", "2"] + rest + flag)
+        got[bool(flag)] = {n: np.load(os.path.join(out, n)) for n in sorted(os.listdir(out))}
+    assert sorted(got[True]) == sorted(got[False]) == ["a.npy", "b.npy", "c.npy"]
+    for name, want in got[False].items():
+        np.testing.assert_array_equal(got[True][name], want)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.fixture(scope="module")

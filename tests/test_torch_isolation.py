@@ -71,7 +71,9 @@ def test_port_imports_without_jax_or_reference():
                 "instruct", "instruct.captioning", "instruct.data_validation",
                 "instruct.fetch_openai", "instruct.json_utils", "instruct.prompting",
                 "instruct.fewshot_examples", "instruct.fewshot_examples.mirqa",
-                "instruct.fewshot_examples.reasoning_qa", "keys", "notebook_lib"):
+                "instruct.fewshot_examples.reasoning_qa", "keys", "notebook_lib",
+                "parallel", "parallel.comm", "parallel.mesh", "parallel.serving",
+                "parallel.pipeline", "parallel.ring_attention", "parallel.launch"):
         assert f"llark_tpu_torch.{new}" in modules
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -142,3 +144,22 @@ def test_new_entry_points_refuse_to_run_on_cpu_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         harness.main(argv)
     harness.main(argv + ["--device", "cpu"])
+
+
+def test_parallel_names_resolve_without_jax():
+    """llark_tpu_torch.parallel exports the JAX package's names
+    (llark_tpu/parallel/__init__.py), resolved lazily, with JAX blocked."""
+    names = ["MeshAxes", "batch_sharding", "make_mesh", "param_partition_specs",
+             "param_shardings", "make_pipeline_layers_fn", "make_pp_mesh",
+             "make_pp_train_step", "pp_param_specs"]
+    code = _PROBE.format(blocked=BLOCKED, modules=["llark_tpu_torch.parallel"]) + (
+        "import llark_tpu_torch.parallel as par\n"
+        f"assert sorted(par.__all__) == {sorted(names)!r}\n"
+        f"assert all(callable(getattr(par, n)) for n in {names!r})\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -261,9 +261,9 @@ def test_out_of_slice_features_raise():
     assert tdecoder.compute_logits(tcfg, {"lm_head": wq}, hidden).dtype == torch.float32
     out = tdecoder._dense(hidden.requires_grad_(), wq, None, torch.float32)
     assert tuple(torch.autograd.grad(out.sum(), [hidden])[0].shape) == (1, 1, 64)
-    # the serving engine's mesh argument (speculation is held in
-    # tests/test_torch_server.py and tests/test_torch_speculative.py)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    # the serving engine's mesh argument takes a DeviceMesh (mesh serving is
+    # held in tests/test_torch_sharded_serving.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BatchedServer(tcfg, tparams, audio_patch_id=PATCH_ID, device="cpu", mesh=object())
 
 

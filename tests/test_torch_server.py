@@ -281,10 +281,11 @@ def test_stop_text_frees_slot():
 @pytest.mark.parametrize("arg", ["draft", "spec_mode", "mesh"])
 def test_speculation_and_mesh_raise(arg):
     # speculation below fp32 is refused without the opt-in, as the JAX
-    # package refuses it, and taken with it; mesh serving is a later slice
+    # package refuses it, and taken with it; mesh serving takes a DeviceMesh
+    # (held in tests/test_torch_sharded_serving.py)
     jcfg, jparams, tcfg, tparams, _, _, _ = _setup("llama_gqa")
     if arg == "mesh":
-        with pytest.raises(NotImplementedError, match="slice of the port"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             BatchedServer(tcfg, tparams, _patch_id("llama_gqa"), device="cpu", mesh=object())
         return
     tcfg, jcfg = (dataclasses.replace(c, dtype="bfloat16") for c in (tcfg, jcfg))

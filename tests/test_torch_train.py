@@ -447,9 +447,14 @@ def test_out_of_slice_options_raise(tmp_path, option):
         assert 0.0 <= record["moe_dropped_frac"] < 1.0 and record["moe_aux_loss"] > 0
         return
     elif option == "multihost":
+        # mesh training came into the port with parallelism: multihost
+        # needs a launcher's environment, a mesh of two a world of two
+        # (tests/test_torch_parallel.py trains on one)
         training_args.multihost = True
+        error, match = ValueError, "torchrun"
     elif option == "mesh":
         training_args.mesh_shape = (1, 2, 1)
+        error, match = ValueError, "process group of 2 ranks"
     else:
         _write_shards(str(tmp_path))
         model_args, data_args, training_args = _train_args(
