@@ -7,8 +7,9 @@
                                       # 22 (Mixture-of-Experts), 23 (native
                                       # I/O, annotation and preprocessing),
                                       # 24 (the annotator trainer, the CLAP
-                                      # text tower and the harness) or 25
-                                      # (parallelism)
+                                      # text tower and the harness), 25
+                                      # (parallelism) or 26 (the captured
+                                      # decode chunk)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -390,6 +391,29 @@ Phases, in order; any failure exits non-zero before the final line:
      `ShardedGenerator` on `make_mesh((1, 1, 1))` at 4 layers, tokens equal
      to `Generator`'s. Printed: each part's seconds, each rank's peak
      memory, beside the card's name and power limit.
+ 26. the captured decode chunk (`run_decode_program`, run after phase 16):
+     every decode chunk of `Generator` and of the engine's plain rounds is
+     a `DecodeProgram`, a CUDA graph replayed on the caches it was captured
+     on, and every phase above decodes through them; here each is held
+     against the same chunk issued eagerly through `decode_n` on the same
+     caches (`eager_chunks`), at Llama-2-7B width, 32 layers, weights from
+     the seed: (a) phase 4's first request, greedy, 32 new tokens (two
+     programs, chunks of 8 and 7): tokens equal; generate wall and decode
+     ms/token of both, and device time and idle share of a 9-token generate
+     under the profiler; (d) temperature 0.7, top-p 0.9: replayed and eager
+     chunks from generators seeded alike draw the same tokens, one program
+     called twice on the same inputs draws new ones and the generator
+     advances; (b) `BatchedServer` in phase 7's modes (a)-(d), 8 slots,
+     decode_chunk 8: a warm-up wave (the capture), then 8 requests x 32
+     tokens replayed and eager, streams equal, serve wall, tokens/s and peak
+     memory of each; then 8 more admitted and (e) one replayed round's
+     launches, as counted, equal to the program's captured counts and to 32
+     K2 launches a step in the mode's cache mode (plus 224 K5 / K6 a step
+     from quantized weights); a round's wall, device time, idle share and
+     tokens/s against the 8-slot floors of PERF.md (SLOT_FLOORS), replayed
+     and eager; (c) the same in mode (a) from int8 and from int4-rows
+     weights quantized on the card. Every figure beside the card's name and
+     power limit.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -443,6 +467,7 @@ from llark_tpu_torch.encoders.jukebox.encode import JukeboxEncoder
 from llark_tpu_torch.generate import (
     GenerationConfig,
     Generator,
+    decode_n,
     decode_step,
     paged_prefill_chunk,
     prefill,
@@ -797,7 +822,19 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows, params=None, 
             Generator(plain_cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048),
             contextlib.nullcontext, "plain attention path")
     else:
-        gen_p, plain, plain_name, rows = gen_k, plain_products, "plain products", rows[:2]
+        # a Generator of its own: its decode programs are captured at its
+        # first generate, inside plain_products, so they replay the plain
+        # products (gen_k's replay the kernels)
+        gen_p, plain, plain_name, rows = (
+            Generator(cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048),
+            plain_products, "plain products", rows[:2])
+    # one generate first, so that the timed ones replay captured programs
+    # (a program's first call warms up and captures it)
+    warm_ids = build_prompt_ids(rows[0]["prompt"], 256, bundle)
+    warm = np.full((1, int(np.ceil(len(warm_ids) / 128) * 128)), bundle.pad_token_id, np.int32)
+    warm[0, :len(warm_ids)] = warm_ids
+    gen_k.generate(warm, np.array([len(warm_ids)], np.int32), rows[0]["audio_encoding"][None],
+                   np.array([256], np.int32))
     agree, total, prefill_ms, decode_ms = 0, 0, [], []
     for row in rows:
         ids = build_prompt_ids(row["prompt"], 256, bundle)
@@ -856,6 +893,7 @@ def run_main_path(cfg: ModelConfig, bundle: TokenizerBundle, rows, params=None, 
     # with the events (a 32-token generate took it ~40 s)
     short = Generator(cfg, params, bundle.audio_patch_id,
                       GenerationConfig(max_new_tokens=8, stop_text=""), max_cache_len=2048)
+    short.generate(*args)  # captures its program
     _, short_s = seconds(lambda: short.generate(*args))
     busy_ms = profile_device(lambda: short.generate(*args), short_s * 1e3,
                              what="one generate (prefill + 7 decode steps)")
@@ -4035,6 +4073,7 @@ def moe_one_request(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, wq=
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         del cache
+    gen_k.generate(*args)  # captures its programs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = gen_k.generate(*args)[0]
@@ -4048,6 +4087,7 @@ def moe_one_request(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, wq=
         # with the events (32 tokens took it 40 s)
         short = Generator(cfg, params, bundle.audio_patch_id,
                           GenerationConfig(max_new_tokens=4, stop_text=""), max_cache_len=2048)
+        short.generate(*args)  # captures its program
         _, short_s = seconds(lambda: short.generate(*args))
         profile_device(lambda: short.generate(*args), short_s * 1e3,
                        what="one generate (prefill + 3 decode steps)")
@@ -5388,6 +5428,274 @@ def run_parallel_phase(directory: str, smi: str) -> None:
 
 
 # phases that `--phase N` runs alone: (label, fn(scratch directory, smi))
+# ---------------------------------------------------------------------------
+# phase 26: the captured decode chunk
+# ---------------------------------------------------------------------------
+
+# the 8-slot decode floors of PERF.md section 2: a step reads the weights
+# once for the 8 slots (bf16 13.5 GB, int8 6.9 GB, int4 rows 3.9 GB at 3.35
+# TB/s)
+SLOT_FLOORS = {"bf16": 2000, "int8": 3900, "int4": 6900}
+P26_NEW = 32  # new tokens a request, as phases 4 and 7
+
+
+@contextlib.contextmanager
+def eager_chunks(obj):
+    """Inside, the decode chunks of a Generator or a BatchedServer run
+    eagerly through `decode_n` on the same caches, every op issued from
+    Python as before the decode programs: the plain route that phase 26
+    holds the replays against. The package has no such switch."""
+    def chunk(n):
+        return lambda params, token, cache, pos, rng: decode_n(
+            obj.cfg, obj.gen_cfg, params, token, cache, pos, n, rng)
+
+    if isinstance(obj, BatchedServer):
+        saved = obj._programs
+        obj._programs = {n: chunk(n) for n in (obj.decode_chunk, obj.decode_chunk_drain) if n}
+    else:
+        obj._decode_chunk = lambda token, cache, pos, n, rng: chunk(n)(obj.params, token, cache,
+                                                                       pos, rng)
+    try:
+        yield
+    finally:
+        if isinstance(obj, BatchedServer):
+            obj._programs = saved
+        else:
+            del obj._decode_chunk
+
+
+def route(name: str, obj):
+    """The context of a route: "graph" (the package's replayed programs) or
+    "eager" (`eager_chunks`)."""
+    return contextlib.nullcontext() if name == "graph" else eager_chunks(obj)
+
+
+def launch_snapshot() -> dict:
+    return {"flash_attention_fwd": attn_ops.flash_attention_fwd.launches,
+            "int8_matmul": int8_ops.int8_matmul.launches,
+            "int4_matmul": int4_ops.int4_matmul.launches, "by_window": window_counts()}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """What ran between two launch_snapshot()s, in the form of a decode
+    program's `launches` plus its `launches_by_window` under "by_window"."""
+    out = {k: after[k] - before[k] for k in after if k != "by_window" and after[k] != before[k]}
+    windows = {w: n - before["by_window"].get(w, 0) for w, n in after["by_window"].items()
+               if n != before["by_window"].get(w, 0)}
+    if windows:
+        out["flash_decode_attention"] = sum(windows.values())
+        out["by_window"] = windows
+    return out
+
+
+def one_request_args(bundle: TokenizerBundle, row) -> tuple:
+    ids = build_prompt_ids(row["prompt"], 256, bundle)
+    input_ids = np.full((1, int(np.ceil(len(ids) / 128) * 128)), bundle.pad_token_id, np.int32)
+    input_ids[0, :len(ids)] = ids
+    return (input_ids, np.array([len(ids)], np.int32), row["audio_encoding"][None],
+            np.array([256], np.int32))
+
+
+def p26_generate(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: str) -> dict:
+    """(a): phase 4's first request through one Generator, greedy, 32 new
+    tokens (a prefill, then chunks of 8, 8, 8 and 7: two programs), its
+    chunks replayed and then the same generate with eager chunks on the
+    same cache: tokens equal; wall of each; device time and idle share of
+    a 9-token generate (prefill + one chunk of 8) under the profiler."""
+    args = one_request_args(bundle, rows[0])
+    exact = GenerationConfig(max_new_tokens=P26_NEW, stop_text="")
+    gen = Generator(cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048)
+    first, first_s = seconds(lambda: gen.generate(*args))
+    _, prefill_s = seconds(lambda: gen.prefill(*args))
+    short = Generator(cfg, params, bundle.audio_patch_id,
+                      GenerationConfig(max_new_tokens=9, stop_text=""), max_cache_len=2048)
+    short.generate(*args)  # captures its program
+    out = {}
+    for name in ("graph", "eager"):
+        with route(name, gen):
+            toks, wall = seconds(lambda: gen.generate(*args))
+        with route(name, short):
+            _, short_s = seconds(lambda: short.generate(*args))
+            busy = profile_device(lambda: short.generate(*args), short_s * 1e3,
+                                  what=f"  (a) {name}: one generate of 9 tokens (prefill + 8 "
+                                       f"steps) on {smi}")
+        decode_ms = (wall - prefill_s) * 1e3 / (P26_NEW - 1)
+        out[name] = dict(tokens=toks[0], wall_ms=wall * 1e3, decode_ms=decode_ms,
+                         short_wall_ms=short_s * 1e3, short_device_ms=busy)
+        print(f"  (a) {name} chunks: one request, prompt {args[1][0]} tokens, {P26_NEW} new: "
+              f"generate {wall * 1e3:.1f} ms wall, decode {decode_ms:.2f} ms/token "
+              f"({1e3 / decode_ms:.1f} tok/s; prefill {prefill_s * 1e3:.1f} ms), on {smi}")
+    check(sorted(gen._programs) == [(1, 7), (1, 8)],
+          f"(a): programs {sorted(gen._programs)}, not one per chunk length")
+    check(first[0] == out["graph"]["tokens"] == out["eager"]["tokens"],
+          "(a): the replayed chunks' tokens are not the eager chunks'")
+    print(f"  (a) greedy tokens of the replayed chunks equal the eager chunks' "
+          f"({len(first[0])}/{len(first[0])}); the first generate, which warms up and captures "
+          f"both programs, {first_s * 1e3:.1f} ms on {smi}")
+    return out
+
+
+def p26_sampled(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: str) -> None:
+    """(d): temperature 0.7, top-p 0.9: one generate through the replayed
+    chunks and one through eager chunks from generators seeded alike must
+    draw the same tokens (the graph's generator takes the caller's state
+    and hands the advanced state back); one program called twice on the same
+    inputs must draw new noise, and the caller's generator must advance."""
+    args = one_request_args(bundle, rows[1])
+    sampled = GenerationConfig(max_new_tokens=P26_NEW, temperature=0.7, top_p=0.9, stop_text="")
+    gen = Generator(cfg, params, bundle.audio_patch_id, sampled, max_cache_len=2048)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SEED + 26)
+
+    runs = [gen.generate(*args, rng=seeded())[0] for _ in range(2)]
+    with eager_chunks(gen):
+        runs.append(gen.generate(*args, rng=seeded())[0])
+    check(runs[0] == runs[1] == runs[2],
+          "(d): sampled tokens differ between the replays and the eager chunks of one seed")
+    program = gen._programs[(1, 8)]
+    rng = seeded()
+    token = torch.tensor([runs[0][0]], device="cuda")
+    pos = torch.tensor([int(args[1][0])], device="cuda")
+    draws, states = [], [rng.get_state()]
+    for _ in range(2):
+        draws.append(program(params, token, gen._caches[1], pos, rng)[0].clone().tolist())
+        states.append(rng.get_state())
+    check(draws[0] != draws[1], f"(d): two replays on the same inputs drew the same tokens {draws}")
+    check(not torch.equal(states[0], states[1]) and not torch.equal(states[1], states[2]),
+          "(d): the caller's generator did not advance over a replay")
+    print(f"  (d) sampled (T 0.7, top-p 0.9): the replayed chunks' {len(runs[0])} tokens equal the "
+          f"eager chunks' from one seed; one program on the same inputs twice drew {draws[0]} "
+          f"then {draws[1]}, the generator advancing each time, on {smi}")
+
+
+def p26_wave(cfg: ModelConfig, bundle: TokenizerBundle, seed: int, new: int) -> list:
+    reqs = serving_requests(cfg, bundle, 8, seed)
+    for r in reqs:
+        r.max_new_tokens = new
+    return reqs
+
+
+def p26_serve(mcfg: ModelConfig, bundle: TokenizerBundle, params, kw: dict, what: str,
+              own_mode: str, wq, smi: str, profile_eager: bool = False) -> dict:
+    """One BatchedServer in one mode: a wave of 8 two-token requests served
+    once to warm up and capture the chunk program (one round); the wave of
+    record (8 x 32 tokens) with replayed rounds, then with eager rounds,
+    streams equal; then 8 longer requests admitted: one round's launches
+    against the program's captured counts (e), a replayed round's wall,
+    device time and idle share, and an eager round's wall (its device time
+    and idle share too with `profile_eager`: the profiler's cost grows with
+    the eager round's ~10^4 host-issued ops)."""
+    gen_cfg = GenerationConfig(max_new_tokens=2 * P26_NEW, stop_text="")
+    server = BatchedServer(mcfg, params, bundle.audio_patch_id, gen_cfg, **kw)
+    _, warm_s = seconds(lambda: server.serve(p26_wave(mcfg, bundle, SEED + 2, 2)))
+    out = {"warm_s": warm_s}
+    for name in ("graph", "eager"):
+        reqs = p26_wave(mcfg, bundle, SEED, P26_NEW)
+        torch.cuda.reset_peak_memory_stats()
+        with route(name, server):
+            _, wall = seconds(lambda: server.serve(reqs))
+        check(all(r.done and r.error is None and len(r.tokens) == P26_NEW for r in reqs),
+              f"{what}: a request did not finish with {P26_NEW} tokens")
+        out[name] = dict(streams=[r.tokens for r in reqs], wall_s=wall,
+                         tokens_per_sec=server.stats(reqs)["tokens_per_sec"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(out["graph"]["streams"] == out["eager"]["streams"],
+          f"{what}: the replayed rounds' streams are not the eager rounds'")
+    # 8 requests of 64 tokens: live through the 5 rounds below
+    program = server._programs[server.decode_chunk]
+    server._queue = p26_wave(mcfg, bundle, SEED + 1, 2 * P26_NEW)
+    for r in server._queue:
+        r.submitted_at = time.time()
+    server._admit()
+    before = launch_snapshot()
+    server._decode_round()
+    torch.cuda.synchronize()
+    counted = launch_delta(before, launch_snapshot())
+    captured = dict(program.launches, by_window=program.launches_by_window)
+    steps = server.decode_chunk
+    want = {"flash_decode_attention": mcfg.num_layers * steps,
+            "by_window": {(own_mode, 1): mcfg.num_layers * steps}}
+    if wq:
+        want[f"{wq}_matmul"] = PRODUCTS_PER_FORWARD * steps
+    check(counted == captured == want,
+          f"{what}: one replayed round counted {counted}, captured {captured}, not {want}")
+    for name in ("graph", "eager"):
+        with route(name, server):
+            if name == "graph" or profile_eager:
+                wall_ms, busy_ms, top = profile_round(server)
+            else:
+                wall_ms = seconds(server._decode_round)[1] * 1e3
+                busy_ms, top = None, None
+        out[name].update(round_wall_ms=wall_ms, round_device_ms=busy_ms)
+        busy = "not profiled" if busy_ms is None else f"{busy_ms:.1f} ms"
+        idle = "not profiled" if busy_ms is None else f"{1 - busy_ms / wall_ms:.1%}"
+        print(f"  {what}, {name} rounds: serve 8 x {P26_NEW} in {out[name]['wall_s']:.3f} s, "
+              f"{out[name]['tokens_per_sec']:.1f} tokens/s, peak {out[name]['peak_gib']:.2f} GiB; "
+              f"a round of 8 slots x {steps}: wall {wall_ms:.1f} ms, device {busy}, idle {idle}, "
+              f"{8 * steps / wall_ms * 1e3:.1f} tokens/s against the ~{SLOT_FLOORS[wq or 'bf16']} "
+              f"floor; on {smi}")
+        if top is not None:
+            print(f"    {top}")
+    print(f"  {what}: streams of the replayed rounds equal the eager rounds' (8/8); one replayed "
+          f"round adds {counted}, its capture's counts; the warm-up wave, capture included, "
+          f"{warm_s:.2f} s; memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; on {smi}")
+    del server, program
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def run_decode_program(cfg: ModelConfig, bundle: TokenizerBundle, rows, smi: str) -> dict:
+    """Phase 26: the captured decode chunk at Llama-2-7B width, 32 layers,
+    weights from the seed: (a) one request through the Generator, (d)
+    sampling, (b) the serving engine in modes (a)-(d) of phase 7, (c) mode
+    (a) from int8 and from int4 weights, each replayed against eager chunks
+    (`eager_chunks`); (e) one round's launches against its capture's."""
+    print(f"phase 26 on {smi}: decode chunks as CUDA graphs (generate.DecodeProgram), replays "
+          f"against eager decode_n chunks on the same caches")
+    figures, marks = {}, [time.perf_counter()]
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    figures["generate"] = p26_generate(cfg, bundle, rows, params, smi)
+    marks.append(time.perf_counter())
+    p26_sampled(cfg, bundle, rows, params, smi)
+    marks.append(time.perf_counter())
+    base = dict(SERVING_BASE, tokenizer=bundle.tokenizer)
+    for label, name, own_mode, quant_kv, extra in SERVER_MODES:
+        mcfg = dataclasses.replace(cfg, kv_cache_quant=quant_kv)
+        kw = dict(base, **extra)
+        if kw.pop("prefix", False):
+            kw["shared_prefix_ids"] = _common_prompt_prefix(
+                [r.input_ids for r in serving_requests(cfg, bundle, 8, SEED)],
+                bundle.audio_patch_id, min_len=max(8, kw["kv_block_size"]))
+        # the eager round profiled in the run of record's mode alone
+        figures[label] = p26_serve(mcfg, bundle, params, kw, f"({label}), bf16 weights, {name}",
+                                   own_mode, None, smi, profile_eager=label == "a")
+    del params
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    label, name, own_mode, quant_kv, extra = SERVER_MODES[0]
+    for wq in ("int8", "int4"):
+        params = init_llark_params(cfg, seed=SEED, device="cuda")
+        params = (quant.quantize_params_int8_incremental(cfg, params) if wq == "int8" else
+                  quant.quantize_params_int4_incremental(cfg, params, group=WQ_GROUP, layout="rows"))
+        figures[f"{label} {wq}"] = p26_serve(
+            dataclasses.replace(cfg, kv_cache_quant=quant_kv), bundle, params,
+            dict(base, **extra), f"({label}), {wq} weights, {name}", own_mode, wq, smi)
+        del params
+        torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    parts = ", ".join(f"{p} {b - a:.1f}" for p, a, b in zip("adbc", marks, marks[1:]))
+    print(f"  phase 26 parts' seconds: {parts} ({smi})")
+    return figures
+
+
+def run_decode_program_alone(directory: str, smi: str) -> None:
+    cfg = ModelConfig.llama2_7b(use_flash_decode=True, param_dtype="bfloat16")
+    bundle, rows, _ = requests(cfg)
+    run_decode_program(cfg, bundle, rows, smi)
+
+
 ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          20: ("CLAP path", run_clap_path),
          21: ("Jukebox path", run_jukebox_path),
@@ -5395,7 +5703,8 @@ ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          23: ("native I/O, annotation and preprocessing", run_native_phase),
          24: ("the annotator trainer, the CLAP text tower and the harness",
               run_annotator_text_phase),
-         25: ("parallelism: two ranks sharing the card, one NCCL rank", run_parallel_phase)}
+         25: ("parallelism: two ranks sharing the card, one NCCL rank", run_parallel_phase),
+         26: ("the captured decode chunk", run_decode_program_alone)}
 
 
 def set_up_card() -> tuple:
@@ -5461,6 +5770,8 @@ def main(argv=None) -> int:
     }
     check_int4_cols(cfg)
     print(f"phases 1-7, 13-16: {time.perf_counter() - t_start:.1f} s since the card was found")
+    _, phase_s = seconds(lambda: run_decode_program(cfg, bundle, rows, smi))
+    print(f"phase 26 (the captured decode chunk) on {smi}: {phase_s:.1f} s")
 
     bwd_err = check_flash_bwd(gen)
     check_fp32_kernels(gen)

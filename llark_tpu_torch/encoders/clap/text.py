@@ -44,6 +44,7 @@ from llark_tpu_torch.interop.hf import load_hf_state_dict, write_safetensors
 
 Device = Union[str, torch.device]
 StateDict = Dict[str, torch.Tensor]
+Params = StateDict  # the reference's name for the tower's weights (llark_tpu/encoders/clap/text.py:33)
 
 # transformers.ClapTextConfig's defaults of the fields text_config_from_hf
 # reads: what a config.json that leaves a field out means

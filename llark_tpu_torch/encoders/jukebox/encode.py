@@ -38,6 +38,10 @@ T_ACTS = 8192
 ACTS_SAMPLE_RATE = T_ACTS / JUKEBOX_SAMPLE_SECONDS  # 344.53125 Hz
 
 
+class EmptyFileError(ValueError):
+    """An audio file with no samples (llark_tpu/encoders/jukebox/encode.py:40)."""
+
+
 def prepare_audio(audio: np.ndarray) -> np.ndarray:
     """Mono-mean, peak-normalize, flatten (reference :29-45)."""
     audio = np.asarray(audio, np.float32)

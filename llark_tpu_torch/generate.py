@@ -4,9 +4,13 @@ llark_tpu/generate.py).
   * prefill: one multimodal forward over the right-padded prompt that
     fills an empty KV cache (the flash-prefill kernel attends S x S over
     the in-flight K/V) and returns the next-token logits of each row;
-  * decode: `decode_chunk` single-token steps run back to back on the
-    device, sampling on the device from an explicit torch.Generator; the
-    host reads the chunk's [B, n] tokens once, not once per token;
+  * decode: `decode_chunk` single-token steps as one program
+    (`DecodeProgram`, the reference's `make_multistep_decode_fn`): on the
+    card a CUDA graph captured once and replayed for every chunk, sampling
+    on the device from an explicit torch.Generator; the host reads the
+    chunk's [B, n] tokens once, not once per token. `decode_n` is the same
+    chunk issued op by op from Python: the CPU route, and the plain version
+    a replay is held against;
   * stopping: EOS, max length, and the reference's `###` keyword check on
     the host over the decoded ids (reference: m2t/generate.py:18-44).
 
@@ -18,7 +22,8 @@ attention.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+import functools
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,8 +31,13 @@ import torch
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.models import decoder as decoder_lib
-from llark_tpu_torch.models.decoder import Params, init_kv_cache
+from llark_tpu_torch.models.decoder import CACHE_TENSORS, Params, init_kv_cache
 from llark_tpu_torch.models.fusion import build_inputs_embeds
+from llark_tpu_torch.ops import int8_matmul as int8_ops
+from llark_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
+from llark_tpu_torch.ops.decode_attention import flash_decode_attention
+from llark_tpu_torch.ops.int4_matmul import int4_matmul
+from llark_tpu_torch.ops.int8_matmul import int8_matmul
 
 
 @dataclasses.dataclass
@@ -80,14 +90,28 @@ def prefill(
     audio_frame_counts: torch.Tensor,  # [B]
     audio_patch_id: int,
     max_cache_len: int,
+    cache: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Fill an empty KV cache with the prompt -> (next-token logits [B, V],
-    cache) (llark_tpu/generate.py:66-96)."""
+    cache) (llark_tpu/generate.py:66-96). With `cache` (a dense cache of B
+    rows and max_cache_len positions) the prompt is written into its
+    tensors from position 0, in place, and nothing is allocated: a captured
+    decode program replays on the tensors it was captured on. What an
+    earlier prompt left past this one's live lengths is masked out of
+    every attention (a zero weight; the kernels do not read it)."""
     b, s = input_ids.shape
     inputs_embeds = build_inputs_embeds(
         cfg, params, input_ids, audio_encodings, audio_patch_id, audio_frame_counts
     )
-    cache = init_kv_cache(cfg, b, max_cache_len, device=input_ids.device)
+    if cache is None:
+        cache = init_kv_cache(cfg, b, max_cache_len, device=input_ids.device)
+    else:
+        if tuple(cache["k"].shape[1::2]) != (b, max_cache_len):
+            raise ValueError(
+                f"a cache of {tuple(cache['k'].shape)} cannot take {b} rows of "
+                f"{max_cache_len} positions"
+            )
+        cache = dict(cache, index=0)
     logits, cache = decoder_lib.decoder_forward(
         cfg, params, inputs_embeds=inputs_embeds, seq_lengths=prompt_lengths,
         kv_cache=cache, prefill_from_empty=True,
@@ -240,8 +264,237 @@ def decode_n(
     return torch.stack(toks, dim=1), logits, cache
 
 
+def make_decode_fn(cfg: ModelConfig):
+    """The single-token decode step (llark_tpu/generate.py:243-262):
+    (params, token [B], cache, write_positions [B]) -> (logits [B, V],
+    cache). One step is not captured: the decode loops run chunks
+    (`make_multistep_decode_fn`); speculation and beams call it eagerly."""
+    return functools.partial(decode_step, cfg)
+
+
+# The kernel wrappers' launch counters. A replay launches what its capture
+# recorded without running the wrappers, so a program adds its captured
+# counts to them at every call.
+_COUNTED = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention, int8_matmul,
+            int4_matmul)
+
+
+def _launch_counts() -> Tuple[Tuple[int, ...], Dict]:
+    return (tuple(fn.launches for fn in _COUNTED),
+            dict(flash_decode_attention.launches_by_window))
+
+
+def _count_difference(after, before) -> Tuple[Tuple[int, ...], Dict]:
+    totals = tuple(a - b for a, b in zip(after[0], before[0]))
+    windows = {key: n - before[1].get(key, 0) for key, n in after[1].items()}
+    return totals, {key: n for key, n in windows.items() if n}
+
+
+def _set_launch_counts(counts) -> None:
+    for fn, n in zip(_COUNTED, counts[0]):
+        fn.launches = n
+    windows = flash_decode_attention.launches_by_window
+    windows.clear()
+    windows.update(counts[1])
+
+
+class GraphPool:
+    """What the decode programs of one Generator or server share on the
+    card: one memory pool for their graphs (`torch.cuda.graph_pool_handle`)
+    and one stream that every program warms up and is captured on, so that
+    the quantized products' split workspace, kept per (device, stream)
+    (`ops/int8_matmul.py` `_workspace`), exists before any capture begins.
+
+    A pool's graphs reuse each other's intermediate memory: a program's
+    outputs are valid until the next call of a program of the same pool."""
+
+    def __init__(self, device: Union[str, torch.device]):
+        self.stream = torch.cuda.Stream(device)
+        self.handle = torch.cuda.graph_pool_handle()
+
+
+class DecodeProgram:
+    """`steps` decode steps with sampling as one program (the reference's
+    `make_multistep_decode_fn`, llark_tpu/generate.py:265-287): called as
+    (params, token [B], cache, write_positions [B], generator) -> (tokens
+    [B, steps], last logits [B, V], cache), like `decode_n`.
+
+    The program binds at its first call to the params tree, the batch size
+    and the cache tensors (k, v, the int8 scales, a paged cache's block
+    tables): a later call must pass the same ones, which hold what earlier
+    writes left (prefill, admission and table refreshes write them in
+    place), or it raises. A call copies the token and the write positions
+    into the program's static buffers and runs the chunk; the returned
+    cache is the given one with its host-side index advanced by `steps`, as
+    from `decode_n`, and the returned tokens and logits are the program's
+    own buffers, valid until its next call (the caller reads them first).
+
+    On CUDA tensors the chunk is a CUDA graph, captured at the first call
+    and replayed by it and every later one; a capture that fails raises.
+    Before the capture the chunk runs once eagerly on the pool's stream
+    (with the generator's state restored after), which builds the kernels,
+    loads their libraries and allocates every lazily kept buffer outside
+    the graph; the capture then allocates from the pool alone. The kernel
+    wrappers' launch counters are set back after that warm-up and the
+    capture, and every call adds the launches the capture recorded
+    (`launches`, by wrapper; `launches_by_window`, the flash-decode
+    kernel's by (cache mode, Sq)). At temperature > 0 the graph draws from
+    a generator of its own, registered with it: a call sets its state from
+    the caller's generator and hands the advanced state back, so replays
+    draw new noise and the caller's generator advances as under `decode_n`.
+
+    On CPU tensors a call runs `decode_n` on the same buffers: the CPU
+    tests exercise the binding and the buffers."""
+
+    def __init__(self, cfg: ModelConfig, gen_cfg: GenerationConfig, steps: int,
+                 pool: Optional[GraphPool] = None):
+        self.cfg, self.gen_cfg, self.steps = cfg, gen_cfg, int(steps)
+        self.pool = pool
+        self._params = None
+        self._cache: Optional[Dict[str, torch.Tensor]] = None  # the bound cache tensors
+        self._token = self._pos = None  # static inputs [B]
+        self.tokens = self.logits = None  # outputs: [B, steps], [B, V]
+        self._graph = None
+        self._generator = None  # the graph's own, at temperature > 0
+        self._workspace = None  # the products' split workspace the graph writes
+        self._captured: Optional[Tuple[Tuple[int, ...], Dict]] = None  # launches a call adds
+        self.calls = 0
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """The launches one call adds on the card, by kernel wrapper (those
+        it launches); empty before the capture and on the CPU."""
+        if self._captured is None:
+            return {}
+        return {fn.__name__: n for fn, n in zip(_COUNTED, self._captured[0]) if n}
+
+    @property
+    def launches_by_window(self) -> Dict[Tuple[str, int], int]:
+        """The flash-decode launches one call adds, by (cache mode, Sq)."""
+        return {} if self._captured is None else dict(self._captured[1])
+
+    def _bind(self, params: Params, token: torch.Tensor, cache: Params) -> None:
+        tensors = {k: cache[k] for k in CACHE_TENSORS + ("block_tables",) if k in cache}
+        if self._cache is None:
+            self._params, self._cache = params, tensors
+            self._token = torch.zeros(token.shape, dtype=torch.int64, device=token.device)
+            self._pos = torch.zeros(token.shape, dtype=torch.int64, device=token.device)
+            return
+        if params is not self._params:
+            raise ValueError("this decode program was bound to another params tree")
+        if tuple(token.shape) != tuple(self._token.shape):
+            raise ValueError(
+                f"this decode program runs batch {self._token.shape[0]}, got token "
+                f"{tuple(token.shape)}"
+            )
+        if tensors.keys() != self._cache.keys() or any(
+                tensors[k] is not self._cache[k] for k in tensors):
+            raise ValueError(
+                "this decode program replays on the cache tensors it was bound to; write "
+                "new contents into them in place instead of passing new tensors"
+            )
+
+    @torch.inference_mode()
+    def __call__(self, params: Params, token: torch.Tensor, cache: Params,
+                 write_positions: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+        self._bind(params, token, cache)
+        self._token.copy_(token)
+        self._pos.copy_(write_positions)
+        if self._token.device.type == "cpu":
+            self.tokens, self.logits, _ = decode_n(
+                self.cfg, self.gen_cfg, params, self._token, cache, self._pos, self.steps,
+                generator,
+            )
+        else:
+            self._replay(generator)
+        self.calls += 1
+        return self.tokens, self.logits, dict(cache, index=cache["index"] + self.steps)
+
+    def _chunk(self, generator) -> None:
+        self.tokens, self.logits, _ = decode_n(
+            self.cfg, self.gen_cfg, self._params, self._token, dict(self._cache, index=0),
+            self._pos, self.steps, generator,
+        )
+
+    def _replay(self, generator: Optional[torch.Generator]) -> None:
+        sampled = self.gen_cfg.temperature > 0.0
+        if sampled and generator is None:
+            raise ValueError("a sampling decode program draws from an explicit generator")
+        if self._graph is None:
+            self._capture(generator if sampled else None)
+        if sampled:
+            self._generator.set_state(generator.get_state())
+        self._graph.replay()
+        if sampled:
+            generator.set_state(self._generator.get_state())
+        totals, windows = self._captured
+        for fn, n in zip(_COUNTED, totals):
+            fn.launches += n
+        by_window = flash_decode_attention.launches_by_window
+        for key, n in windows.items():
+            by_window[key] = by_window.get(key, 0) + n
+
+    def _capture(self, generator: Optional[torch.Generator]) -> None:
+        dev = self._token.device
+        pool = self.pool if self.pool is not None else GraphPool(dev)
+        self.pool = pool
+        if generator is not None:
+            self._generator = torch.Generator(device=dev)
+            self._generator.set_state(generator.get_state())
+        counts = _launch_counts()
+        try:
+            # the warm-up: the eager chunk on the capture stream, then the graph
+            pool.stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(pool.stream):
+                self._chunk(self._generator)
+            torch.cuda.current_stream(dev).wait_stream(pool.stream)
+            warm = _launch_counts()
+            key = (dev.index, pool.stream.cuda_stream)
+            # kept: a later warm-up on this stream may replace a workspace it
+            # outgrows, and the graph writes this one
+            self._workspace = int8_ops._workspaces.get(key)
+            if self._generator is not None:
+                self._generator.set_state(generator.get_state())
+            graph = torch.cuda.CUDAGraph()
+            if self._generator is not None:
+                graph.register_generator_state(self._generator)
+            with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
+                self._chunk(self._generator)
+            captured = _launch_counts()
+        finally:
+            _set_launch_counts(counts)
+        if int8_ops._workspaces.get(key) is not self._workspace:
+            raise RuntimeError("the quantized products allocated a workspace inside the capture")
+        self._captured = _count_difference(captured, warm)
+        if self._captured != _count_difference(warm, counts):
+            raise RuntimeError(
+                f"the capture launched {self._captured}, the warm-up "
+                f"{_count_difference(warm, counts)}: the chunk depends on its data"
+            )
+        self._graph = graph
+
+
+def make_multistep_decode_fn(cfg: ModelConfig, gen_cfg: GenerationConfig, steps: int,
+                             pool: Optional[GraphPool] = None) -> DecodeProgram:
+    """N-token decode as one program (llark_tpu/generate.py:265-287): one
+    CUDA graph per chunk on the card instead of every op of every step
+    issued from Python. See `DecodeProgram`; programs that share `pool`
+    share their graphs' memory and capture stream."""
+    return DecodeProgram(cfg, gen_cfg, steps, pool)
+
+
 class Generator:
-    """Prefill + chunked decode over one model on one device."""
+    """Prefill + chunked decode over one model on one device.
+
+    Decode chunks are `DecodeProgram`s, one per (batch size, chunk length)
+    as the reference compiles one per chunk length
+    (llark_tpu/generate.py:310-315); a tail chunk shorter than
+    `decode_chunk` gets its own. A program replays on the cache it was
+    captured on, so the generator keeps one cache per batch size, of
+    `max_cache_len` positions, and every prefill of that batch size writes
+    into it in place: the cache `prefill` returns is the generator's own,
+    overwritten by its next prefill or generate."""
 
     def __init__(
         self,
@@ -262,9 +515,20 @@ class Generator:
         self.gen_cfg = gen_cfg or GenerationConfig()
         self.audio_patch_id = audio_patch_id
         self.max_cache_len = max_cache_len
+        self._caches: Dict[int, Params] = {}  # batch size -> its cache
+        self._programs: Dict[Tuple[int, int], DecodeProgram] = {}  # (batch, chunk length)
+        self._pool = GraphPool(self.device) if self.device.type == "cuda" else None
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _decode_chunk(self, token: torch.Tensor, cache: Params, positions: torch.Tensor,
+                      n: int, rng: torch.Generator):
+        """One chunk of n steps through the (batch, n) program."""
+        key = (token.shape[0], n)
+        if key not in self._programs:
+            self._programs[key] = make_multistep_decode_fn(self.cfg, self.gen_cfg, n, self._pool)
+        return self._programs[key](self.params, token, cache, positions, rng)
 
     @torch.inference_mode()
     def prefill(
@@ -281,14 +545,16 @@ class Generator:
             audio_frame_counts = np.zeros((b,), np.int32)
         if audio_frame_counts is None:
             audio_frame_counts = np.full((b,), np.shape(audio_encodings)[1], np.int32)
-        return prefill(
+        logits, cache = prefill(
             self.cfg, self.params,
             self._tensor(input_ids, torch.int64),
             self._tensor(prompt_lengths, torch.int32),
             self._tensor(audio_encodings, torch.float32),
             self._tensor(audio_frame_counts, torch.int32),
-            self.audio_patch_id, self.max_cache_len,
+            self.audio_patch_id, self.max_cache_len, self._caches.get(b),
         )
+        self._caches.setdefault(b, cache)
+        return logits, cache
 
     @torch.inference_mode()
     def generate(
@@ -334,9 +600,8 @@ class Generator:
         chunk = max(1, int(gen_cfg.decode_chunk))
         while emitted < gen_cfg.max_new_tokens and not self._finished(done):
             n = min(chunk, gen_cfg.max_new_tokens - emitted)
-            toks, _last_logits, cache = decode_n(
-                self.cfg, gen_cfg, self.params, token, cache,
-                lengths + (emitted - 1), n, rng,
+            toks, _last_logits, cache = self._decode_chunk(
+                token, cache, lengths + (emitted - 1), n, rng
             )
             tok_np = toks.cpu().numpy()  # [B, n]: the chunk's only host read
             for j in range(n):

@@ -10,7 +10,10 @@ persistent batched KV cache of `max_batch` slots on the card and:
     the rows' pool blocks);
   * decodes all slots together in chunks of `decode_chunk` steps (per-row
     write positions, so rows at different depths coexist in one batch),
-    sampling on the card from one seeded torch.Generator;
+    sampling on the card from one seeded torch.Generator; each round is
+    one `DecodeProgram` (a CUDA graph on the card), one for
+    `decode_chunk` and one for `decode_chunk_drain`, like the reference's
+    two compiled rounds (llark_tpu/inference/server.py:339-342,388-393);
   * retires rows on max_new_tokens / stop-text / EOS and immediately
     reuses their slots for queued requests.
 
@@ -31,7 +34,10 @@ The caches are written in place, so where the JAX engine hands donated
 buffers between its programs, this one shares tensors: the persistent
 cache, a paged admission's cache dict and the decode rounds interleaved
 with chunked admission all see the same pool tensors, and each write lands
-before the next forward reads it.
+before the next forward reads it. The decode programs replay on the
+persistent cache's tensors, so they are allocated once and only ever
+written in place, the block tables too (`_refresh_tables`). Admission,
+prefill and the speculative rounds run eagerly.
 
 Mesh serving (`mesh`, a `parallel/mesh.py` make_mesh mesh): every rank
 builds the same server from the same full trees, keeps its shards
@@ -39,6 +45,8 @@ builds the same server from the same full trees, keeps its shards
 too) and runs the same engine loop on the same requests; the decoder sums
 over "tensor" after wo / w_down and gathers the logits, so every rank
 samples the same tokens, and its KV cache holds the rank's Hkv/t heads.
+Its decode rounds run eagerly (`decode_n`): two ranks on one card talk
+over gloo's host-staged collectives, which a CUDA graph cannot hold.
 The kernels run on each rank's local heads and shards. The engine's two
 wall-clock decisions (admit_max_wait_s, admit_reorder_age_s) are taken on
 rank 0 and broadcast, so the ranks never diverge; serve() returns the
@@ -59,10 +67,13 @@ import torch
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
 from llark_tpu_torch.generate import (
+    DecodeProgram,
     GenerationConfig,
     Generator,
+    GraphPool,
     _sample,
     decode_n,
+    make_multistep_decode_fn,
     paged_prefill_chunk,
     prefill,
     prefill_chunk,
@@ -420,6 +431,9 @@ class BatchedServer:
         self._queue: List[Request] = []
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(seed)
+        # plain decode rounds: chunk length -> program, sharing one pool
+        self._programs: Dict[int, DecodeProgram] = {}
+        self._pool = GraphPool(self.device) if self.device.type == "cuda" and mesh is None else None
         # exclusive-driver guard: an online engine claims the server; serve()
         # refuses to run concurrently (two drivers would race the cache)
         self.driver = None
@@ -561,9 +575,12 @@ class BatchedServer:
         cap = self.max_cache_len - self._prefix_len
         return -(-min(span, cap) // self.kv_block_size)
 
+    @torch.inference_mode()
     def _refresh_tables(self) -> None:
+        """Copy the host tables into the cache's table tensor, in place: the
+        decode programs read the tensor they were captured on."""
         if self.paged and self._tables_dirty and self._cache is not None:
-            self._cache["block_tables"] = self._tensor(self._host_tables, torch.int32)
+            self._cache["block_tables"].copy_(torch.from_numpy(self._host_tables))
             self._tables_dirty = False
 
     def _bucket(self, n: int) -> int:
@@ -906,10 +923,17 @@ class BatchedServer:
         for i in active:
             token[i] = self._tokens_in_flight[i]
             pos[i] = self._write_pos[i]
-        toks, _, self._cache = decode_n(
-            self.cfg, self.gen_cfg, self.params, self._tensor(token, torch.int64),
-            self._cache, self._tensor(pos, torch.int64), chunk, self._rng,
-        )
+        token, pos = self._tensor(token, torch.int64), self._tensor(pos, torch.int64)
+        if self.mesh is not None:
+            toks, _, self._cache = decode_n(
+                self.cfg, self.gen_cfg, self.params, token, self._cache, pos, chunk, self._rng,
+            )
+        else:
+            if chunk not in self._programs:
+                self._programs[chunk] = make_multistep_decode_fn(
+                    self.cfg, self.gen_cfg, chunk, self._pool)
+            toks, _, self._cache = self._programs[chunk](
+                self.params, token, self._cache, pos, self._rng)
         toks = toks.cpu().numpy()  # [B, chunk]: the round's only host read
         for i in active:
             for j in range(chunk):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from llark_tpu_torch.config import ModelConfig
-from llark_tpu_torch.generate import GenerationConfig, Generator
+from llark_tpu_torch.generate import GenerationConfig, Generator, decode_n
 from llark_tpu_torch.parallel import comm
 from llark_tpu_torch.parallel.mesh import AXES, P, batch_shard_index, batch_sharding, shard_model
 
@@ -49,6 +49,11 @@ class _RankGenerator(Generator):
     def _finished(self, done: np.ndarray) -> bool:
         left = torch.tensor([0 if done.all() else 1], dtype=torch.int64, device=self.device)
         return int(self.cfg.shard.batch_sum(left)) == 0
+
+    def _decode_chunk(self, token, cache, positions, n, rng):
+        # eager: the chunk's collectives may go through gloo's host staging,
+        # which a CUDA graph cannot hold
+        return decode_n(self.cfg, self.gen_cfg, self.params, token, cache, positions, n, rng)
 
 
 class ShardedGenerator:

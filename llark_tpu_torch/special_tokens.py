@@ -14,3 +14,9 @@ DEFAULT_AUDIO_TOKEN = "<audio>"
 DEFAULT_AUDIO_PATCH_TOKEN = "<audio_patch>"
 DEFAULT_AUDIO_START_TOKEN = "<audio_start>"
 DEFAULT_AUDIO_END_TOKEN = "<audio_end>"
+
+AUDIO_SPECIAL_TOKENS = (
+    DEFAULT_AUDIO_PATCH_TOKEN,
+    DEFAULT_AUDIO_START_TOKEN,
+    DEFAULT_AUDIO_END_TOKEN,
+)

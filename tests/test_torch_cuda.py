@@ -1489,3 +1489,203 @@ def test_trainer_steps_with_tf32_products_fall_outside_the_first_step_gate(dev):
         loss, grad = _first_step_gaps(_first_step(net, dev, tf32=True),
                                       _first_step(net, "cpu", dtype=torch.float64))
         assert loss > TRAIN_LOSS_TOL or grad > TRAIN_GRAD_TOL, net
+
+
+# -- the captured decode chunk (generate.DecodeProgram) ----------------------
+#
+# A replay runs the kernels its capture recorded on the buffers it captured,
+# so on the same inputs it must give eager `decode_n`'s tokens, logits and
+# cache writes bit for bit, in every cache mode and from bf16, int8 and int4
+# weights; each call must add its captured launches to the counters.
+
+PROGRAM_WIDTHS = dict(hidden_size=256, intermediate_size=512, num_heads=2, num_kv_heads=2,
+                      num_layers=2, vocab_size=512, mm_hidden_size=16, dtype="bfloat16",
+                      param_dtype="bfloat16", use_flash_decode=True)
+PROGRAM_ROWS, PROGRAM_LEN, PROGRAM_BLOCK = 4, 256, 16
+
+
+def _program_case(dev, mode, weights="bf16"):
+    """(cfg, params, cache, token, positions): a 2-layer bf16 decoder of
+    head_dim 128, its weights bf16 or quantized, and a random cache of 4
+    rows in `mode` (dense or paged, bf16 or int8) with live lengths 9-200."""
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.models.fusion import init_llark_params
+    from llark_tpu_torch.models.quant import (quantize_params_int4_incremental,
+                                              quantize_params_int8_incremental)
+
+    cfg = ModelConfig.tiny("llama", kv_cache_quant="int8" in mode, **PROGRAM_WIDTHS)
+    params = init_llark_params(cfg, seed=0, device=dev)
+    if weights == "int8":
+        params = quantize_params_int8_incremental(cfg, params)
+    elif weights == "int4":
+        params = quantize_params_int4_incremental(cfg, params, group=128, layout="rows")
+    rng = np.random.RandomState(5)
+    paged = mode.startswith("paged")
+    n_blocks = PROGRAM_ROWS * (1 + PROGRAM_LEN // PROGRAM_BLOCK)
+    lead = ((cfg.num_layers, n_blocks, cfg.num_kv_heads, PROGRAM_BLOCK) if paged
+            else (cfg.num_layers, PROGRAM_ROWS, cfg.num_kv_heads, PROGRAM_LEN))
+    cache = {"index": 0}
+    for key in ("k", "v"):
+        x = torch.from_numpy(rng.randn(*lead, cfg.head_dim).astype(np.float32)).to(dev)
+        if cfg.kv_cache_quant:
+            cache[key], cache[key + "_scale"] = _quantize_kv(x)
+        else:
+            cache[key] = x.to(torch.bfloat16)
+    if paged:
+        real = PROGRAM_ROWS + rng.permutation(n_blocks - PROGRAM_ROWS)
+        cache["block_tables"] = torch.from_numpy(
+            real.reshape(PROGRAM_ROWS, -1).astype(np.int32)).to(dev)
+    token = torch.from_numpy(rng.randint(4, 500, PROGRAM_ROWS)).to(dev)
+    positions = torch.tensor([9, 40, 128, 200], device=dev)
+    return cfg, params, cache, token, positions
+
+
+def _cache_copy(cache):
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("mode,weights", [
+    ("dense_bf16", "bf16"), ("dense_int8", "bf16"), ("paged_bf16", "bf16"), ("paged_int8", "bf16"),
+    ("dense_bf16", "int8"), ("paged_int8", "int8"), ("paged_int8", "int4")])
+def test_decode_program_replays_equal_eager_decode_n(dev, mode, weights):
+    from llark_tpu_torch.generate import GenerationConfig, decode_n, make_multistep_decode_fn
+
+    cfg, params, cache, token, pos = _program_case(dev, mode, weights)
+    ref = _cache_copy(cache)
+    gcfg = GenerationConfig(stop_text="")
+    program = make_multistep_decode_fn(cfg, gcfg, 4)
+    tok_ref = token
+    with torch.inference_mode():
+        for i in range(3):  # the first call captures and replays
+            toks, logits, cache = program(params, token, cache, pos + 4 * i, None)
+            want, want_logits, ref = decode_n(cfg, gcfg, params, tok_ref, ref, pos + 4 * i, 4, None)
+            assert torch.equal(toks, want) and torch.equal(logits, want_logits), i
+            token, tok_ref = toks[:, -1], want[:, -1]
+    torch.cuda.synchronize()
+    assert program.calls == 3 and cache["index"] == 12
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in ref:
+            assert torch.equal(cache[key], ref[key]), key
+
+
+def _counts():
+    from llark_tpu_torch.ops.int4_matmul import int4_matmul
+    from llark_tpu_torch.ops.int8_matmul import int8_matmul
+
+    return (tattn.flash_attention_fwd.launches, int8_matmul.launches, int4_matmul.launches,
+            dict(tdec.flash_decode_attention.launches_by_window))
+
+
+def test_decode_program_counts_its_captured_launches_per_call(dev):
+    from llark_tpu_torch.generate import GenerationConfig, make_multistep_decode_fn
+
+    cfg, params, cache, token, pos = _program_case(dev, "paged_int8", "int8")
+    program = make_multistep_decode_fn(cfg, GenerationConfig(stop_text=""), 4)
+    layers, steps = cfg.num_layers, 4
+    per_call = (0, 7 * layers * steps, 0, {("paged_int8", 1): layers * steps})
+    with torch.inference_mode():
+        for _ in range(3):
+            before = _counts()
+            program(params, token, cache, pos, None)
+            after = _counts()
+            got = tuple(a - b for a, b in zip(after[:3], before[:3])) + (
+                {k: n - before[3].get(k, 0) for k, n in after[3].items()
+                 if n != before[3].get(k, 0)},)
+            assert got == per_call
+    # what one call adds, as the program recorded it at its capture
+    assert program.launches_by_window == {("paged_int8", 1): layers * steps}
+    assert program.launches == {"flash_decode_attention": layers * steps,
+                                "int8_matmul": 7 * layers * steps}
+
+
+def test_sampled_replays_draw_new_noise_and_advance_the_generator(dev):
+    from llark_tpu_torch.generate import GenerationConfig, decode_n, make_multistep_decode_fn
+
+    cfg, params, cache, token, pos = _program_case(dev, "paged_bf16")
+    ref = _cache_copy(cache)
+    gcfg = GenerationConfig(temperature=1.0, top_k=100, stop_text="")
+    program = make_multistep_decode_fn(cfg, gcfg, 4)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    states = [rng.get_state()]
+    with torch.inference_mode():
+        first = program(params, token, cache, pos, rng)[0].clone()
+        states.append(rng.get_state())
+        second = program(params, token, cache, pos, rng)[0].clone()
+        states.append(rng.get_state())
+        want = decode_n(cfg, gcfg, params, token, ref, pos, 4,
+                        torch.Generator(device=dev).manual_seed(5))[0]
+    assert not torch.equal(first, second)
+    assert not torch.equal(states[0], states[1]) and not torch.equal(states[1], states[2])
+    # the replay draws what decode_n draws from the same state
+    assert torch.equal(first, want)
+
+
+def test_decode_program_replays_allocate_nothing(dev):
+    from llark_tpu_torch.generate import GenerationConfig, make_multistep_decode_fn
+    from llark_tpu_torch.ops import int8_matmul as int8_ops
+
+    cfg, params, cache, token, pos = _program_case(dev, "dense_int8", "int8")
+    program = make_multistep_decode_fn(cfg, GenerationConfig(stop_text=""), 4)
+    with torch.inference_mode():
+        program(params, token, cache, pos, None)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        for _ in range(3):
+            program(params, token, cache, pos, None)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == held
+    # the products' split workspace was made by the warm-up on the capture
+    # stream, outside the graph, and the program keeps it
+    key = (torch.device(dev).index or 0, program.pool.stream.cuda_stream)
+    assert program._workspace is not None and int8_ops._workspaces[key] is program._workspace
+
+
+def test_server_rounds_replay_equal_eager_rounds_with_tables_copied_in_place(dev):
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.generate import GenerationConfig, decode_n
+    from llark_tpu_torch.inference.server import BatchedServer, Request
+    from llark_tpu_torch.models.fusion import init_llark_params
+
+    cfg = ModelConfig.tiny("llama", kv_cache_quant=True, **PROGRAM_WIDTHS)
+    params = init_llark_params(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(9)
+    reqs = [(rng.randint(4, 500, n).astype(np.int32), rng.randn(3, 16).astype(np.float32))
+            for n in (20, 37, 12, 50, 25)]
+    gcfg = GenerationConfig(max_new_tokens=12, stop_text="")
+    kw = dict(max_batch=2, max_cache_len=256, prompt_buckets=(64,), max_audio_frames=4,
+              decode_chunk=4, decode_chunk_drain=1, kv_block_size=16, prefill_chunk=32)
+    streams = []
+    for eager in (False, True):
+        server = BatchedServer(cfg, params, 7, gcfg, device=dev, **kw)
+        if eager:  # the same rounds through decode_n
+            server._programs = {
+                n: (lambda n: lambda p, tok, c, pos, g: decode_n(cfg, gcfg, p, tok, c, pos, n, g))(n)
+                for n in (4, 1)}
+        out = server.serve([Request(i, a) for i, a in reqs])
+        streams.append([r.tokens for r in out])
+        if not eager:
+            tables = server._cache["block_tables"]
+            assert sorted(server._programs) == [1, 4]
+            assert all(p._cache["block_tables"] is tables and p.calls > 0
+                       for p in server._programs.values())
+    assert streams[0] == streams[1]
+    assert all(len(s) == 12 for s in streams[0])
+
+
+def test_a_failed_capture_raises(dev, monkeypatch):
+    from llark_tpu_torch import generate as tgen
+
+    cfg, params, cache, token, pos = _program_case(dev, "dense_bf16")
+    sample = tgen._sample
+
+    def reads_back(logits, gen_cfg, generator):  # a host read inside the chunk
+        if int(logits[0, 0].float() > 1e30):
+            pass
+        return sample(logits, gen_cfg, generator)
+
+    monkeypatch.setattr(tgen, "_sample", reads_back)
+    program = tgen.make_multistep_decode_fn(cfg, tgen.GenerationConfig(stop_text=""), 2)
+    before = _counts()
+    with torch.inference_mode(), pytest.raises(RuntimeError):
+        program(params, token, cache, pos, None)
+    assert program._graph is None and _counts() == before
