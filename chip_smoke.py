@@ -8,8 +8,9 @@
                                       # I/O, annotation and preprocessing),
                                       # 24 (the annotator trainer, the CLAP
                                       # text tower and the harness), 25
-                                      # (parallelism) or 26 (the captured
-                                      # decode chunk)
+                                      # (parallelism), 26 (the captured
+                                      # decode chunk) or 27 (the captured
+                                      # train step)
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit; build every CUDA kernel from
@@ -170,10 +171,13 @@ Phases, in order; any failure exits non-zero before the final line:
      products and (c)'s merged tree's prefill logits against its unmerged
      tree's within 5e-2 relative to max, every request 32 tokens. Printed:
      step ms, tokens/s, MFU (frozen-base accounting with the LoRA term),
-     peak memory, idle share and the top kernels of each run, the device
-     time of the dx products read from the profiled step's trace, one
-     decode step through the quantized operator and called directly, and
-     each part's seconds;
+     peak memory, idle share and the top kernels of each run (train()
+     replays every step after the first: the profiled step is a replay),
+     one more step run eagerly under the profiler and the device time of
+     its dx products, read from the kernels launched in the operators'
+     backward ranges (a replay shows no host ranges), one decode step
+     through the quantized operator and called directly, and each part's
+     seconds;
  19. speculative decoding, beam search and the online HTTP engine at full
      Llama-2-7B width, 32 layers, random weights from the seed, gamma 4,
      32 new tokens, greedy (`run_speculation`): (a) an fp32 target (tf32
@@ -414,6 +418,27 @@ Phases, in order; any failure exits non-zero before the final line:
      and eager; (c) the same in mode (a) from int8 and from int4-rows
      weights quantized on the card. Every figure beside the card's name and
      power limit.
+ 27. the captured train step (`run_train_program`, run after phase 18):
+     train() runs step 1 eagerly and replays one CUDA graph a step after it
+     (`train.step.jit_train_step`), so phases 10, 11, 17, 18 and 22 train
+     through replays; here, at Llama-2-7B width, fp32 parameters, bf16
+     compute, remat, batch 2 x 2, each replayed run (`P27Case.run`) is held
+     to two eager runs of the same steps from the same state and batches:
+     each step's loss and grad norm and the trained tensors after the last
+     step within the larger of twice the eager runs' spread (dq's atomics)
+     and 1e-5 of the value, the spread printed beside each gate, and each
+     replay's launches equal to an eager step's: (a) the adapter stage
+     (phase 10's flags, ADAPTER_LAYERS) and the run-of-record flags (phase
+     11's, FULL_LAYERS), 1024 positions, 4 steps; (b) QLoRA at phase 18
+     (a)'s shape (int8 base, 32 layers, rank 64, dropout 0.05, 512
+     positions), 3 steps, layer 0's first mask of steps 2 and 3 differing
+     (control: step 3 drawn eagerly on step 2's masks fails the gate); (c)
+     one replayed step of (b) at 4 layers under each remat policy: the LoRA
+     gradients (from the first moments) within the eager spread; (d) for
+     the adapter and the QLoRA step, eager and replayed: step wall, device
+     time (profiler), idle share, tokens/s, MFU and peak allocated and
+     reserved memory, the program's first call (step 1 eagerly, then the
+     capture) apart. Every figure beside the card's name and power limit.
 
 Launch gates: the flash-prefill kernel once per layer per prefill (32 per
 request in phase 4), once per layer per admission wave in the one-shot
@@ -500,6 +525,7 @@ from llark_tpu_torch.models.utils import load_pretrained_model, save_model_metad
 from llark_tpu_torch.native import build as native_build
 from llark_tpu_torch.preprocessing import pack_webdataset
 from llark_tpu_torch.train import flops
+from llark_tpu_torch.train import step as train_step_mod
 from llark_tpu_torch.train import train as train_mod
 from llark_tpu_torch.train.checkpoint import CheckpointManager
 from llark_tpu_torch.train.state import TrainState
@@ -1930,12 +1956,14 @@ def span_kernels(events: list, span: str) -> None:
 
 def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps: int,
                  frozen_base: bool, lr: float, seq: int = 1024, train_flags=None,
-                 keep: bool = False, span: str = None, **flags):
+                 keep: bool = False, **flags):
     """Drive `train()` on the card; check and print what the path did.
-    Returns the launches in the run of the two training kernel wrappers and
-    of the two quantized products, and with `keep` train()'s result (the
-    run directory is then left on disk). `span` names a CPU range whose
-    kernels the profiled step's trace reads (see `span_kernels`)."""
+    train() runs its first step eagerly and replays one CUDA graph for
+    every later step (`train.step.jit_train_step`): the median step and the
+    profiled last step are replays. Returns the launches in the run of the
+    two training kernel wrappers and of the two quantized products, and
+    with `keep` train()'s result (the run directory is then left on
+    disk)."""
     model_args, data_args, training_args = train_args(directory, shard, steps, lr, seq,
                                                       train_flags, **flags)
     torch.cuda.reset_peak_memory_stats()
@@ -1965,7 +1993,7 @@ def run_training(label: str, cfg: ModelConfig, directory: str, shard: str, steps
     print(f"  median step {step_ms:.1f} ms, {tok_s:.0f} tokens/s (batch 2 x 2 x {seq} positions), "
           f"MFU {mfu:.1%}, peak memory {peak_gb:.2f} GiB, launches per step "
           f"{ {k: v / steps for k, v in launches.items()} }")
-    device_split(os.path.join(training_args.profile_dir, "trace.json"), step_ms, span=span)
+    device_split(os.path.join(training_args.profile_dir, "trace.json"), step_ms)
     check(result["final_step"] == steps, f"{label}: stopped at step {result['final_step']}")
     check(all(np.isfinite(r["grad_norm"]) for r in records), f"{label}: a non-finite grad norm")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
@@ -2111,9 +2139,12 @@ def first_step_params():
 
         def watched(state, batch):
             if not seen:
-                seen.append({k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
-                             else v.clone() for k, v in state.params.items()
-                             if k != "mm_projector"})
+                # detached: a clone in the autograd graph would keep the
+                # leaves' gradient nodes on this stream, which the captured
+                # step (train.step.TrainProgram) cannot wait on
+                seen.append({k: {n: t.detach().clone() for n, t in v.items()}
+                             if isinstance(v, dict) else v.detach().clone()
+                             for k, v in state.params.items() if k != "mm_projector"})
             return step(state, batch)
         return watched
 
@@ -2453,6 +2484,35 @@ def check_qlora_run(label: str, result, fmt: str, steps: int, launches: dict,
           f"{own} launches {launches[own]} ({launches[own] // (2 * steps)} a micro-batch)")
 
 
+def eager_dx_readout(result, batch, fmt: str, directory: str) -> None:
+    """The run's next step eagerly (`make_train_step` itself, not train()'s
+    program: a replay runs what its capture recorded and shows no host
+    ranges) under the profiler, batch 2 x 2 (the phase's micro-batch
+    twice): its device time, and the dx products' device time read from
+    the kernels launched inside the quantized operators' backward ranges
+    (`span_kernels`)."""
+    training_args = train_args(directory, "unused", 1, lr=2e-3, seq=LORA_SEQ,
+                               train_flags=LORA_FLAGS)[2]
+    step = train_step_mod.make_train_step(
+        result["cfg"], train_step_mod.make_optimizer(training_args),
+        audio_patch_id=result["bundle"].audio_patch_id, grad_accum_steps=2, dropout_seed=SEED)
+    both = {k: torch.cat([v, v]) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(result["state"], both)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(directory, "trace.json")
+    os.makedirs(directory, exist_ok=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(result["state"], both)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    print(f"  one more step eagerly (make_train_step): wall {wall_ms:.1f} ms")
+    device_split(trace, wall_ms, span=f"GeneratedBackwardFor_llark_{fmt}_matmul_defaultBackward")
+
+
 def check_remat_policies(cfg: ModelConfig, batch, patch_id: int) -> None:
     """One micro-batch under "full", "dots" and "dots_narrow", 4 layers,
     int8 base, rank-64 factors with B != 0: the LoRA gradients of the dots
@@ -2640,9 +2700,9 @@ def run_lora(directory: str, shard: str, smi: str) -> dict:
         path = os.path.join(directory, fmt)
         launches, result = run_training(
             label, cfg, path, shard, steps, frozen_base=True, lr=2e-3, seq=LORA_SEQ,
-            train_flags=dict(LORA_FLAGS, bits=8 if fmt == "int8" else 4), keep=True,
-            span=f"GeneratedBackwardFor_llark_{fmt}_matmul_defaultBackward")
+            train_flags=dict(LORA_FLAGS, bits=8 if fmt == "int8" else 4), keep=True)
         check_qlora_run(label, result, fmt, steps, launches, os.path.join(path, "out"))
+        eager_dx_readout(result, batch, fmt, os.path.join(path, "eager"))
         check_plain_step(label, result["cfg"], result["state"].params, batch, bundle.audio_patch_id)
         out[fmt] = launches
         del result
@@ -5696,6 +5756,329 @@ def run_decode_program_alone(directory: str, smi: str) -> None:
     run_decode_program(cfg, bundle, rows, smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the captured train step
+# ---------------------------------------------------------------------------
+
+P27_REL = 1e-5  # the floor of every gate, relative to the eager value
+P27_REMAT_LAYERS = 4
+
+
+def p27_model(kind: str, num_layers: int) -> tuple:
+    """(cfg, params) at Llama-2-7B width with the trainable flags set:
+    "adapter" (phase 10's flags), "full" (phase 11's: every tensor trains)
+    or "qlora" (phase 18 (a)'s: int8 base, rank 64, dropout 0.05, as
+    train() builds it)."""
+    cfg = dataclasses.replace(ModelConfig.llama2_7b(), num_layers=num_layers)
+    if kind == "qlora":
+        cfg = dataclasses.replace(cfg, lora_rank=64, lora_alpha=16.0, lora_dropout=0.05)
+    params = init_llark_params(cfg, seed=SEED, device="cuda")
+    if kind == "qlora":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 1)
+        params = quant.quantize_params_int8_incremental(
+            cfg, lora_mod.init_lora_params(cfg, gen, params))
+        mask = train_step_mod.trainable_mask(params, lora=True)
+    elif kind == "adapter":
+        mask = train_step_mod.trainable_mask(params, freeze_backbone=True,
+                                             tune_mm_mlp_adapter=True)
+    else:
+        mask = train_step_mod.trainable_mask(params)
+    train_step_mod.ParamPartition(params, mask)
+    return cfg, params
+
+
+def p27_batches(cfg: ModelConfig, shard: str, seq: int, n: int) -> tuple:
+    """(bundle, n batches of 2 x 2 rows of `seq` positions) from phase
+    10's shard, on the card."""
+    _, data_args, _ = train_args("unused", shard, 1)
+    bundle = TokenizerBundle.from_tokenizer(WordTokenizer(seq))
+    it = iter(make_data_module(bundle, data_args, batch_size=4, max_seq_len=seq,
+                               mm_hidden_size=cfg.mm_hidden_size, seed=SEED)["train_iterator"]())
+    return bundle, [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()
+                     if isinstance(v, np.ndarray)} for _ in range(n)]
+
+
+def p27_trained(params) -> dict:
+    return {p: t for p, t in train_step_mod.iter_leaves(params) if t.requires_grad}
+
+
+def p27_device_ms(fn) -> float:
+    """Device kernel time of fn() under the profiler (its chrome trace)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g)["traceEvents"]
+    return sum(e.get("dur", 0.0) for e in events if e.get("cat") == "kernel") / 1e3
+
+
+class P27Case:
+    """One configuration of phase 27: its params, built once, whose
+    trainable tensors every run restores from the snapshot, and the step
+    every run builds afresh (train()'s arguments)."""
+
+    def __init__(self, kind: str, num_layers: int, shard: str, lr: float, data: tuple):
+        self.kind = kind
+        self.cfg, self.params = p27_model(kind, num_layers)
+        self.bundle, self.batches = data
+        self.seq = self.batches[0]["input_ids"].shape[1]
+        self.snapshot = {p: t.detach().clone() for p, t in p27_trained(self.params).items()}
+        flags = LORA_FLAGS if kind == "qlora" else {}
+        self.training_args = train_args("unused", shard, len(self.batches), lr, self.seq,
+                                        flags)[2]
+
+    def step(self):
+        tune = self.kind != "qlora"  # phases 10 and 11 tune the adapter
+        return train_step_mod.make_train_step(
+            self.cfg, train_step_mod.make_optimizer(self.training_args),
+            audio_patch_id=self.bundle.audio_patch_id, grad_accum_steps=2,
+            trainable_token_start=len(self.bundle.tokenizer) - 3 if tune else None,
+            dropout_seed=SEED if self.kind == "qlora" else None)
+
+    @torch.no_grad()
+    def restore(self) -> TrainState:
+        for p, t in p27_trained(self.params).items():
+            t.copy_(self.snapshot[p])
+        return TrainState.create(self.params, train_step_mod.make_optimizer(self.training_args))
+
+    def run(self, program: bool, stale_at=None, masks=None, moments=False) -> dict:
+        """The case's steps over its batches from the snapshot, through
+        jit_train_step or the eager step: each step's (loss, grad norm),
+        wall ms and launches, the trained tensors after the last, peak
+        memory (after the first call, for a program: its replays). With
+        `stale_at`, that (eager) step draws the step before's dropout masks;
+        with `masks`, each step's first mask is appended; with `moments`,
+        each step's first moments of the LoRA leaves are kept."""
+        state = self.restore()
+        fn = self.step()
+        if program:
+            fn = train_step_mod.jit_train_step(fn)
+        out = {"metrics": [], "wall": [], "launches": [], "mu": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(self.batches):
+            if masks is not None:
+                masks.append(None)
+            before = kernel_counts()
+            if i == stale_at:
+                state.step -= 1
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            out["wall"].append((time.perf_counter() - t0) * 1e3)
+            if i == stale_at:
+                state.step += 1
+            out["launches"].append({k: v - before[k] for k, v in kernel_counts().items()})
+            out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+            if moments:
+                keys = [p for p in p27_trained(self.params) if "_lora_" in p]
+                out["mu"].append([state.opt_state["mu"][i].clone() for i, p in
+                                  enumerate(p27_trained(self.params)) if p in keys])
+            if i == 0:
+                out["first_peak"] = (torch.cuda.max_memory_allocated() / 2**30,
+                                     torch.cuda.max_memory_reserved() / 2**30)
+                if program:
+                    torch.cuda.reset_peak_memory_stats()
+        out["peak"] = (torch.cuda.max_memory_allocated() / 2**30,
+                       torch.cuda.max_memory_reserved() / 2**30)
+        out["trained"] = {p: t.detach().float().clone() for p, t in p27_trained(self.params).items()}
+        out["fn"], out["state"] = fn, state
+        return out
+
+
+def p27_gate(label: str, got: dict, want: dict, again: dict, smi: str,
+             control: bool = False) -> None:
+    """Each step's loss and grad norm, and the trained tensors after the
+    last step, of `got` against `want` within the larger of twice the
+    spread of the two eager runs (`want`, `again`) and P27_REL of the
+    value; the spread printed beside each gate. A control must fail it."""
+    failed = []
+    for i, (g, w, a) in enumerate(zip(got["metrics"], want["metrics"], again["metrics"])):
+        for j, name in enumerate(("loss", "grad norm")):
+            spread, err = abs(w[j] - a[j]), abs(g[j] - w[j])
+            limit = max(2 * spread, P27_REL * abs(w[j]))
+            print(f"    step {i + 1} {name}: {g[j]:.6f} against eager {w[j]:.6f} (again "
+                  f"{a[j]:.6f}): |d| {err:.3e}, eager spread {spread:.3e}, limit {limit:.3e}")
+            if err > limit:
+                failed.append(f"step {i + 1} {name} |d| {err:.3e} > {limit:.3e}")
+    worst = (0.0, None, 0.0, 0.0)
+    for p, w in want["trained"].items():
+        spread = float((w - again["trained"][p]).abs().max())
+        err = float((got["trained"][p] - w).abs().max())
+        limit = max(2 * spread, P27_REL * float(w.abs().max()))
+        if err > limit:
+            failed.append(f"{p} |d| {err:.3e} > {limit:.3e} (eager spread {spread:.3e})")
+        if limit and err / limit >= worst[0]:
+            worst = (err / limit, p, err, spread)
+    print(f"    trained tensors after {len(want['metrics'])} steps ({len(want['trained'])} "
+          f"leaves): worst {worst[1]} |d| {worst[2]:.3e} against an eager spread of "
+          f"{worst[3]:.3e} ({worst[0]:.2f} of its limit) ({smi})")
+    if control:
+        print(f"  control, {label}: {len(failed)} gates fail, as they must")
+        check(bool(failed), f"control {label}: passed the gate")
+    else:
+        check(not failed, f"{label}: {failed[:3]}")
+
+
+def p27_launch_gate(label: str, got: dict, want: dict) -> None:
+    """Each replay launches what the eager step launches."""
+    program = got["fn"]
+    print(f"    launches per step: eager {want['launches'][-1]}, a replay "
+          f"{got['launches'][-1]} (captured {program.launches})")
+    check(got["launches"] == want["launches"], f"{label}: launches {got['launches']} against the "
+                                                f"eager steps' {want['launches']}")
+
+
+def p27_figures(label: str, case: P27Case, eager: dict, graph: dict, smi: str,
+                frozen_base: bool) -> None:
+    """(d): eager and replayed step wall, device time, idle share,
+    tokens/s, MFU and peak memory; the first call (eager step and capture)
+    apart."""
+    tokens = 4 * case.seq
+    batch = case.batches[-1]
+    state, program = graph["state"], graph["fn"]
+    replay_dev = p27_device_ms(lambda: program(state, batch))
+    step, estate = case.step(), eager["state"]
+    eager_dev = p27_device_ms(lambda: step(estate, batch))
+    for name, run, dev in (("eager", eager, eager_dev), ("replayed", graph, replay_dev)):
+        wall = statistics.median(run["wall"][1:])
+        tok_s = tokens / (wall / 1e3)
+        mfu = flops.train_mfu(case.cfg, case.seq, tok_s, frozen_base=frozen_base)
+        print(f"    {name}: step wall {wall:.1f} ms (median of {len(run['wall']) - 1}), device "
+              f"{dev:.1f} ms, idle {1 - dev / wall:.1%}, {tok_s:.0f} tokens/s, MFU {mfu:.1%}, peak "
+              f"allocated / reserved {run['peak'][0]:.2f} / {run['peak'][1]:.2f} GiB ({smi})")
+    print(f"    the program's first call (step 1 eagerly, then the capture) {graph['wall'][0]:.1f} "
+          f"ms against the eager first step's {eager['wall'][0]:.1f} ms; peak allocated / "
+          f"reserved through it {graph['first_peak'][0]:.2f} / {graph['first_peak'][1]:.2f} GiB "
+          f"({smi})")
+
+
+@contextlib.contextmanager
+def p27_first_masks(masks: list):
+    """Inside, the first LoRA-dropout mask each step draws fills the last
+    slot of `masks` (the run appends a slot a step)."""
+    dropout = decoder_mod._dropout
+
+    def recording(x, rate, gen):
+        out = dropout(x, rate, gen)
+        if masks and masks[-1] is None:
+            masks[-1] = out != 0
+        return out
+
+    decoder_mod._dropout = recording
+    try:
+        yield
+    finally:
+        decoder_mod._dropout = dropout
+
+
+def p27_adapter_and_full(shard: str, data: tuple, smi: str) -> None:
+    """(a), and (d) for the adapter step."""
+    for kind, layers, lr, label in (("adapter", ADAPTER_LAYERS, 1e-3, "adapter stage"),
+                                    ("full", FULL_LAYERS, 1e-4, "run-of-record flags")):
+        case = P27Case(kind, layers, shard, lr, data)
+        eager = case.run(program=False)
+        graph = case.run(program=True)
+        again = case.run(program=False)
+        print(f"  (a) {label}, {layers} layers, batch 2 x 2 x 1024, 4 steps: replayed against "
+              f"eager ({smi})")
+        p27_gate(f"(a) {label}", graph, eager, again, smi)
+        p27_launch_gate(f"(a) {label}", graph, eager)
+        if kind == "adapter":
+            print(f"  (d) the adapter step, {layers} layers, batch 2 x 2 x 1024:")
+            p27_figures("(d) adapter", case, eager, graph, smi, frozen_base=True)
+        del case, eager, graph, again
+        torch.cuda.empty_cache()
+
+
+def p27_qlora(shard: str, data: tuple, smi: str) -> None:
+    """(b), and (d) for the QLoRA step."""
+    case = P27Case("qlora", 32, shard, 2e-3, data)
+    masks = []
+    with p27_first_masks(masks):
+        eager = case.run(program=False, masks=masks)
+    graph = case.run(program=True)
+    again = case.run(program=False)
+    stale = case.run(program=False, stale_at=2)
+    print(f"  (b) QLoRA, int8 base, 32 layers, rank 64, dropout 0.05, batch 2 x 2 x {LORA_SEQ}, "
+          f"3 steps: replayed against eager ({smi})")
+    p27_gate("(b) QLoRA", graph, eager, again, smi)
+    p27_launch_gate("(b) QLoRA", graph, eager)
+    fresh = float((masks[1] != masks[2]).float().mean())
+    print(f"    layer 0's wq mask: steps 2 and 3 differ in {fresh:.2%} of its elements "
+          f"(dropout 0.05: ~9.5 % expected)")
+    check(fresh > 0.05, "(b) step 3 drew step 2's masks")
+    print("  control, (b): step 3 eagerly on step 2's masks, against the eager run:")
+    p27_gate("(b) step 3 on step 2's masks", stale, eager, again, smi, control=True)
+    print(f"  (d) the QLoRA step, 32 layers, int8 base, batch 2 x 2 x {LORA_SEQ}:")
+    p27_figures("(d) QLoRA", case, eager, graph, smi, frozen_base=True)
+    del case, eager, graph, again, stale, masks
+    torch.cuda.empty_cache()
+
+
+def p27_remat_policies(shard: str, data: tuple, smi: str) -> None:
+    """(c): one replayed step of (b) at 4 layers under each remat policy:
+    its LoRA gradients (from the first moments of steps 1 and 2 on one
+    batch) against the eager step's, within the eager spread."""
+    bundle, batches = data
+    case = P27Case("qlora", P27_REMAT_LAYERS, shard, 2e-3, (bundle, [batches[0]] * 2))
+    for policy in ("full", "dots", "dots_narrow"):
+        case.cfg = dataclasses.replace(case.cfg, remat_policy=policy)
+        runs = [case.run(program=p, moments=True) for p in (False, True, False)]
+        b1 = 0.9
+
+        def grads(run):
+            return [(m2 - b1 * m1) / (1 - b1) for m1, m2 in zip(*run["mu"])]
+
+        (e1, g, e2) = (grads(r) for r in runs)
+        worst, worst_spread = 0.0, 0.0
+        for a, b, c in zip(g, e1, e2):
+            spread = float((b - c).abs().max())
+            err = float((a - b).abs().max())
+            limit = max(2 * spread, P27_REL * float(b.abs().max()))
+            check(err <= limit, f"(c) remat {policy!r}: LoRA gradient |d| {err:.3e} > {limit:.3e}")
+            if err >= worst:
+                worst, worst_spread = err, spread
+        print(f"  (c) remat {policy!r}, {P27_REMAT_LAYERS} layers: the replayed step's LoRA "
+              f"gradients ({len(g)} leaves) against the eager step's: worst |d| {worst:.3e}, "
+              f"eager spread there {worst_spread:.3e}; launches a replay "
+              f"{runs[1]['fn'].launches} ({smi})")
+        check(runs[1]["launches"] == runs[0]["launches"], f"(c) {policy}: launches differ")
+        del runs
+        torch.cuda.empty_cache()
+    del case
+    torch.cuda.empty_cache()
+
+
+def run_train_program(directory: str, shard: str, smi: str) -> None:
+    """Phase 27: the captured train step (train/step.py `jit_train_step`)
+    at Llama-2-7B width, each replayed run held to two eager runs of the
+    same steps from the same state: (a) the adapter stage and the
+    run-of-record flags, (b) QLoRA at phase 18 (a)'s shape, (c) the remat
+    policies, (d) eager and replayed step figures."""
+    print(f"phase 27 on {smi}: train steps as CUDA graphs (train.step.TrainProgram), replays "
+          f"against eager steps from the same state")
+    cfg = ModelConfig.llama2_7b()
+    marks = [time.perf_counter()]
+    p27_adapter_and_full(shard, p27_batches(cfg, shard, 1024, 4), smi)
+    marks.append(time.perf_counter())
+    qlora_data = p27_batches(cfg, shard, LORA_SEQ, 3)
+    p27_qlora(shard, qlora_data, smi)
+    marks.append(time.perf_counter())
+    p27_remat_policies(shard, qlora_data, smi)
+    marks.append(time.perf_counter())
+    parts = ", ".join(f"{p} {b - a:.1f}" for p, a, b in zip(("(a)", "(b)", "(c)"), marks, marks[1:]))
+    print(f"  phase 27 parts' seconds: {parts} ({smi})")
+
+
+def run_train_program_alone(directory: str, smi: str) -> None:
+    run_train_program(directory, write_shards(directory, ModelConfig.llama2_7b()), smi)
+
+
 ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          20: ("CLAP path", run_clap_path),
          21: ("Jukebox path", run_jukebox_path),
@@ -5704,7 +6087,8 @@ ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          24: ("the annotator trainer, the CLAP text tower and the harness",
               run_annotator_text_phase),
          25: ("parallelism: two ranks sharing the card, one NCCL rank", run_parallel_phase),
-         26: ("the captured decode chunk", run_decode_program_alone)}
+         26: ("the captured decode chunk", run_decode_program_alone),
+         27: ("the captured train step", run_train_program_alone)}
 
 
 def set_up_card() -> tuple:
@@ -5792,6 +6176,8 @@ def main(argv=None) -> int:
         print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s")
         _, phase_s = seconds(lambda: run_lora(os.path.join(tmp, "lora"), shard, smi))
         print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s")
+        _, phase_s = seconds(lambda: run_train_program(os.path.join(tmp, "p27"), shard, smi))
+        print(f"phase 27 (the captured train step) on {smi}: {phase_s:.1f} s")
     _, phase_s = seconds(lambda: run_speculation(cfg, bundle, rows, bf16_serving, smi))
     print(f"phase 19 (speculative decoding, beam search, the HTTP engine): {phase_s:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:

@@ -30,14 +30,18 @@ import torch
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
+from llark_tpu_torch.graphs import (
+    GraphPool,
+    add_launch_counts,
+    capture,
+    count_difference,
+    launch_counts,
+    launches_by_name,
+    set_launch_counts,
+)
 from llark_tpu_torch.models import decoder as decoder_lib
 from llark_tpu_torch.models.decoder import CACHE_TENSORS, Params, init_kv_cache
 from llark_tpu_torch.models.fusion import build_inputs_embeds
-from llark_tpu_torch.ops import int8_matmul as int8_ops
-from llark_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
-from llark_tpu_torch.ops.decode_attention import flash_decode_attention
-from llark_tpu_torch.ops.int4_matmul import int4_matmul
-from llark_tpu_torch.ops.int8_matmul import int8_matmul
 
 
 @dataclasses.dataclass
@@ -272,47 +276,6 @@ def make_decode_fn(cfg: ModelConfig):
     return functools.partial(decode_step, cfg)
 
 
-# The kernel wrappers' launch counters. A replay launches what its capture
-# recorded without running the wrappers, so a program adds its captured
-# counts to them at every call.
-_COUNTED = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention, int8_matmul,
-            int4_matmul)
-
-
-def _launch_counts() -> Tuple[Tuple[int, ...], Dict]:
-    return (tuple(fn.launches for fn in _COUNTED),
-            dict(flash_decode_attention.launches_by_window))
-
-
-def _count_difference(after, before) -> Tuple[Tuple[int, ...], Dict]:
-    totals = tuple(a - b for a, b in zip(after[0], before[0]))
-    windows = {key: n - before[1].get(key, 0) for key, n in after[1].items()}
-    return totals, {key: n for key, n in windows.items() if n}
-
-
-def _set_launch_counts(counts) -> None:
-    for fn, n in zip(_COUNTED, counts[0]):
-        fn.launches = n
-    windows = flash_decode_attention.launches_by_window
-    windows.clear()
-    windows.update(counts[1])
-
-
-class GraphPool:
-    """What the decode programs of one Generator or server share on the
-    card: one memory pool for their graphs (`torch.cuda.graph_pool_handle`)
-    and one stream that every program warms up and is captured on, so that
-    the quantized products' split workspace, kept per (device, stream)
-    (`ops/int8_matmul.py` `_workspace`), exists before any capture begins.
-
-    A pool's graphs reuse each other's intermediate memory: a program's
-    outputs are valid until the next call of a program of the same pool."""
-
-    def __init__(self, device: Union[str, torch.device]):
-        self.stream = torch.cuda.Stream(device)
-        self.handle = torch.cuda.graph_pool_handle()
-
-
 class DecodeProgram:
     """`steps` decode steps with sampling as one program (the reference's
     `make_multistep_decode_fn`, llark_tpu/generate.py:265-287): called as
@@ -364,9 +327,7 @@ class DecodeProgram:
     def launches(self) -> Dict[str, int]:
         """The launches one call adds on the card, by kernel wrapper (those
         it launches); empty before the capture and on the CPU."""
-        if self._captured is None:
-            return {}
-        return {fn.__name__: n for fn, n in zip(_COUNTED, self._captured[0]) if n}
+        return {} if self._captured is None else launches_by_name(self._captured)
 
     @property
     def launches_by_window(self) -> Dict[Tuple[str, int], int]:
@@ -428,12 +389,7 @@ class DecodeProgram:
         self._graph.replay()
         if sampled:
             generator.set_state(self._generator.get_state())
-        totals, windows = self._captured
-        for fn, n in zip(_COUNTED, totals):
-            fn.launches += n
-        by_window = flash_decode_attention.launches_by_window
-        for key, n in windows.items():
-            by_window[key] = by_window.get(key, 0) + n
+        add_launch_counts(self._captured)
 
     def _capture(self, generator: Optional[torch.Generator]) -> None:
         dev = self._token.device
@@ -442,36 +398,26 @@ class DecodeProgram:
         if generator is not None:
             self._generator = torch.Generator(device=dev)
             self._generator.set_state(generator.get_state())
-        counts = _launch_counts()
+        counts = launch_counts()
         try:
             # the warm-up: the eager chunk on the capture stream, then the graph
             pool.stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(pool.stream):
                 self._chunk(self._generator)
             torch.cuda.current_stream(dev).wait_stream(pool.stream)
-            warm = _launch_counts()
-            key = (dev.index, pool.stream.cuda_stream)
+            warm = count_difference(launch_counts(), counts)
             # kept: a later warm-up on this stream may replace a workspace it
             # outgrows, and the graph writes this one
-            self._workspace = int8_ops._workspaces.get(key)
+            self._workspace = pool.workspace(dev)
             if self._generator is not None:
                 self._generator.set_state(generator.get_state())
             graph = torch.cuda.CUDAGraph()
             if self._generator is not None:
                 graph.register_generator_state(self._generator)
-            with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
-                self._chunk(self._generator)
-            captured = _launch_counts()
+            _, self._captured = capture(pool, graph, dev, lambda: self._chunk(self._generator),
+                                        warm)
         finally:
-            _set_launch_counts(counts)
-        if int8_ops._workspaces.get(key) is not self._workspace:
-            raise RuntimeError("the quantized products allocated a workspace inside the capture")
-        self._captured = _count_difference(captured, warm)
-        if self._captured != _count_difference(warm, counts):
-            raise RuntimeError(
-                f"the capture launched {self._captured}, the warm-up "
-                f"{_count_difference(warm, counts)}: the chunk depends on its data"
-            )
+            set_launch_counts(counts)
         self._graph = graph
 
 

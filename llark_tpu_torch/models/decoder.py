@@ -34,10 +34,13 @@ accumulator. The rows-layout and int8 products carry dx (QLoRA training).
 LoRA factors (`models/lora.py`) ride in the layer tree as stacked
 `{name}_lora_a` [L, in, r] / `{name}_lora_b` [L, r, out] beside a float or
 quantized base weight; `_lora_dense` adds their delta to every projection.
-LoRA dropout draws each mask from a generator seeded by an integer that
-`fold_seed` derives from (dropout seed, layer, target), so the recompute
-of a checkpointed layer draws the same mask (torch.utils.checkpoint restores
-the default generator's state, not a generator of the caller's).
+LoRA dropout draws its masks from `DropoutDraws`: per layer, one
+generator for the forward and one for remat's recompute, both seeded on
+the host from (dropout seed, layer) before the forward; a layer's targets
+draw in turn from its pass's generator. So the recompute draws the masks
+the forward drew without reading or setting a generator's state inside the
+step, and a CUDA graph that registers the generators replays fresh masks
+for every new seed.
 
 With `cfg.moe_num_experts` > 0 the MLP is a Mixture-of-Experts
 (`models/moe.py`): the layer tree holds `moe_router` [L, h, E] and the
@@ -309,11 +312,6 @@ def _dense(x, w, b, dtype):
     return y
 
 
-# deterministic per-target salt for LoRA-dropout seeds
-# (llark_tpu/models/decoder.py:264-266)
-_LORA_TARGET_SALT = {
-    "wq": 0, "wk": 1, "wv": 2, "wo": 3, "w_gate": 4, "w_up": 5, "w_down": 6,
-}
 _U64 = (1 << 64) - 1
 
 
@@ -329,18 +327,72 @@ def fold_seed(seed: int, *data: int) -> int:
     return seed >> 1
 
 
+class DropoutDraws:
+    """The generators LoRA dropout draws from in one forward: for each
+    layer a pair, the first for the forward and the second for remat's
+    recompute of the layer, both seeded by `seed(s)` with fold_seed(s,
+    layer). A layer's targets draw from its pass's generator in their fixed
+    order (wq, wk, wv, wo, then the MLP's), so each mask is a function of
+    (seed, layer, target) and the recompute draws the masks of the forward.
+
+    Seeding is a host operation: a train step seeds its micro-batches'
+    draws before it runs, and a captured step registers every generator
+    with its graph (`generators`), so a replay draws from the seeds set
+    before it."""
+
+    def __init__(self, num_layers: int, device: Union[str, torch.device]):
+        self.pairs = [(torch.Generator(device=device), torch.Generator(device=device))
+                      for _ in range(num_layers)]
+
+    def seed(self, seed: int) -> "DropoutDraws":
+        for layer, pair in enumerate(self.pairs):
+            s = fold_seed(seed, layer)
+            for gen in pair:
+                gen.manual_seed(s)
+        return self
+
+    @property
+    def generators(self):
+        return [gen for pair in self.pairs for gen in pair]
+
+
+class _LayerDraws:
+    """One layer's pair in one forward: its first entry (the forward) draws
+    from the first generator, a second (the recompute) from the second."""
+
+    def __init__(self, pair):
+        self.pair, self.entries = pair, 0
+
+    def enter(self) -> torch.Generator:
+        if self.entries == len(self.pair):
+            raise RuntimeError(
+                "a layer's LoRA-dropout masks are drawn in its forward and once more in remat's "
+                "recompute; a third run of the layer would draw others"
+            )
+        self.entries += 1
+        return self.pair[self.entries - 1]
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """x with each element kept with probability 1 - rate (scaled by its
+    inverse), else zero; the mask drawn from `gen`."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 # tensor parallelism: the row-parallel products, whose outputs are partial
 # sums over the "tensor" axis (the others are column-parallel)
 ROW_PARALLEL = ("wo", "w_down")
 
 
-def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed: Optional[int],
-                tp=None):
+def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype,
+                dropout: Optional[torch.Generator], tp=None):
     """Base dense + optional low-rank delta: y = xW + scale * ((drop(x) A) B)
     (llark_tpu/models/decoder.py:270-294); each product keeps an fp32
     accumulator and is rounded to `dtype`. Without `{name}_lora_a` in the
-    layer tree it is `_dense`. `dropout_seed` (this layer's; None in
-    evaluation and serving) seeds the dropout mask of this target.
+    layer tree it is `_dense`. `dropout` (this layer pass's generator; None
+    in evaluation and serving) draws the dropout mask of this target.
 
     `tp`, the "tensor" group of a sharded config with more than one rank:
     a row-parallel target's partial products (and its LoRA x A) are summed
@@ -362,12 +414,8 @@ def _lora_dense(cfg: ModelConfig, lp: Params, name: str, x, dtype, dropout_seed:
     if a is None:
         return y
     xl = x
-    if dropout_seed is not None and cfg.lora_dropout > 0.0:
-        keep = 1.0 - cfg.lora_dropout
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(fold_seed(dropout_seed, _LORA_TARGET_SALT[name]))
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-        xl = torch.where(mask, x / keep, 0.0)
+    if dropout is not None and cfg.lora_dropout > 0.0:
+        xl = _dropout(x, cfg.lora_dropout, dropout)
     if tp is not None and not row:
         a = comm.copy_to(a, tp)
     z = torch.matmul(xl, a.to(dtype))
@@ -497,7 +545,7 @@ def _layer_forward(
     step: Optional[_CacheStep],
     prefix_lengths: Optional[torch.Tensor] = None,
     prefill_from_empty: bool = False,
-    dropout_seed: Optional[int] = None,  # this layer's LoRA-dropout seed
+    dropout: Optional[_LayerDraws] = None,  # this layer's LoRA-dropout draws
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One decoder layer: (x out, the MoE metrics of `moe_ffn` or None).
     With a sharded config (`parallel/mesh.py` `local_config`) the widths
@@ -511,9 +559,10 @@ def _layer_forward(
     if shard is not None:
         lp = shard.gather_layer(lp)
         tp = shard.group("tensor") if shard.tensor > 1 else None
+    gen = dropout.enter() if dropout is not None else None
 
     def dense(name, z):
-        return _lora_dense(cfg, lp, name, z, dtype, dropout_seed, tp)
+        return _lora_dense(cfg, lp, name, z, dtype, gen, tp)
 
     y = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
     y = comm.copy_to(y, tp)
@@ -666,8 +715,8 @@ def decoder_forward(
     trainable_token_start: Optional[int] = None,  # tied-LM-head freeze boundary
     paged_chunk: bool = False,  # block-aligned prefill chunk straight into a
     # paged pool (cache_positions and S multiples of the block size)
-    dropout_seed: Optional[int] = None,  # LoRA dropout on (training): the
-    # micro-batch's seed, folded with each layer's index
+    dropout_seed: Union[int, DropoutDraws, None] = None,  # LoRA dropout on
+    # (training): the micro-batch's seed, or its draws seeded by the caller
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder (llark_tpu/models/decoder.py:579-778). Returns
     (logits_or_hidden, kv_cache | MoE metrics | None); logits are fp32.
@@ -706,15 +755,19 @@ def decoder_forward(
     remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
     context_fn = _remat_context(cfg) if remat else None
     remat_kw = {} if context_fn is None else {"context_fn": context_fn}
-    use_dropout = dropout_seed is not None and cfg.lora_dropout > 0.0
+    draws = None
+    if dropout_seed is not None and cfg.lora_dropout > 0.0:
+        draws = dropout_seed
+        if not isinstance(draws, DropoutDraws):
+            draws = DropoutDraws(cfg.num_layers, dev).seed(dropout_seed)
     aux, dropped = [], []
     for l in range(cfg.num_layers):
         lp = {name: _layer_slice(w, l) for name, w in params["layers"].items()}
-        layer_seed = fold_seed(dropout_seed, l) if use_dropout else None
+        layer_draws = _LayerDraws(draws.pairs[l]) if draws is not None else None
         if remat:
             x, metrics = torch.utils.checkpoint.checkpoint(
                 _layer_forward, cfg, lp, x, rope, seq_lengths, slopes, None, None,
-                prefix_lengths, False, layer_seed, use_reentrant=False, **remat_kw,
+                prefix_lengths, False, layer_draws, use_reentrant=False, **remat_kw,
             )
         else:
             layer_cache = None
@@ -722,7 +775,7 @@ def decoder_forward(
                 layer_cache = {n: kv_cache[n][l] for n in CACHE_TENSORS if n in kv_cache}
             x, metrics = _layer_forward(
                 cfg, lp, x, rope, seq_lengths, slopes, layer_cache, step, prefix_lengths,
-                prefill_from_empty, layer_seed,
+                prefill_from_empty, layer_draws,
             )
         if metrics is not None:
             aux.append(metrics["aux_loss"])

@@ -132,7 +132,7 @@ def llark_forward(
     kv_cache: Optional[Params] = None,
     trainable_token_start: Optional[int] = None,
     return_hidden: bool = False,
-    dropout_seed: Optional[int] = None,  # LoRA dropout (training)
+    dropout_seed=None,  # LoRA dropout (training): a seed or `DropoutDraws`
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full multimodal forward (reference: WrappedLlamav2ForCausalLM.forward)."""
     inputs_embeds = build_inputs_embeds(

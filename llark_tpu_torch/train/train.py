@@ -91,6 +91,7 @@ from llark_tpu_torch.train.checkpoint import (
 from llark_tpu_torch.train.state import TrainState, iter_leaves
 from llark_tpu_torch.train.step import (
     ParamPartition,
+    jit_train_step,
     lr_schedule,
     make_eval_step,
     make_optimizer,
@@ -420,6 +421,11 @@ def train(
     # on resume, fast-forward the (deterministic, same-seed) stream so the
     # first start_step batches are not trained on again
     iterator = data_module["train_iterator"](skip_batches=start_step)
+    # off a mesh the step is one program (the reference's jax.jit of it):
+    # on the card step 1 runs eagerly and every later step replays one CUDA
+    # graph; a mesh's gloo collectives keep the sharded step eager. Built
+    # after the restore: it binds to the state's tensors at its first call
+    step_fn = train_step if shard is not None else jit_train_step(train_step)
 
     def put(batch):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
@@ -480,7 +486,7 @@ def train(
                 smoke_test_batch(batch)
             if training_args.profile_dir and step_i == training_args.profile_start_step:
                 profiler = _start_profiler(dev)
-            state, metrics = train_step(state, put(batch))
+            state, metrics = step_fn(state, put(batch))
             if profiler is not None and step_i >= (
                 training_args.profile_start_step + training_args.profile_num_steps - 1
             ):

@@ -1689,3 +1689,165 @@ def test_a_failed_capture_raises(dev, monkeypatch):
     with torch.inference_mode(), pytest.raises(RuntimeError):
         program(params, token, cache, pos, None)
     assert program._graph is None and _counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the captured train step (train/step.py TrainProgram): step 1 eager, then
+# one CUDA graph replayed a step. dq's fp32 atomics make no two runs of a
+# step bitwise equal, so each case is held to the spread of two eager runs:
+# within the larger of twice that spread and TRAIN_PROGRAM_REL of the value
+# ---------------------------------------------------------------------------
+
+TRAIN_PROGRAM_REL = 1e-5
+TRAIN_PROGRAM_CASES = {
+    # name: (config fields, trainable flags, base, loss_chunk)
+    "adapter": (dict(), dict(freeze_backbone=True, tune_mm_mlp_adapter=True), "bf16", None),
+    "full_loss_chunk": (dict(), dict(), "bf16", 32),
+    "lora_dropout": (dict(lora_rank=8, lora_dropout=0.1), dict(lora=True), "bf16", None),
+    "qlora_int8_full": (dict(lora_rank=8, lora_dropout=0.1), dict(lora=True), "int8", None),
+    "qlora_int8_dots": (dict(lora_rank=8, lora_dropout=0.1, remat_policy="dots"),
+                        dict(lora=True), "int8", None),
+    "qlora_int8_dots_narrow": (dict(lora_rank=8, lora_dropout=0.1, remat_policy="dots_narrow"),
+                               dict(lora=True), "int8", None),
+    "qlora_int4_rows": (dict(lora_rank=8, lora_dropout=0.1), dict(lora=True), "int4", None),
+    "moe": (dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=1.0,
+                 moe_aux_loss_weight=0.1), dict(), "bf16", None),
+}
+
+
+def _train_batches(dev, n, rows=4, s=64, frames=3, vocab=512, mm=16):
+    out = []
+    for i in range(n):
+        rng = np.random.RandomState(20 + i)
+        ids = rng.randint(10, vocab, (rows, s)).astype(np.int64)
+        ids[:, 1:1 + frames] = 7
+        labels = ids.copy()
+        labels[:, :1 + frames] = -100
+        lengths = np.array([s, s - 9, s - 20, s])
+        for r, n_r in enumerate(lengths):
+            labels[r, n_r:] = -100
+        arrays = {"input_ids": ids, "labels": labels, "seq_lengths": lengths.astype(np.int32),
+                  "audio_encodings": rng.randn(rows, frames, mm).astype(np.float32),
+                  "audio_frame_counts": np.full((rows,), frames, np.int32)}
+        out.append({k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+    return out
+
+
+def _train_run(dev, case, program, steps=3, reuse_seed_at=None):
+    """`steps` steps of `case` from the seeded init, through a TrainProgram
+    or the eager step: ([(loss, grad_norm)], the trained tensors, the
+    launches of each call, the step, the state, the batches). With `reuse_seed_at` (eager), that step draws
+    its dropout masks from the seeds of the step before it."""
+    from llark_tpu_torch.config import ModelConfig, TrainingArguments
+    from llark_tpu_torch.graphs import count_difference, launch_counts
+    from llark_tpu_torch.models import lora, quant
+    from llark_tpu_torch.models.fusion import init_llark_params
+    from llark_tpu_torch.train import step as tstep
+    from llark_tpu_torch.train.state import TrainState, iter_leaves
+
+    fields, flags, base, chunk = TRAIN_PROGRAM_CASES[case]
+    widths = dict(PROGRAM_WIDTHS, param_dtype="float32", remat=True, use_pallas_attention=True)
+    cfg = ModelConfig.tiny("llama", **dict(widths, **fields))
+    params = init_llark_params(cfg, seed=0, device=dev)
+    if cfg.lora_rank:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = lora.init_lora_params(cfg, gen, params)
+        for k in lora.lora_keys(params):
+            if k.endswith("_lora_b"):
+                params["layers"][k].normal_(0.0, 0.05, generator=gen)
+    if base == "int8":
+        params = quant.quantize_params_int8_incremental(cfg, params)
+    elif base == "int4":
+        params = quant.quantize_params_int4_incremental(cfg, params, group=128, layout="rows")
+    tstep.ParamPartition(params, tstep.trainable_mask(params, **flags))
+    opt = tstep.make_optimizer(TrainingArguments(learning_rate=1e-2, max_steps=10,
+                                                 warmup_ratio=0.1, weight_decay=0.01))
+    state = TrainState.create(params, opt)
+    start = 500 if flags.get("tune_mm_mlp_adapter") else None
+    fn = tstep.make_train_step(cfg, opt, audio_patch_id=7, grad_accum_steps=2, loss_chunk=chunk,
+                               trainable_token_start=start, dropout_seed=5)
+    if program:
+        fn = tstep.jit_train_step(fn)
+    metrics, launches = [], []
+    batches = _train_batches(dev, steps)
+    for i, batch in enumerate(batches):
+        before = launch_counts()
+        if i == reuse_seed_at:
+            state.step -= 1
+        state, m = fn(state, batch)
+        if i == reuse_seed_at:
+            state.step += 1
+        torch.cuda.synchronize()
+        launches.append(count_difference(launch_counts(), before))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    trained = {p: t.detach().float().clone() for p, t in iter_leaves(params) if t.requires_grad}
+    return metrics, trained, launches, fn, state, batches
+
+
+def _within_spread(got, want, again, what):
+    """got against want, within max(2 |want - again|, TRAIN_PROGRAM_REL
+    |want|) (tensors: max-abs, relative to max)."""
+    spread = float((want - again).abs().max()) if torch.is_tensor(want) else abs(want - again)
+    scale = float(want.abs().max()) if torch.is_tensor(want) else abs(want)
+    err = float((got - want).abs().max()) if torch.is_tensor(want) else abs(got - want)
+    assert err <= max(2 * spread, TRAIN_PROGRAM_REL * scale), (what, err, spread, scale)
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_PROGRAM_CASES))
+def test_train_program_replays_match_eager_steps(dev, case):
+    eager, trained_e, launches_e = _train_run(dev, case, program=False)[:3]
+    again, trained_a = _train_run(dev, case, program=False)[:2]
+    got, trained_p, launches_p, program = _train_run(dev, case, program=True)[:4]
+    for i, (g, w, a) in enumerate(zip(got, eager, again)):
+        for j, name in enumerate(("loss", "grad_norm")):
+            _within_spread(g[j], w[j], a[j], f"step {i + 1} {name}")
+    for path in trained_e:
+        _within_spread(trained_p[path], trained_e[path], trained_a[path], path)
+    # the graph launches what an eager step launches, and each replay adds it
+    assert program._graph is not None and program.calls == 3
+    assert launches_p == launches_e
+    assert launches_p[1] == launches_p[2] == program._captured
+    assert program.launches["flash_attention_bwd"] == 2 * 2  # layers x micro-batches
+
+
+def test_train_program_replays_draw_fresh_dropout_masks(dev):
+    case = "qlora_int8_full"
+    trained_e = _train_run(dev, case, program=False)[1]
+    trained_a = _train_run(dev, case, program=False)[1]
+    trained_p = _train_run(dev, case, program=True)[1]
+    # control: step 3 on step 2's masks moves the factors outside the spread
+    trained_s = _train_run(dev, case, program=False, reuse_seed_at=2)[1]
+    for path in trained_e:
+        _within_spread(trained_p[path], trained_e[path], trained_a[path], path)
+    with pytest.raises(AssertionError):
+        for path in trained_e:
+            _within_spread(trained_s[path], trained_e[path], trained_a[path], path)
+
+
+def test_train_program_replays_allocate_nothing(dev):
+    from llark_tpu_torch.ops import int8_matmul as int8_ops
+
+    _, _, _, program, state, batches = _train_run(dev, "qlora_int8_full", program=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    for batch in batches:
+        state, _ = program(state, batch)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == held and state.step == 6
+    key = (torch.device(dev).index or 0, program.pool.stream.cuda_stream)
+    assert program._workspace is not None and int8_ops._workspaces[key] is program._workspace
+
+
+def test_a_failed_train_capture_raises(dev, monkeypatch):
+    from llark_tpu_torch.train import step as tstep
+
+    train_loss = tstep.train_loss
+
+    def reads_back(cfg, loss, moe):  # a host read inside the step
+        if float(loss.detach()) > 1e30:
+            pass
+        return train_loss(cfg, loss, moe)
+
+    monkeypatch.setattr(tstep, "train_loss", reads_back)
+    with pytest.raises(RuntimeError):
+        _train_run(dev, "adapter", program=True, steps=1)

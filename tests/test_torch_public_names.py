@@ -6,8 +6,9 @@ defines at its top level without a leading underscore; the port's module
 provides a name if it defines or imports it under that name. The names the
 port does not have are listed below with their reasons: the JAX package's
 factories of compiled programs, whose function the port has as a plain one
-(PyTorch runs eagerly; the decode chunk, the one whose structure a compiled
-program carries, is `generate.make_multistep_decode_fn`), and a few
+(PyTorch runs eagerly; the decode chunk and the train step, whose structure
+a compiled program carries, are `generate.make_multistep_decode_fn` and
+`train.step.jit_train_step`), and a few
 divergences kept on purpose (ROADMAP.md).
 """
 
@@ -33,10 +34,6 @@ ABSENT = {
     "inference/paged.py": {
         "make_block_insert_fn": ("insert_blocks", "a jit of the block insert, which the port "
                                                   "writes in place"),
-    },
-    "train/step.py": {
-        "jit_train_step": ("make_train_step", "jax.jit with shardings and a donated state; the "
-                                              "port's step runs eagerly and shards by rank"),
     },
     "parallel/pipeline.py": {
         "pp_param_shardings": ("pp_shard_params", "NamedShardings for GSPMD; a rank of the port "
