@@ -9,7 +9,8 @@
                                       # 24 (the annotator trainer, the CLAP
                                       # text tower and the harness), 25
                                       # (parallelism), 26 (the captured
-                                      # decode chunk) or 27 (the captured
+                                      # prefill, admission and decode
+                                      # programs) or 27 (the captured
                                       # train step)
 
 Phases, in order; any failure exits non-zero before the final line:
@@ -276,7 +277,7 @@ Phases, in order; any failure exits non-zero before the final line:
      chosen equal but where the CPU's top-k margin is under MOE_MARGIN_EPS
      (counted; such rows left out), outputs within MOE_TOL (1e-4) relative
      to max, aux_loss and dropped_frac printed (control: TF32 products); (c)
-     8 layers, bf16 weights, "mixtral" routing at capacity factor 4 (as an
+     MOE_SERVE_LAYERS (4) layers, bf16 weights, "mixtral" routing at capacity factor 4 (as an
      imported Mixtral runs): `batch_infer` of phase 4's 4 requests, greedy,
      32 tokens, K1 once a layer a request, K2 once a layer a step in dense
      bf16 alone, and the 4 requests as one batch, prefill and one decode
@@ -300,8 +301,8 @@ Phases, in order; any failure exits non-zero before the final line:
      prefill through K1 for the one-shot mode, on the plain route for the
      chunks, which attend plainly: K1 rounds fp32 operands to bf16) up to
      its first step whose top-2 margin is under NEAR_TIE (control: the
-     streams against the next request's); (e) the adapter stage at 2
-     layers, fp32 parameters, "switch" at capacity factor 1.25, batch 2 x
+     streams against the next request's); (e) the adapter stage at
+     MOE_TRAIN_LAYERS (1) layer, fp32 parameters, "switch" at capacity factor 1.25, batch 2 x
      1024: one step's loss and projector gradient through the kernels
      against the plain attention path pinned to the kernel route's expert
      choices (under "switch" a flipped choice moves the row's later
@@ -369,7 +370,7 @@ Phases, in order; any failure exits non-zero before the final line:
      tensors and stages the rest through the host), each rank's K1 / K2 /
      K3+K4 / K5 launch counts set to 0 before its sharded run and read
      after it, each > 0; every reference runs on rank 0 in the same job:
-     (a) `ShardedGenerator` on (1, 1, 2), Llama-2-7B width cut to 8 layers
+     (a) `ShardedGenerator` on (1, 1, 2), Llama-2-7B width cut to 4 layers
      (P25_LAYERS), bf16 weights from the seed, fp32 compute, phase 4's 4
      requests, greedy, 32 tokens: each rank's local q [4, 16, 384, 128];
      prefill logits within LOGITS_TOL of `Generator` on the whole tree, the
@@ -395,29 +396,36 @@ Phases, in order; any failure exits non-zero before the final line:
      `ShardedGenerator` on `make_mesh((1, 1, 1))` at 4 layers, tokens equal
      to `Generator`'s. Printed: each part's seconds, each rank's peak
      memory, beside the card's name and power limit.
- 26. the captured decode chunk (`run_decode_program`, run after phase 16):
-     every decode chunk of `Generator` and of the engine's plain rounds is
-     a `DecodeProgram`, a CUDA graph replayed on the caches it was captured
-     on, and every phase above decodes through them; here each is held
-     against the same chunk issued eagerly through `decode_n` on the same
-     caches (`eager_chunks`), at Llama-2-7B width, 32 layers, weights from
-     the seed: (a) phase 4's first request, greedy, 32 new tokens (two
-     programs, chunks of 8 and 7): tokens equal; generate wall and decode
-     ms/token of both, and device time and idle share of a 9-token generate
-     under the profiler; (d) temperature 0.7, top-p 0.9: replayed and eager
-     chunks from generators seeded alike draw the same tokens, one program
-     called twice on the same inputs draws new ones and the generator
-     advances; (b) `BatchedServer` in phase 7's modes (a)-(d), 8 slots,
-     decode_chunk 8: a warm-up wave (the capture), then 8 requests x 32
-     tokens replayed and eager, streams equal, serve wall, tokens/s and peak
-     memory of each; then 8 more admitted and (e) one replayed round's
-     launches, as counted, equal to the program's captured counts and to 32
-     K2 launches a step in the mode's cache mode (plus 224 K5 / K6 a step
-     from quantized weights); a round's wall, device time, idle share and
-     tokens/s against the 8-slot floors of PERF.md (SLOT_FLOORS), replayed
-     and eager; (c) the same in mode (a) from int8 and from int4-rows
-     weights quantized on the card. Every figure beside the card's name and
-     power limit.
+ 26. the captured programs (`run_decode_program`, run after phase 16):
+     every prefill and decode chunk of `Generator` and every admission step
+     and plain round of the engine is a `graphs.Program`, a CUDA graph
+     replayed on the tensors it was captured on, and every phase above
+     prefills, admits and decodes through them; here each is held against
+     the same work issued eagerly on the same caches (`eager_programs`:
+     `decode_n` chunks, each program's `plain` route), at Llama-2-7B width,
+     32 layers, weights from the seed: (a) phase 4's first request, greedy,
+     32 new tokens (a prefill program, decode programs of chunks of 8 and
+     7): prefill logits bit-equal, tokens equal; the prefill's wall, device
+     time and idle share, generate wall and decode ms/token of both, and
+     device time and idle share of a 9-token generate under the profiler;
+     (d) temperature 0.7, top-p 0.9: replayed and eager routes from
+     generators seeded alike draw the same tokens, one decode program called
+     twice on the same inputs draws new ones and the generator advances;
+     (b) `BatchedServer` in phase 7's modes (a)-(d), 8 slots, decode_chunk
+     8: a warm-up wave (the captures), then 12 requests, 4 of them admitted
+     while rows decode, replayed and eager, streams equal, serve wall,
+     tokens/s, mean TTFT and peak memory of each; (e) each admission
+     program's launches a replay adds (32 K1 a one-shot prefill, 32 K2 a
+     paged tail, 224 K5 / K6 a forward from quantized weights); then 8 more
+     admitted and one replayed round's launches, as counted, equal to the
+     program's captured counts and to 32 K2 launches a step in the mode's
+     cache mode (plus 224 K5 / K6 a step from quantized weights); a round's
+     wall, device time, idle share and tokens/s against the 8-slot floors
+     of PERF.md (SLOT_FLOORS), replayed and eager; (c) the same in mode (a)
+     from int8 and from int4-rows weights quantized on the card. Each
+     program's first-call warm-up and capture ms are printed, and after
+     each phase the number of captures and their seconds. Every figure
+     beside the card's name and power limit.
  27. the captured train step (`run_train_program`, run after phase 18):
      train() runs step 1 eagerly and replays one CUDA graph a step after it
      (`train.step.jit_train_step`), so phases 10, 11, 17, 18 and 22 train
@@ -471,6 +479,7 @@ import time
 import numpy as np
 import torch
 
+from llark_tpu_torch import graphs
 from llark_tpu_torch.audio import io as audio_io
 from llark_tpu_torch.audio import neural, synthbench
 from llark_tpu_torch.audio import train_annotators as ta
@@ -3768,10 +3777,11 @@ def run_jukebox_path(directory: str, smi: str) -> None:
 # heads (head_dim 128), 8 experts of which 2 a token, rope_theta 1e6; with
 # LLark's vocabulary (32000 + 4) and projector (4800). A layer holds 1.451 B
 # parameters (1.409 B of them experts): 32 layers in bf16 are 93 GB, more
-# than the card holds, so serving runs 8 layers (23.8 GB) and training, whose
-# parameters are fp32, 2.
-MOE_SERVE_LAYERS = 8
-MOE_TRAIN_LAYERS = 2
+# than the card holds, so serving runs 4 layers (11.9 GB; 8 before the
+# script's time budget cut it) and training, whose parameters are fp32, 1 (2
+# before).
+MOE_SERVE_LAYERS = 4
+MOE_TRAIN_LAYERS = 1
 # (b) one layer's moe_ffn in fp32 (TF32 off), the card against the CPU's
 # plain path on the same weights, relative to max; TF32 products must land
 # above it. A token whose router probabilities on the CPU hold two of its
@@ -4083,7 +4093,10 @@ def moe_one_request(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, wq=
                 seen = stack.enter_context(pinned_routes(chosen["kernel"]) if pin else
                                            recorded_routes())
                 gen = Generator(c, params, bundle.audio_patch_id, exact, max_cache_len=2048)
-                first, cache = gen.prefill(*batch)
+                # eager: the routes are recorded and pinned in Python, which
+                # a replay does not run
+                with eager_programs(gen):
+                    first, cache = gen.prefill(*batch)
                 token = (first if route == "kernel" else logits["kernel"][0]).argmax(-1)
                 if route == "kernel":
                     reset_wq_counts()
@@ -5008,7 +5021,7 @@ def checkpoint_io_alone(directory: str, smi: str) -> None:
 # phase 25: parallelism, two ranks sharing the card
 # ---------------------------------------------------------------------------
 
-P25_LAYERS = 8  # (a), (b): Llama-2-7B width, cut from 32 layers
+P25_LAYERS = 4  # (a), (b): Llama-2-7B width, cut from 32 layers (8 before the time budget)
 P25_TRAIN_LAYERS = 2  # (c), (d)
 P25_SEQ = 512  # (c), (d): training positions a row
 P25_SERVE_NEW = 16  # (b): new tokens a request
@@ -5500,11 +5513,12 @@ P26_NEW = 32  # new tokens a request, as phases 4 and 7
 
 
 @contextlib.contextmanager
-def eager_chunks(obj):
-    """Inside, the decode chunks of a Generator or a BatchedServer run
-    eagerly through `decode_n` on the same caches, every op issued from
-    Python as before the decode programs: the plain route that phase 26
-    holds the replays against. The package has no such switch."""
+def eager_programs(obj):
+    """Inside, a Generator's or a BatchedServer's programs run eagerly on
+    the same caches, every op issued from Python as before they were
+    captured: decode chunks through `decode_n`, prefills and admission
+    steps through each program's `plain` route. The route phase 26 holds
+    the replays against; the package has no such switch."""
     def chunk(n):
         return lambda params, token, cache, pos, rng: decode_n(
             obj.cfg, obj.gen_cfg, params, token, cache, pos, n, rng)
@@ -5512,22 +5526,25 @@ def eager_chunks(obj):
     if isinstance(obj, BatchedServer):
         saved = obj._programs
         obj._programs = {n: chunk(n) for n in (obj.decode_chunk, obj.decode_chunk_drain) if n}
+        obj._program = lambda kind, bucket: BatchedServer._program(obj, kind, bucket).plain
     else:
         obj._decode_chunk = lambda token, cache, pos, n, rng: chunk(n)(obj.params, token, cache,
                                                                        pos, rng)
+        obj._prefill_fn = lambda b, s, t: Generator._prefill_fn(obj, b, s, t).plain
     try:
         yield
     finally:
         if isinstance(obj, BatchedServer):
             obj._programs = saved
+            del obj._program
         else:
-            del obj._decode_chunk
+            del obj._decode_chunk, obj._prefill_fn
 
 
 def route(name: str, obj):
     """The context of a route: "graph" (the package's replayed programs) or
-    "eager" (`eager_chunks`)."""
-    return contextlib.nullcontext() if name == "graph" else eager_chunks(obj)
+    "eager" (`eager_programs`)."""
+    return contextlib.nullcontext() if name == "graph" else eager_programs(obj)
 
 
 def launch_snapshot() -> dict:
@@ -5556,51 +5573,82 @@ def one_request_args(bundle: TokenizerBundle, row) -> tuple:
             np.array([256], np.int32))
 
 
+def capture_times(programs: dict) -> str:
+    """Each captured program's first-call warm-up + capture, in ms."""
+    return ", ".join(f"{key} {p.warm_ms:.0f} + {p.capture_ms:.0f}"
+                     for key, p in programs.items() if p.capture_ms is not None)
+
+
 def p26_generate(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: str) -> dict:
     """(a): phase 4's first request through one Generator, greedy, 32 new
-    tokens (a prefill, then chunks of 8, 8, 8 and 7: two programs), its
-    chunks replayed and then the same generate with eager chunks on the
-    same cache: tokens equal; wall of each; device time and idle share of
-    a 9-token generate (prefill + one chunk of 8) under the profiler."""
+    tokens (a prefill program, then chunks of 8, 8, 8 and 7: two decode
+    programs), replayed and then the same with every program eager on the
+    same cache: prefill logits bit-equal, tokens equal; the prefill's wall,
+    device time and idle share, the generate's wall and decode ms/token of
+    each; device time and idle share of a 9-token generate (prefill + one
+    chunk of 8) under the profiler; (e) the prefill replay's launches."""
     args = one_request_args(bundle, rows[0])
     exact = GenerationConfig(max_new_tokens=P26_NEW, stop_text="")
     gen = Generator(cfg, params, bundle.audio_patch_id, exact, max_cache_len=2048)
     first, first_s = seconds(lambda: gen.generate(*args))
-    _, prefill_s = seconds(lambda: gen.prefill(*args))
     short = Generator(cfg, params, bundle.audio_patch_id,
                       GenerationConfig(max_new_tokens=9, stop_text=""), max_cache_len=2048)
-    short.generate(*args)  # captures its program
+    short.generate(*args)  # captures its programs
     out = {}
     for name in ("graph", "eager"):
         with route(name, gen):
+            logits = gen.prefill(*args)[0].clone()
+            prefill_ms = statistics.median(seconds(lambda: gen.prefill(*args))[1] * 1e3
+                                           for _ in range(5))
+            prefill_busy = profile_device(
+                lambda: gen.prefill(*args), prefill_ms, top=4,
+                what=f"  (a) {name}: one prefill of {args[0].shape[1]} positions on {smi}")
             toks, wall = seconds(lambda: gen.generate(*args))
         with route(name, short):
             _, short_s = seconds(lambda: short.generate(*args))
             busy = profile_device(lambda: short.generate(*args), short_s * 1e3,
                                   what=f"  (a) {name}: one generate of 9 tokens (prefill + 8 "
                                        f"steps) on {smi}")
-        decode_ms = (wall - prefill_s) * 1e3 / (P26_NEW - 1)
-        out[name] = dict(tokens=toks[0], wall_ms=wall * 1e3, decode_ms=decode_ms,
+        decode_ms = (wall * 1e3 - prefill_ms) / (P26_NEW - 1)
+        out[name] = dict(tokens=toks[0], logits=logits, wall_ms=wall * 1e3, decode_ms=decode_ms,
+                         prefill_ms=prefill_ms, prefill_device_ms=prefill_busy,
                          short_wall_ms=short_s * 1e3, short_device_ms=busy)
-        print(f"  (a) {name} chunks: one request, prompt {args[1][0]} tokens, {P26_NEW} new: "
-              f"generate {wall * 1e3:.1f} ms wall, decode {decode_ms:.2f} ms/token "
-              f"({1e3 / decode_ms:.1f} tok/s; prefill {prefill_s * 1e3:.1f} ms), on {smi}")
+        idle = ("not measured" if prefill_busy is None else
+                f"{1 - prefill_busy / prefill_ms:.1%}")
+        print(f"  (a) {name} programs: one request, prompt {args[1][0]} tokens, {P26_NEW} new: "
+              f"prefill {prefill_ms:.2f} ms wall (median of 5), idle {idle}; generate "
+              f"{wall * 1e3:.1f} ms wall, decode {decode_ms:.2f} ms/token "
+              f"({1e3 / decode_ms:.1f} tok/s), on {smi}")
     check(sorted(gen._programs) == [(1, 7), (1, 8)],
           f"(a): programs {sorted(gen._programs)}, not one per chunk length")
+    check(list(gen._prefills) == [(1, args[0].shape[1], 256)],
+          f"(a): prefill programs {list(gen._prefills)}, not one for the request's shape")
     check(first[0] == out["graph"]["tokens"] == out["eager"]["tokens"],
-          "(a): the replayed chunks' tokens are not the eager chunks'")
-    print(f"  (a) greedy tokens of the replayed chunks equal the eager chunks' "
-          f"({len(first[0])}/{len(first[0])}); the first generate, which warms up and captures "
-          f"both programs, {first_s * 1e3:.1f} ms on {smi}")
+          "(a): the replayed programs' tokens are not the eager route's")
+    rel, diff = rel_err(out["graph"]["logits"], out["eager"]["logits"])
+    check(torch.equal(out["graph"]["logits"], out["eager"]["logits"]),
+          f"(a): the replayed prefill's logits differ from the eager prefill's: max|d| {diff:.3e}, "
+          f"rel-to-max {rel:.3e}")
+    prefill = gen._prefills[(1, args[0].shape[1], 256)]
+    check(prefill.launches == {"flash_attention_fwd": cfg.num_layers},
+          f"(e): one prefill replay adds {prefill.launches}, not {cfg.num_layers} K1 launches")
+    print(f"  (a) the replayed prefill's logits equal the eager prefill's bit for bit, greedy "
+          f"tokens equal ({len(first[0])}/{len(first[0])}); (e) a prefill replay adds "
+          f"{prefill.launches}; the first generate, which warms up and captures three programs, "
+          f"{first_s * 1e3:.1f} ms; warm-up + capture ms: prefill "
+          f"{capture_times(gen._prefills)}, decode {capture_times(gen._programs)}; on {smi}")
+    for name in ("graph", "eager"):
+        out[name].pop("logits")
     return out
 
 
 def p26_sampled(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: str) -> None:
     """(d): temperature 0.7, top-p 0.9: one generate through the replayed
-    chunks and one through eager chunks from generators seeded alike must
-    draw the same tokens (the graph's generator takes the caller's state
-    and hands the advanced state back); one program called twice on the same
-    inputs must draw new noise, and the caller's generator must advance."""
+    programs and one through the eager route from generators seeded alike
+    must draw the same tokens (the graph's generator takes the caller's
+    state and hands the advanced state back); one decode program called
+    twice on the same inputs must draw new noise, and the caller's
+    generator must advance."""
     args = one_request_args(bundle, rows[1])
     sampled = GenerationConfig(max_new_tokens=P26_NEW, temperature=0.7, top_p=0.9, stop_text="")
     gen = Generator(cfg, params, bundle.audio_patch_id, sampled, max_cache_len=2048)
@@ -5609,10 +5657,10 @@ def p26_sampled(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: st
         return torch.Generator(device="cuda").manual_seed(SEED + 26)
 
     runs = [gen.generate(*args, rng=seeded())[0] for _ in range(2)]
-    with eager_chunks(gen):
+    with eager_programs(gen):
         runs.append(gen.generate(*args, rng=seeded())[0])
     check(runs[0] == runs[1] == runs[2],
-          "(d): sampled tokens differ between the replays and the eager chunks of one seed")
+          "(d): sampled tokens differ between the replays and the eager route of one seed")
     program = gen._programs[(1, 8)]
     rng = seeded()
     token = torch.tensor([runs[0][0]], device="cuda")
@@ -5624,44 +5672,74 @@ def p26_sampled(cfg: ModelConfig, bundle: TokenizerBundle, rows, params, smi: st
     check(draws[0] != draws[1], f"(d): two replays on the same inputs drew the same tokens {draws}")
     check(not torch.equal(states[0], states[1]) and not torch.equal(states[1], states[2]),
           "(d): the caller's generator did not advance over a replay")
-    print(f"  (d) sampled (T 0.7, top-p 0.9): the replayed chunks' {len(runs[0])} tokens equal the "
-          f"eager chunks' from one seed; one program on the same inputs twice drew {draws[0]} "
-          f"then {draws[1]}, the generator advancing each time, on {smi}")
+    print(f"  (d) sampled (T 0.7, top-p 0.9): the replayed programs' {len(runs[0])} tokens equal "
+          f"the eager route's from one seed; one decode program on the same inputs twice drew "
+          f"{draws[0]} then {draws[1]}, the generator advancing each time, on {smi}")
 
 
-def p26_wave(cfg: ModelConfig, bundle: TokenizerBundle, seed: int, new: int) -> list:
-    reqs = serving_requests(cfg, bundle, 8, seed)
+def p26_wave(cfg: ModelConfig, bundle: TokenizerBundle, seed: int, new: int, n: int = 8) -> list:
+    reqs = serving_requests(cfg, bundle, n, seed)
     for r in reqs:
         r.max_new_tokens = new
     return reqs
 
 
+def p26_live_wave(cfg: ModelConfig, bundle: TokenizerBundle) -> list:
+    """The wave of record: 12 requests on 8 slots, the first 8 of budgets
+    16 and 32 in turn, so that the last 4 are admitted while 4 rows still
+    decode (chunked admission runs decode rounds between its chunks)."""
+    reqs = p26_wave(cfg, bundle, SEED, P26_NEW, 12)
+    for r in reqs[:8:2]:
+        r.max_new_tokens = P26_NEW // 2
+    return reqs
+
+
+def p26_admission_launches(cfg: ModelConfig, wq) -> dict:
+    """What one replay of each admission program adds at 32 layers: K1 per
+    layer in the one-shot prefill, K2 per layer in the paged tail, and the
+    224 products of a forward from quantized weights."""
+    want = {"prefill": {"flash_attention_fwd": cfg.num_layers}, "suffix": {}, "embed": {},
+            "chunk": {}, "paged_chunk": {}, "last": {"flash_decode_attention": cfg.num_layers},
+            "insert": {}, "block_insert": {}}
+    if wq:
+        for kind in ("prefill", "suffix", "chunk", "paged_chunk", "last"):
+            want[kind][f"{wq}_matmul"] = PRODUCTS_PER_FORWARD
+    return want
+
+
 def p26_serve(mcfg: ModelConfig, bundle: TokenizerBundle, params, kw: dict, what: str,
               own_mode: str, wq, smi: str, profile_eager: bool = False) -> dict:
     """One BatchedServer in one mode: a wave of 8 two-token requests served
-    once to warm up and capture the chunk program (one round); the wave of
-    record (8 x 32 tokens) with replayed rounds, then with eager rounds,
-    streams equal; then 8 longer requests admitted: one round's launches
-    against the program's captured counts (e), a replayed round's wall,
-    device time and idle share, and an eager round's wall (its device time
-    and idle share too with `profile_eager`: the profiler's cost grows with
-    the eager round's ~10^4 host-issued ops)."""
+    once to warm up and capture its programs (admission and one round); the
+    wave of record (`p26_live_wave`) with every program replayed, then with
+    every program eager, streams equal, with each route's serve wall,
+    tokens/s, mean TTFT and peak memory; (e) each admission program's
+    launches a replay adds; then 8 longer requests admitted: one round's
+    launches against the decode program's captured counts (e), a replayed
+    round's wall, device time and idle share, and an eager round's wall
+    (its device time and idle share too with `profile_eager`: the
+    profiler's cost grows with the eager round's ~10^4 host-issued ops)."""
     gen_cfg = GenerationConfig(max_new_tokens=2 * P26_NEW, stop_text="")
     server = BatchedServer(mcfg, params, bundle.audio_patch_id, gen_cfg, **kw)
     _, warm_s = seconds(lambda: server.serve(p26_wave(mcfg, bundle, SEED + 2, 2)))
     out = {"warm_s": warm_s}
     for name in ("graph", "eager"):
-        reqs = p26_wave(mcfg, bundle, SEED, P26_NEW)
+        reqs = p26_live_wave(mcfg, bundle)
         torch.cuda.reset_peak_memory_stats()
         with route(name, server):
             _, wall = seconds(lambda: server.serve(reqs))
-        check(all(r.done and r.error is None and len(r.tokens) == P26_NEW for r in reqs),
-              f"{what}: a request did not finish with {P26_NEW} tokens")
+        check(all(r.done and r.error is None and len(r.tokens) == r.max_new_tokens for r in reqs),
+              f"{what}: a request did not finish with its budget of tokens")
+        stats = server.stats(reqs)
         out[name] = dict(streams=[r.tokens for r in reqs], wall_s=wall,
-                         tokens_per_sec=server.stats(reqs)["tokens_per_sec"],
+                         tokens_per_sec=stats["tokens_per_sec"], mean_ttft_s=stats["mean_ttft_s"],
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     check(out["graph"]["streams"] == out["eager"]["streams"],
-          f"{what}: the replayed rounds' streams are not the eager rounds'")
+          f"{what}: the replayed programs' streams are not the eager route's")
+    admitted = {kind: p.launches for (kind, _), p in server._admission.items()}
+    want_admitted = p26_admission_launches(mcfg, wq)
+    check(admitted == {kind: want_admitted[kind] for kind in admitted},
+          f"{what}: the admission programs' replays add {admitted}")
     # 8 requests of 64 tokens: live through the 5 rounds below
     program = server._programs[server.decode_chunk]
     server._queue = p26_wave(mcfg, bundle, SEED + 1, 2 * P26_NEW)
@@ -5680,6 +5758,7 @@ def p26_serve(mcfg: ModelConfig, bundle: TokenizerBundle, params, kw: dict, what
         want[f"{wq}_matmul"] = PRODUCTS_PER_FORWARD * steps
     check(counted == captured == want,
           f"{what}: one replayed round counted {counted}, captured {captured}, not {want}")
+    n_tokens = sum(len(s) for s in out["graph"]["streams"])
     for name in ("graph", "eager"):
         with route(name, server):
             if name == "graph" or profile_eager:
@@ -5690,16 +5769,20 @@ def p26_serve(mcfg: ModelConfig, bundle: TokenizerBundle, params, kw: dict, what
         out[name].update(round_wall_ms=wall_ms, round_device_ms=busy_ms)
         busy = "not profiled" if busy_ms is None else f"{busy_ms:.1f} ms"
         idle = "not profiled" if busy_ms is None else f"{1 - busy_ms / wall_ms:.1%}"
-        print(f"  {what}, {name} rounds: serve 8 x {P26_NEW} in {out[name]['wall_s']:.3f} s, "
-              f"{out[name]['tokens_per_sec']:.1f} tokens/s, peak {out[name]['peak_gib']:.2f} GiB; "
+        print(f"  {what}, {name} programs: serve 12 requests ({n_tokens} tokens, 4 admitted "
+              f"while 4 rows decode) in {out[name]['wall_s']:.3f} s, "
+              f"{out[name]['tokens_per_sec']:.1f} tokens/s, mean TTFT "
+              f"{out[name]['mean_ttft_s'] * 1e3:.1f} ms, peak {out[name]['peak_gib']:.2f} GiB; "
               f"a round of 8 slots x {steps}: wall {wall_ms:.1f} ms, device {busy}, idle {idle}, "
               f"{8 * steps / wall_ms * 1e3:.1f} tokens/s against the ~{SLOT_FLOORS[wq or 'bf16']} "
               f"floor; on {smi}")
         if top is not None:
             print(f"    {top}")
-    print(f"  {what}: streams of the replayed rounds equal the eager rounds' (8/8); one replayed "
-          f"round adds {counted}, its capture's counts; the warm-up wave, capture included, "
-          f"{warm_s:.2f} s; memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; on {smi}")
+    print(f"  {what}: streams of the replayed programs equal the eager route's (12/12); (e) one "
+          f"replayed round adds {counted}, its capture's counts; an admission replay adds "
+          f"{admitted}; the warm-up wave, captures included, {warm_s:.2f} s; warm-up + capture "
+          f"ms: {capture_times(server._admission)}, decode {capture_times(server._programs)}; "
+          f"memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; on {smi}")
     del server, program
     torch.cuda.empty_cache()
     return out
@@ -5707,13 +5790,14 @@ def p26_serve(mcfg: ModelConfig, bundle: TokenizerBundle, params, kw: dict, what
 
 @torch.inference_mode()
 def run_decode_program(cfg: ModelConfig, bundle: TokenizerBundle, rows, smi: str) -> dict:
-    """Phase 26: the captured decode chunk at Llama-2-7B width, 32 layers,
-    weights from the seed: (a) one request through the Generator, (d)
-    sampling, (b) the serving engine in modes (a)-(d) of phase 7, (c) mode
-    (a) from int8 and from int4 weights, each replayed against eager chunks
-    (`eager_chunks`); (e) one round's launches against its capture's."""
-    print(f"phase 26 on {smi}: decode chunks as CUDA graphs (generate.DecodeProgram), replays "
-          f"against eager decode_n chunks on the same caches")
+    """Phase 26: the captured prefill, admission and decode programs at
+    Llama-2-7B width, 32 layers, weights from the seed: (a) one request
+    through the Generator, (d) sampling, (b) the serving engine in modes
+    (a)-(d) of phase 7, (c) mode (a) from int8 and from int4 weights, each
+    replayed against the eager route (`eager_programs`); (e) the launches a
+    replay adds against its capture's."""
+    print(f"phase 26 on {smi}: prefill, admission and decode as CUDA graphs (graphs.Program), "
+          f"replays against the eager route on the same caches")
     figures, marks = {}, [time.perf_counter()]
     params = init_llark_params(cfg, seed=SEED, device="cuda")
     figures["generate"] = p26_generate(cfg, bundle, rows, params, smi)
@@ -6087,7 +6171,7 @@ ALONE = {17: ("checkpoint I/O and the WebDataset CLI", checkpoint_io_alone),
          24: ("the annotator trainer, the CLAP text tower and the harness",
               run_annotator_text_phase),
          25: ("parallelism: two ranks sharing the card, one NCCL rank", run_parallel_phase),
-         26: ("the captured decode chunk", run_decode_program_alone),
+         26: ("the captured prefill, admission and decode programs", run_decode_program_alone),
          27: ("the captured train step", run_train_program_alone)}
 
 
@@ -6110,7 +6194,35 @@ def set_up_card() -> tuple:
                 print(f"  {src}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    record_captures()
     return smi, kind
+
+
+# every program capture of the run (graphs.Program): (what, warm-up ms, capture ms)
+CAPTURES: list = []
+
+
+def record_captures() -> None:
+    """Append each program's first-call warm-up and capture to CAPTURES
+    (the package keeps no such list)."""
+    real = graphs.Program._capture
+
+    def recorded(self, *args):
+        real(self, *args)
+        CAPTURES.append((self.what, self.warm_ms, self.capture_ms))
+
+    graphs.Program._capture = recorded
+
+
+_CAPTURES_READ = [0]
+
+
+def new_captures() -> str:
+    """The program captures since the last call, and their seconds."""
+    new = CAPTURES[_CAPTURES_READ[0]:]
+    _CAPTURES_READ[0] = len(CAPTURES)
+    return (f"{len(new)} program captures ({sum(w for _, w, _ in new) / 1e3:.1f} s of warm-ups, "
+            f"{sum(c for _, _, c in new) / 1e3:.1f} s of captures)")
 
 
 def main(argv=None) -> int:
@@ -6127,7 +6239,7 @@ def main(argv=None) -> int:
         label, fn = ALONE[args.phase]
         with tempfile.TemporaryDirectory() as tmp:
             _, phase_s = seconds(lambda: fn(tmp, smi))
-        print(f"phase {args.phase} ({label}): {phase_s:.1f} s")
+        print(f"phase {args.phase} ({label}): {phase_s:.1f} s; {new_captures()}")
         print(smi)
         return 0
 
@@ -6145,7 +6257,8 @@ def main(argv=None) -> int:
     admitted = [len(r.input_ids) for r in serving_requests(cfg, bundle, 8, SEED)]
     fwd_err = max(fwd_err, check_flash_fwd_admission(gen, admitted))
     serving, bf16_serving = run_serving_engine(cfg, bundle)
-    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s since the card was found")
+    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s since the card was found; "
+          f"{new_captures()}")
 
     wq_err = check_wq_matmul(gen)
     wq_serving = {
@@ -6153,9 +6266,11 @@ def main(argv=None) -> int:
         "int4": run_quantized_serving(cfg, bundle, rows, "int4", "a", bf16_main, bf16_serving),
     }
     check_int4_cols(cfg)
-    print(f"phases 1-7, 13-16: {time.perf_counter() - t_start:.1f} s since the card was found")
+    print(f"phases 1-7, 13-16: {time.perf_counter() - t_start:.1f} s since the card was found; "
+          f"phases 13-16: {new_captures()}")
     _, phase_s = seconds(lambda: run_decode_program(cfg, bundle, rows, smi))
-    print(f"phase 26 (the captured decode chunk) on {smi}: {phase_s:.1f} s")
+    print(f"phase 26 (the captured prefill, admission and decode programs) on {smi}: "
+          f"{phase_s:.1f} s; {new_captures()}")
 
     bwd_err = check_flash_bwd(gen)
     check_fp32_kernels(gen)
@@ -6171,35 +6286,41 @@ def main(argv=None) -> int:
             f"run-of-record flags, 7B width, {FULL_LAYERS} layers",
             dataclasses.replace(train_cfg, num_layers=FULL_LAYERS), os.path.join(tmp, "full"),
             shard, 6, frozen_base=False, lr=1e-4, tune_mm_mlp_adapter=True)
-        print(f"and phases 8-11: {time.perf_counter() - t_start:.1f} s since the card was found")
+        print(f"and phases 8-11: {time.perf_counter() - t_start:.1f} s since the card was found; "
+              f"{new_captures()}")
         _, phase_s = seconds(lambda: run_checkpoint_io(os.path.join(tmp, "ckpt"), shard, smi))
-        print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s")
+        print(f"phase 17 (checkpoint I/O and the WebDataset CLI): {phase_s:.1f} s; "
+              f"{new_captures()}")
         _, phase_s = seconds(lambda: run_lora(os.path.join(tmp, "lora"), shard, smi))
-        print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s")
+        print(f"phase 18 (LoRA and QLoRA training, serving the run): {phase_s:.1f} s; "
+              f"{new_captures()}")
         _, phase_s = seconds(lambda: run_train_program(os.path.join(tmp, "p27"), shard, smi))
-        print(f"phase 27 (the captured train step) on {smi}: {phase_s:.1f} s")
+        print(f"phase 27 (the captured train step) on {smi}: {phase_s:.1f} s; {new_captures()}")
     _, phase_s = seconds(lambda: run_speculation(cfg, bundle, rows, bf16_serving, smi))
-    print(f"phase 19 (speculative decoding, beam search, the HTTP engine): {phase_s:.1f} s")
+    print(f"phase 19 (speculative decoding, beam search, the HTTP engine): {phase_s:.1f} s; "
+          f"{new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_clap_path(tmp, smi))
-    print(f"phase 20 (CLAP path): {phase_s:.1f} s")
+    print(f"phase 20 (CLAP path): {phase_s:.1f} s; {new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_jukebox_path(tmp, smi))
-    print(f"phase 21 (Jukebox path): {phase_s:.1f} s")
+    print(f"phase 21 (Jukebox path): {phase_s:.1f} s; {new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_moe_path(tmp, smi))
-    print(f"phase 22 (Mixture-of-Experts at Mixtral-8x7B width): {phase_s:.1f} s")
+    print(f"phase 22 (Mixture-of-Experts at Mixtral-8x7B width): {phase_s:.1f} s; "
+          f"{new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_native_phase(tmp, smi))
-    print(f"phase 23 (native I/O, annotation and preprocessing) on {smi}: {phase_s:.1f} s")
+    print(f"phase 23 (native I/O, annotation and preprocessing) on {smi}: {phase_s:.1f} s; "
+          f"{new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_annotator_text_phase(tmp, smi))
     print(f"phase 24 (the annotator trainer, the CLAP text tower, the harness) on {smi}: "
-          f"{phase_s:.1f} s")
+          f"{phase_s:.1f} s; {new_captures()}")
     with tempfile.TemporaryDirectory() as tmp:
         _, phase_s = seconds(lambda: run_parallel_phase(tmp, smi))
     print(f"phase 25 (parallelism: two ranks sharing the card, one NCCL rank) on {smi}: "
-          f"{phase_s:.1f} s")
+          f"{phase_s:.1f} s; {new_captures()}")
     launches["flash_bwd"] = adapter["flash_attention_bwd"]
 
     kernels = []

@@ -3,7 +3,11 @@ llark_tpu/generate.py).
 
   * prefill: one multimodal forward over the right-padded prompt that
     fills an empty KV cache (the flash-prefill kernel attends S x S over
-    the in-flight K/V) and returns the next-token logits of each row;
+    the in-flight K/V) and returns the next-token logits of each row; as
+    one program (`PrefillProgram`, the reference's jitted
+    `make_prefill_fn`) it is a CUDA graph on the card, one per shape. The
+    serving engine's admission steps (chunks, the chunked prefill's tail,
+    suffixes over a shared prefix) are programs too (`make_*_fn` below);
   * decode: `decode_chunk` single-token steps as one program
     (`DecodeProgram`, the reference's `make_multistep_decode_fn`): on the
     card a CUDA graph captured once and replayed for every chunk, sampling
@@ -30,17 +34,9 @@ import torch
 
 from llark_tpu_torch.config import ModelConfig
 from llark_tpu_torch.device import resolve_device
-from llark_tpu_torch.graphs import (
-    GraphPool,
-    add_launch_counts,
-    capture,
-    count_difference,
-    launch_counts,
-    launches_by_name,
-    set_launch_counts,
-)
+from llark_tpu_torch.graphs import GraphPool, Program, cache_tensors
 from llark_tpu_torch.models import decoder as decoder_lib
-from llark_tpu_torch.models.decoder import CACHE_TENSORS, Params, init_kv_cache
+from llark_tpu_torch.models.decoder import Params, init_kv_cache
 from llark_tpu_torch.models.fusion import build_inputs_embeds
 
 
@@ -131,13 +127,23 @@ def prefill_chunk(
     embeds: torch.Tensor,  # [B, C, H] fused prompt embeddings of one chunk
     prompt_lengths: torch.Tensor,  # [B]
     cache: Params,
+    chunk_start: Union[int, torch.Tensor, None] = None,
 ) -> Params:
-    """Extend a dense cache at its index by one chunk of fused prompt
-    embeddings, skipping the LM head (llark_tpu/generate.py:99-117): the
-    server's chunked admission, which interleaves decode rounds with
-    long-prompt prefills."""
+    """Extend a dense cache by one chunk of fused prompt embeddings at
+    `chunk_start` (default: the cache's index), skipping the LM head
+    (llark_tpu/generate.py:99-117): the server's chunked admission, which
+    interleaves decode rounds with long-prompt prefills. The offset is an
+    int or a [B] int32 device tensor, as the reference's index is traced:
+    it goes through the decoder's per-row `cache_positions` route, with the
+    plain attention over the cache at every chunk length, so one captured
+    program serves every chunk of a bucket."""
+    if not torch.is_tensor(chunk_start):
+        start = cache["index"] if chunk_start is None else chunk_start
+        chunk_start = torch.full((embeds.shape[0],), start, dtype=torch.int32,
+                                 device=embeds.device)
     _, cache = decoder_lib.decoder_forward(
-        cfg, params, inputs_embeds=embeds, seq_lengths=prompt_lengths, kv_cache=cache,
+        dataclasses.replace(cfg, use_flash_decode=False), params, inputs_embeds=embeds,
+        seq_lengths=prompt_lengths, kv_cache=cache, cache_positions=chunk_start,
         return_hidden=True,
     )
     return cache
@@ -149,16 +155,18 @@ def paged_prefill_chunk(
     embeds: torch.Tensor,  # [B, C, H], C a multiple of the KV block size
     prompt_lengths: torch.Tensor,  # [B] absolute live lengths
     cache: Params,  # paged, tables cropped to each row's admission span
-    chunk_start: int,  # a multiple of the KV block size
+    chunk_start: Union[int, torch.Tensor],  # a multiple of the KV block size
 ) -> Params:
     """One block-aligned chunk written straight into the pool blocks the
     cache's block tables name (llark_tpu/generate.py:120-146): no dense
-    admission cache and no block insert afterwards."""
-    b = embeds.shape[0]
-    cpos = torch.full((b,), chunk_start, dtype=torch.int32, device=embeds.device)
+    admission cache and no block insert afterwards. `chunk_start` is an int
+    or a [B] int32 device tensor, as in `prefill_chunk`."""
+    if not torch.is_tensor(chunk_start):
+        chunk_start = torch.full((embeds.shape[0],), chunk_start, dtype=torch.int32,
+                                 device=embeds.device)
     _, cache = decoder_lib.decoder_forward(
         cfg, params, inputs_embeds=embeds, seq_lengths=prompt_lengths, kv_cache=cache,
-        cache_positions=cpos, return_hidden=True, paged_chunk=True,
+        cache_positions=chunk_start, return_hidden=True, paged_chunk=True,
     )
     return cache
 
@@ -229,6 +237,216 @@ def suffix_prefill(
     return logits[torch.arange(logits.shape[0], device=logits.device), last], cache
 
 
+# ---------------------------------------------------------------------------
+# Compiled prefill and admission programs: the reference's jax.jit of each
+# factory below, as `graphs.Program`s (one CUDA graph each on the card). A
+# program serves one batch and shape and binds to the tensors it writes;
+# `plain` is its eager route, with the same signature.
+# ---------------------------------------------------------------------------
+
+
+class PrefillProgram(Program):
+    """`prefill` as one program (llark_tpu/generate.py:66-96, jitted per
+    shape at :306): (params, input_ids [B, S], prompt_lengths [B], audio
+    [B, T, mm], frame_counts [B], cache=None) -> (next-token logits [B, V],
+    cache). It binds to the cache of its first call (a dense cache of B rows
+    and max_cache_len positions; without one it makes its own) and fills it
+    from position 0 at every call; the logits are its own buffer. One
+    program serves one (B, S, T)."""
+
+    what = "prefill"
+
+    def __init__(self, cfg: ModelConfig, audio_patch_id: int, max_cache_len: int,
+                 pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg, self.audio_patch_id, self.max_cache_len = cfg, audio_patch_id, max_cache_len
+
+    def plain(self, params, input_ids, prompt_lengths, audio_encodings, audio_frame_counts,
+              cache=None):
+        return prefill(self.cfg, params, input_ids, prompt_lengths, audio_encodings,
+                       audio_frame_counts, self.audio_patch_id, self.max_cache_len, cache)
+
+    @torch.inference_mode()
+    def __call__(self, params, input_ids, prompt_lengths, audio_encodings, audio_frame_counts,
+                 cache=None):
+        b, s = input_ids.shape
+        if cache is None:
+            cache = (self._bound["cache"] if self._bound is not None else
+                     init_kv_cache(self.cfg, b, self.max_cache_len, device=input_ids.device))
+        self.bind(params=params, cache=cache_tensors(cache))
+        x = self.stage(ids=input_ids, lengths=prompt_lengths, audio=audio_encodings,
+                       frames=audio_frame_counts)
+        work = dict(self._bound["cache"], index=0)
+        logits, = self.run(lambda: (self.plain(params, x["ids"], x["lengths"], x["audio"],
+                                               x["frames"], work)[0],), input_ids.device)
+        return logits, dict(cache, index=s)
+
+
+class PrefillChunkProgram(Program):
+    """`prefill_chunk` as one program (llark_tpu/generate.py:99-117, jitted
+    with the cache donated at llark_tpu/inference/server.py:328): (params,
+    embeds [B, C, H], prompt_lengths [B], cache) -> cache with its index
+    advanced by C. The chunk's offset is the cache's host-side index, which
+    the call copies into a static device buffer that the body passes as
+    `chunk_start`: one program serves every chunk of a bucket."""
+
+    what = "prefill chunk"
+
+    def __init__(self, cfg: ModelConfig, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg = cfg
+
+    def plain(self, params, embeds, prompt_lengths, cache, chunk_start=None):
+        return prefill_chunk(self.cfg, params, embeds, prompt_lengths, cache, chunk_start)
+
+    @torch.inference_mode()
+    def __call__(self, params, embeds, prompt_lengths, cache):
+        b, c = embeds.shape[:2]
+        self.bind(params=params, cache=cache_tensors(cache))
+        x = self.stage(embeds=embeds, lengths=prompt_lengths,
+                       offset=torch.full((b,), cache["index"], dtype=torch.int32,
+                                         device=embeds.device))
+        work = dict(self._bound["cache"], index=0)
+
+        def body():
+            self.plain(params, x["embeds"], x["lengths"], work, x["offset"])
+            return ()
+
+        self.run(body, embeds.device)
+        return dict(cache, index=cache["index"] + c)
+
+
+class PagedPrefillChunkProgram(Program):
+    """`paged_prefill_chunk` as one program (llark_tpu/generate.py:120-146):
+    (params, embeds [B, C, H], prompt_lengths [B], cache, chunk_start) ->
+    cache. `chunk_start` goes into a static device buffer, so one program
+    serves every chunk; the cache's block tables are bound like its pools,
+    so a caller copies each admission's tables into the bound tensor."""
+
+    what = "paged prefill chunk"
+
+    def __init__(self, cfg: ModelConfig, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg = cfg
+
+    def plain(self, params, embeds, prompt_lengths, cache, chunk_start):
+        return paged_prefill_chunk(self.cfg, params, embeds, prompt_lengths, cache, chunk_start)
+
+    @torch.inference_mode()
+    def __call__(self, params, embeds, prompt_lengths, cache, chunk_start: int):
+        b, c = embeds.shape[:2]
+        self.bind(params=params, cache=cache_tensors(cache))
+        x = self.stage(embeds=embeds, lengths=prompt_lengths,
+                       start=torch.full((b,), chunk_start, dtype=torch.int32,
+                                        device=embeds.device))
+        work = dict(self._bound["cache"], index=0)
+
+        def body():
+            self.plain(params, x["embeds"], x["lengths"], work, x["start"])
+            return ()
+
+        self.run(body, embeds.device)
+        return dict(cache, index=cache["index"] + c)
+
+
+class PrefillLastProgram(Program):
+    """`prefill_last` as one program (llark_tpu/generate.py:149-170; its
+    `pos_offset` is static there too): (params, embeds [B, S, H],
+    prompt_lengths [B], cache) -> (next-token logits [B, V], cache). Bound
+    to a dense admission cache or to a paged pool with its tables."""
+
+    what = "prefill tail"
+
+    def __init__(self, cfg: ModelConfig, pos_offset: int = 0, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg, self.pos_offset = cfg, int(pos_offset)
+
+    def plain(self, params, embeds, prompt_lengths, cache):
+        return prefill_last(self.cfg, params, embeds, prompt_lengths, cache, self.pos_offset)
+
+    @torch.inference_mode()
+    def __call__(self, params, embeds, prompt_lengths, cache):
+        self.bind(params=params, cache=cache_tensors(cache))
+        x = self.stage(embeds=embeds, lengths=prompt_lengths)
+        work = dict(self._bound["cache"], index=0)
+        logits, = self.run(lambda: (self.plain(params, x["embeds"], x["lengths"], work)[0],),
+                           embeds.device)
+        return logits, dict(cache, index=cache["index"] + 1)
+
+
+class SuffixPrefillProgram(Program):
+    """`suffix_prefill` as one program (llark_tpu/generate.py:203-240,
+    jitted at llark_tpu/inference/server.py:236): (params, suffix_ids
+    [B, Ss], suffix_lengths [B], audio, frame_counts, cache) -> (next-token
+    logits [B, V], cache). Bound to a cache seeded with the shared prefix
+    and to its index, the prefix length: the suffixes are written from
+    there on, so the prefix the cache was seeded with stays."""
+
+    what = "suffix prefill"
+
+    def __init__(self, cfg: ModelConfig, audio_patch_id: int, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg, self.audio_patch_id = cfg, audio_patch_id
+
+    def plain(self, params, suffix_ids, suffix_lengths, audio_encodings, audio_frame_counts,
+              cache):
+        return suffix_prefill(self.cfg, params, suffix_ids, suffix_lengths, audio_encodings,
+                              audio_frame_counts, self.audio_patch_id, cache)
+
+    @torch.inference_mode()
+    def __call__(self, params, suffix_ids, suffix_lengths, audio_encodings, audio_frame_counts,
+                 cache):
+        self.bind(params=params, cache=cache_tensors(cache), index=cache["index"])
+        x = self.stage(ids=suffix_ids, lengths=suffix_lengths, audio=audio_encodings,
+                       frames=audio_frame_counts)
+        work = dict(self._bound["cache"], index=cache["index"])
+        logits, = self.run(lambda: (self.plain(params, x["ids"], x["lengths"], x["audio"],
+                                               x["frames"], work)[0],), suffix_ids.device)
+        return logits, dict(cache, index=cache["index"] + suffix_ids.shape[1])
+
+
+def make_prefill_fn(cfg: ModelConfig, audio_patch_id: int, max_cache_len: int,
+                    pool: Optional[GraphPool] = None) -> PrefillProgram:
+    """Prefill as one program (llark_tpu/generate.py:66-96): see
+    `PrefillProgram`."""
+    return PrefillProgram(cfg, audio_patch_id, max_cache_len, pool)
+
+
+def make_prefill_chunk_fn(cfg: ModelConfig, pool: Optional[GraphPool] = None) -> PrefillChunkProgram:
+    """One chunk of a dense chunked prefill as one program
+    (llark_tpu/generate.py:99-117): see `PrefillChunkProgram`."""
+    return PrefillChunkProgram(cfg, pool)
+
+
+def make_paged_prefill_chunk_fn(cfg: ModelConfig,
+                                pool: Optional[GraphPool] = None) -> PagedPrefillChunkProgram:
+    """One block-aligned chunk straight into a paged pool as one program
+    (llark_tpu/generate.py:120-146): see `PagedPrefillChunkProgram`."""
+    return PagedPrefillChunkProgram(cfg, pool)
+
+
+def make_prefill_last_fn(cfg: ModelConfig, pos_offset: int = 0,
+                         pool: Optional[GraphPool] = None) -> PrefillLastProgram:
+    """The tail of a chunked prefill as one program
+    (llark_tpu/generate.py:149-170): see `PrefillLastProgram`."""
+    return PrefillLastProgram(cfg, pos_offset, pool)
+
+
+def make_prefix_cache_fn(cfg: ModelConfig):
+    """(params, prefix_ids [B, P]) -> a dense cache holding the prefix
+    (llark_tpu/generate.py:173-200): `prefix_cache`, eager. A server calls
+    it once, so a capture (an eager warm-up, then the graph) would cost
+    more than the one call it serves."""
+    return functools.partial(prefix_cache, cfg)
+
+
+def make_suffix_prefill_fn(cfg: ModelConfig, audio_patch_id: int,
+                           pool: Optional[GraphPool] = None) -> SuffixPrefillProgram:
+    """Suffix prefill over a seeded prefix cache as one program
+    (llark_tpu/generate.py:203-240): see `SuffixPrefillProgram`."""
+    return SuffixPrefillProgram(cfg, audio_patch_id, pool)
+
+
 def decode_step(
     cfg: ModelConfig,
     params: Params,
@@ -276,7 +494,7 @@ def make_decode_fn(cfg: ModelConfig):
     return functools.partial(decode_step, cfg)
 
 
-class DecodeProgram:
+class DecodeProgram(Program):
     """`steps` decode steps with sampling as one program (the reference's
     `make_multistep_decode_fn`, llark_tpu/generate.py:265-287): called as
     (params, token [B], cache, write_positions [B], generator) -> (tokens
@@ -293,132 +511,63 @@ class DecodeProgram:
     own buffers, valid until its next call (the caller reads them first).
 
     On CUDA tensors the chunk is a CUDA graph, captured at the first call
-    and replayed by it and every later one; a capture that fails raises.
-    Before the capture the chunk runs once eagerly on the pool's stream
-    (with the generator's state restored after), which builds the kernels,
-    loads their libraries and allocates every lazily kept buffer outside
-    the graph; the capture then allocates from the pool alone. The kernel
-    wrappers' launch counters are set back after that warm-up and the
-    capture, and every call adds the launches the capture recorded
-    (`launches`, by wrapper; `launches_by_window`, the flash-decode
-    kernel's by (cache mode, Sq)). At temperature > 0 the graph draws from
-    a generator of its own, registered with it: a call sets its state from
-    the caller's generator and hands the advanced state back, so replays
-    draw new noise and the caller's generator advances as under `decode_n`.
+    and replayed by it and every later one (`graphs.Program`); a capture
+    that fails raises. At temperature > 0 the graph draws from a generator
+    of its own, registered with it: a call sets its state from the
+    caller's generator and hands the advanced state back, so replays draw
+    new noise and the caller's generator advances as under `decode_n`.
 
     On CPU tensors a call runs `decode_n` on the same buffers: the CPU
     tests exercise the binding and the buffers."""
 
+    what = "decode"
+
     def __init__(self, cfg: ModelConfig, gen_cfg: GenerationConfig, steps: int,
                  pool: Optional[GraphPool] = None):
+        super().__init__(pool)
         self.cfg, self.gen_cfg, self.steps = cfg, gen_cfg, int(steps)
-        self.pool = pool
-        self._params = None
-        self._cache: Optional[Dict[str, torch.Tensor]] = None  # the bound cache tensors
-        self._token = self._pos = None  # static inputs [B]
-        self.tokens = self.logits = None  # outputs: [B, steps], [B, V]
-        self._graph = None
         self._generator = None  # the graph's own, at temperature > 0
-        self._workspace = None  # the products' split workspace the graph writes
-        self._captured: Optional[Tuple[Tuple[int, ...], Dict]] = None  # launches a call adds
-        self.calls = 0
 
     @property
-    def launches(self) -> Dict[str, int]:
-        """The launches one call adds on the card, by kernel wrapper (those
-        it launches); empty before the capture and on the CPU."""
-        return {} if self._captured is None else launches_by_name(self._captured)
+    def _cache(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The bound cache tensors."""
+        return None if self._bound is None else self._bound["cache"]
 
     @property
-    def launches_by_window(self) -> Dict[Tuple[str, int], int]:
-        """The flash-decode launches one call adds, by (cache mode, Sq)."""
-        return {} if self._captured is None else dict(self._captured[1])
+    def tokens(self) -> Optional[torch.Tensor]:
+        return None if self.outputs is None else self.outputs[0]
 
-    def _bind(self, params: Params, token: torch.Tensor, cache: Params) -> None:
-        tensors = {k: cache[k] for k in CACHE_TENSORS + ("block_tables",) if k in cache}
-        if self._cache is None:
-            self._params, self._cache = params, tensors
-            self._token = torch.zeros(token.shape, dtype=torch.int64, device=token.device)
-            self._pos = torch.zeros(token.shape, dtype=torch.int64, device=token.device)
-            return
-        if params is not self._params:
-            raise ValueError("this decode program was bound to another params tree")
-        if tuple(token.shape) != tuple(self._token.shape):
-            raise ValueError(
-                f"this decode program runs batch {self._token.shape[0]}, got token "
-                f"{tuple(token.shape)}"
-            )
-        if tensors.keys() != self._cache.keys() or any(
-                tensors[k] is not self._cache[k] for k in tensors):
-            raise ValueError(
-                "this decode program replays on the cache tensors it was bound to; write "
-                "new contents into them in place instead of passing new tensors"
-            )
+    @property
+    def logits(self) -> Optional[torch.Tensor]:
+        return None if self.outputs is None else self.outputs[1]
+
+    def plain(self, params: Params, token: torch.Tensor, cache: Params,
+              write_positions: torch.Tensor, generator: Optional[torch.Generator]):
+        """The eager route: `decode_n`."""
+        return decode_n(self.cfg, self.gen_cfg, params, token, cache, write_positions, self.steps,
+                        generator)
 
     @torch.inference_mode()
     def __call__(self, params: Params, token: torch.Tensor, cache: Params,
                  write_positions: torch.Tensor,
                  generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-        self._bind(params, token, cache)
-        self._token.copy_(token)
-        self._pos.copy_(write_positions)
-        if self._token.device.type == "cpu":
-            self.tokens, self.logits, _ = decode_n(
-                self.cfg, self.gen_cfg, params, self._token, cache, self._pos, self.steps,
-                generator,
-            )
-        else:
-            self._replay(generator)
-        self.calls += 1
-        return self.tokens, self.logits, dict(cache, index=cache["index"] + self.steps)
-
-    def _chunk(self, generator) -> None:
-        self.tokens, self.logits, _ = decode_n(
-            self.cfg, self.gen_cfg, self._params, self._token, dict(self._cache, index=0),
-            self._pos, self.steps, generator,
-        )
-
-    def _replay(self, generator: Optional[torch.Generator]) -> None:
-        sampled = self.gen_cfg.temperature > 0.0
-        if sampled and generator is None:
-            raise ValueError("a sampling decode program draws from an explicit generator")
-        if self._graph is None:
-            self._capture(generator if sampled else None)
-        if sampled:
+        self.bind(params=params, cache=cache_tensors(cache))
+        x = self.stage(token=token.long(), pos=write_positions.long())
+        dev = token.device
+        own = dev.type == "cuda" and self.gen_cfg.temperature > 0.0
+        if own:
+            if generator is None:
+                raise ValueError("a sampling decode program draws from an explicit generator")
+            if self._generator is None:
+                self._generator = torch.Generator(device=dev)
             self._generator.set_state(generator.get_state())
-        self._graph.replay()
-        if sampled:
+        draw = self._generator if own else generator
+        work = dict(self._cache, index=0)
+        self.run(lambda: self.plain(params, x["token"], work, x["pos"], draw)[:2], dev,
+                 (draw,) if own else ())
+        if own:
             generator.set_state(self._generator.get_state())
-        add_launch_counts(self._captured)
-
-    def _capture(self, generator: Optional[torch.Generator]) -> None:
-        dev = self._token.device
-        pool = self.pool if self.pool is not None else GraphPool(dev)
-        self.pool = pool
-        if generator is not None:
-            self._generator = torch.Generator(device=dev)
-            self._generator.set_state(generator.get_state())
-        counts = launch_counts()
-        try:
-            # the warm-up: the eager chunk on the capture stream, then the graph
-            pool.stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(pool.stream):
-                self._chunk(self._generator)
-            torch.cuda.current_stream(dev).wait_stream(pool.stream)
-            warm = count_difference(launch_counts(), counts)
-            # kept: a later warm-up on this stream may replace a workspace it
-            # outgrows, and the graph writes this one
-            self._workspace = pool.workspace(dev)
-            if self._generator is not None:
-                self._generator.set_state(generator.get_state())
-            graph = torch.cuda.CUDAGraph()
-            if self._generator is not None:
-                graph.register_generator_state(self._generator)
-            _, self._captured = capture(pool, graph, dev, lambda: self._chunk(self._generator),
-                                        warm)
-        finally:
-            set_launch_counts(counts)
-        self._graph = graph
+        return self.tokens, self.logits, dict(cache, index=cache["index"] + self.steps)
 
 
 def make_multistep_decode_fn(cfg: ModelConfig, gen_cfg: GenerationConfig, steps: int,
@@ -433,14 +582,19 @@ def make_multistep_decode_fn(cfg: ModelConfig, gen_cfg: GenerationConfig, steps:
 class Generator:
     """Prefill + chunked decode over one model on one device.
 
-    Decode chunks are `DecodeProgram`s, one per (batch size, chunk length)
+    Prefills are `PrefillProgram`s, one per (batch, prompt length, audio
+    frames) as the reference jits one per shape (llark_tpu/generate.py:306),
+    and decode chunks `DecodeProgram`s, one per (batch size, chunk length)
     as the reference compiles one per chunk length
     (llark_tpu/generate.py:310-315); a tail chunk shorter than
-    `decode_chunk` gets its own. A program replays on the cache it was
+    `decode_chunk` gets its own. On the card each is a CUDA graph, and the
+    programs share one graph pool. A program replays on the cache it was
     captured on, so the generator keeps one cache per batch size, of
     `max_cache_len` positions, and every prefill of that batch size writes
     into it in place: the cache `prefill` returns is the generator's own,
-    overwritten by its next prefill or generate."""
+    overwritten by its next prefill or generate, and its logits are the
+    prefill program's buffer, overwritten by the next prefill of that
+    shape."""
 
     def __init__(
         self,
@@ -462,11 +616,20 @@ class Generator:
         self.audio_patch_id = audio_patch_id
         self.max_cache_len = max_cache_len
         self._caches: Dict[int, Params] = {}  # batch size -> its cache
+        self._prefills: Dict[Tuple[int, int, int], PrefillProgram] = {}  # (batch, S, T)
         self._programs: Dict[Tuple[int, int], DecodeProgram] = {}  # (batch, chunk length)
         self._pool = GraphPool(self.device) if self.device.type == "cuda" else None
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _prefill_fn(self, b: int, s: int, t: int):
+        """The prefill program of one (batch, prompt length, audio frames)."""
+        key = (b, s, t)
+        if key not in self._prefills:
+            self._prefills[key] = make_prefill_fn(self.cfg, self.audio_patch_id,
+                                                  self.max_cache_len, self._pool)
+        return self._prefills[key]
 
     def _decode_chunk(self, token: torch.Tensor, cache: Params, positions: torch.Tensor,
                       n: int, rng: torch.Generator):
@@ -485,19 +648,19 @@ class Generator:
         audio_frame_counts: Optional[np.ndarray] = None,
     ) -> Tuple[torch.Tensor, Params]:
         """Next-token logits [B, V] and the filled cache for a padded batch."""
-        b = np.shape(input_ids)[0]
+        b, s = np.shape(input_ids)
         if audio_encodings is None:
             audio_encodings = np.zeros((b, 1, self.cfg.mm_hidden_size), np.float32)
             audio_frame_counts = np.zeros((b,), np.int32)
         if audio_frame_counts is None:
             audio_frame_counts = np.full((b,), np.shape(audio_encodings)[1], np.int32)
-        logits, cache = prefill(
-            self.cfg, self.params,
+        logits, cache = self._prefill_fn(b, s, np.shape(audio_encodings)[1])(
+            self.params,
             self._tensor(input_ids, torch.int64),
             self._tensor(prompt_lengths, torch.int32),
             self._tensor(audio_encodings, torch.float32),
             self._tensor(audio_frame_counts, torch.int32),
-            self.audio_patch_id, self.max_cache_len, self._caches.get(b),
+            self._caches.get(b),
         )
         self._caches.setdefault(b, cache)
         return logits, cache

@@ -20,10 +20,11 @@ unique per row.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
+from llark_tpu_torch.graphs import GraphPool, Program, as_index, cache_tensors
 from llark_tpu_torch.models.decoder import CACHE_TENSORS, Params
 
 
@@ -60,24 +61,68 @@ class BlockAllocator:
 
 
 @torch.no_grad()
-def insert_blocks(paged_cache: Params, row_cache: Params, src_row: int,
-                  block_ids: Sequence[int]) -> None:
+def insert_blocks(paged_cache: Params, row_cache: Params, src_row: Union[int, torch.Tensor],
+                  block_ids: Union[Sequence[int], torch.Tensor]) -> None:
     """Copy row `src_row` of a freshly prefilled dense cache
     ([L, B, Hkv, S(, D)] leaves) into the pool blocks `block_ids`, in place
     (llark_tpu/inference/paged.py:66-105, the paged counterpart of
-    BatchedServer._insert_row). The row's S positions are padded up to
+    inference/server.py `insert_row`). The row's S positions are padded up to
     whole blocks; positions past the prompt hold pad values that are never
     read (reads stop at each row's live length) and decode overwrites them
-    in order."""
+    in order. The row and the block ids are ints or int64 device tensors (a
+    program's static buffers, `graphs.as_index`)."""
     for key in CACHE_TENSORS:
         if key not in paged_cache or key not in row_cache:
             continue
         pool = paged_cache[key]  # [L, N, Hkv, bs(, D)]
-        row = row_cache[key][:, src_row]  # [L, Hkv, S(, D)]
-        bs, n = pool.shape[3], len(block_ids)
+        ids = as_index(block_ids, pool.device)
+        row = row_cache[key].index_select(1, as_index(src_row, pool.device))[:, 0]
+        bs, n = pool.shape[3], ids.shape[0]  # row: [L, Hkv, S(, D)]
         pad = n * bs - row.shape[2]
         if pad > 0:
             row = torch.cat([row, row.new_zeros(row.shape[:2] + (pad,) + row.shape[3:])], dim=2)
         row = row[:, :, : n * bs].reshape(row.shape[:2] + (n, bs) + row.shape[3:])
-        ids = torch.as_tensor(list(block_ids), dtype=torch.long, device=pool.device)
-        pool[:, ids] = row.transpose(1, 2).to(pool.dtype)
+        pool.index_copy_(1, ids, row.transpose(1, 2).to(pool.dtype))
+
+
+class BlockInsertProgram(Program):
+    """`insert_blocks` as one program (llark_tpu/inference/paged.py:66-105,
+    jitted with the pool donated at llark_tpu/inference/server.py:1033):
+    (paged_cache, row_cache, src_row, block_ids [n_blocks]) -> paged_cache.
+    Bound to the pool's tensors and the dense admission cache's; the source
+    row and the block ids go into static device buffers, so one program
+    serves every admitted row and slot."""
+
+    what = "block insert"
+
+    def __init__(self, block_size: int, n_blocks: int, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.block_size, self.n_blocks = int(block_size), int(n_blocks)
+
+    def plain(self, paged_cache: Params, row_cache: Params, src_row, block_ids) -> Params:
+        insert_blocks(paged_cache, row_cache, src_row, block_ids)
+        return paged_cache
+
+    @torch.inference_mode()
+    def __call__(self, paged_cache: Params, row_cache: Params, src_row: int,
+                 block_ids: Union[Sequence[int], torch.Tensor]) -> Params:
+        if len(block_ids) != self.n_blocks:
+            raise ValueError(f"this block insert writes {self.n_blocks} blocks, got "
+                             f"{len(block_ids)}")
+        self.bind(cache=cache_tensors(paged_cache), rows=cache_tensors(row_cache))
+        dev = paged_cache["k"].device
+        x = self.stage(row=as_index(int(src_row), dev), blocks=as_index(block_ids, dev))
+
+        def body():
+            self.plain(self._bound["cache"], self._bound["rows"], x["row"], x["blocks"])
+            return ()
+
+        self.run(body, dev)
+        return paged_cache
+
+
+def make_block_insert_fn(block_size: int, n_blocks: int,
+                         pool: Optional[GraphPool] = None) -> BlockInsertProgram:
+    """The splice of one prefilled row into its pool blocks as one program
+    (llark_tpu/inference/paged.py:66-105): see `BlockInsertProgram`."""
+    return BlockInsertProgram(block_size, n_blocks, pool)

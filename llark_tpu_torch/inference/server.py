@@ -36,8 +36,21 @@ cache, a paged admission's cache dict and the decode rounds interleaved
 with chunked admission all see the same pool tensors, and each write lands
 before the next forward reads it. The decode programs replay on the
 persistent cache's tensors, so they are allocated once and only ever
-written in place, the block tables too (`_refresh_tables`). Admission,
-prefill and the speculative rounds run eagerly.
+written in place, the block tables too (`_refresh_tables`).
+
+Admission runs through programs too, one per (step, bucket) as the
+reference jits one per shape (`_program`): the one-shot prefill, the
+suffix prefill over the seeded prefix cache, the fused embeddings of a
+chunked admission, its dense or paged chunks and its tail, and the row or
+block insert into the persistent cache. Each is bound to tensors that are
+allocated once and rewritten in place: a bucket's admission cache (seeded
+with the prefix once, with prefix caching), a bucket's admission block
+tables (`_pool_view`), the persistent cache. On the card each is a CUDA
+graph in the pool the decode programs share, and the outputs a later step
+reads (the embeddings across the decode rounds between chunks, the
+logits) are buffers the programs own outside the pool. The draft model's
+admission, the one-time prefix prefills and the speculative rounds run
+eagerly.
 
 Mesh serving (`mesh`, a `parallel/mesh.py` make_mesh mesh): every rank
 builds the same server from the same full trees, keeps its shards
@@ -45,8 +58,9 @@ builds the same server from the same full trees, keeps its shards
 too) and runs the same engine loop on the same requests; the decoder sums
 over "tensor" after wo / w_down and gathers the logits, so every rank
 samples the same tokens, and its KV cache holds the rank's Hkv/t heads.
-Its decode rounds run eagerly (`decode_n`): two ranks on one card talk
-over gloo's host-staged collectives, which a CUDA graph cannot hold.
+Its decode rounds and admission run eagerly (`decode_n`, each program's
+`plain` route): two ranks on one card talk over gloo's host-staged
+collectives, which a CUDA graph cannot hold.
 The kernels run on each rank's local heads and shards. The engine's two
 wall-clock decisions (admit_max_wait_s, admit_reorder_age_s) are taken on
 rank 0 and broadcast, so the ranks never diverge; serve() returns the
@@ -74,14 +88,18 @@ from llark_tpu_torch.generate import (
     _sample,
     decode_n,
     make_multistep_decode_fn,
+    make_paged_prefill_chunk_fn,
+    make_prefill_chunk_fn,
+    make_prefill_fn,
+    make_prefill_last_fn,
+    make_suffix_prefill_fn,
     paged_prefill_chunk,
     prefill,
-    prefill_chunk,
-    prefill_last,
     prefix_cache,
     suffix_prefill,
 )
-from llark_tpu_torch.inference.paged import BlockAllocator, insert_blocks
+from llark_tpu_torch.graphs import Program, as_index, cache_tensors
+from llark_tpu_torch.inference.paged import BlockAllocator, make_block_insert_fn
 from llark_tpu_torch.inference.speculative import (
     check_spec_dtype,
     make_fused_rounds_fn,
@@ -100,6 +118,75 @@ from llark_tpu_torch.models.fusion import build_inputs_embeds
 from llark_tpu_torch.ops.decode_attention import max_paged_block_size
 
 log = logging.getLogger(__name__)
+
+
+def insert_row(batch_cache: Params, new_cache: Params, src_row: Union[int, torch.Tensor],
+               dst_slot: Union[int, torch.Tensor]) -> None:
+    """Copy row `src_row` of a freshly prefilled cache into slot `dst_slot`
+    of the persistent batched cache, in place (leaves [L, B, ...]; the
+    admission cache may be shorter than the slot). The row and the slot are
+    ints or int64 device tensors (a program's static buffers,
+    `graphs.as_index`)."""
+    for key in CACHE_TENSORS:
+        if key in batch_cache:
+            dst = batch_cache[key]
+            row = new_cache[key].index_select(1, as_index(src_row, dst.device))
+            dst[:, :, :, : row.shape[3]].index_copy_(1, as_index(dst_slot, dst.device),
+                                                     row.to(dst.dtype))
+
+
+class RowInsertProgram(Program):
+    """`insert_row` as one program (the reference's `jax.jit(self._insert_row,
+    donate_argnums=(0,))`, llark_tpu/inference/server.py:394): (batch_cache,
+    new_cache, src_row, dst_slot) -> batch_cache. Bound to both caches'
+    tensors; the row and the slot go into static device buffers, so one
+    program serves every admitted row and slot."""
+
+    what = "row insert"
+
+    def plain(self, batch_cache: Params, new_cache: Params, src_row, dst_slot) -> Params:
+        insert_row(batch_cache, new_cache, src_row, dst_slot)
+        return batch_cache
+
+    @torch.inference_mode()
+    def __call__(self, batch_cache: Params, new_cache: Params, src_row: int,
+                 dst_slot: int) -> Params:
+        self.bind(cache=cache_tensors(batch_cache), rows=cache_tensors(new_cache))
+        dev = batch_cache["k"].device
+        x = self.stage(row=as_index(int(src_row), dev), slot=as_index(int(dst_slot), dev))
+
+        def body():
+            self.plain(self._bound["cache"], self._bound["rows"], x["row"], x["slot"])
+            return ()
+
+        self.run(body, dev)
+        return batch_cache
+
+
+class EmbedProgram(Program):
+    """The fused prompt embeddings of a chunked admission as one program
+    (the reference's jitted `build_inputs_embeds`,
+    llark_tpu/inference/server.py:319): (params, ids [B, S], audio
+    [B, T, mm], frame_counts [B]) -> embeds [B, S, H], a buffer the program
+    owns: the chunks and the tail read it across the decode rounds between
+    them."""
+
+    what = "embed"
+
+    def __init__(self, cfg: ModelConfig, audio_patch_id: int, pool: Optional[GraphPool] = None):
+        super().__init__(pool)
+        self.cfg, self.audio_patch_id = cfg, audio_patch_id
+
+    def plain(self, params: Params, ids, audio, frame_counts) -> torch.Tensor:
+        return build_inputs_embeds(self.cfg, params, ids, audio, self.audio_patch_id, frame_counts)
+
+    @torch.inference_mode()
+    def __call__(self, params: Params, ids, audio, frame_counts) -> torch.Tensor:
+        self.bind(params=params)
+        x = self.stage(ids=ids, audio=audio, frames=frame_counts)
+        embeds, = self.run(lambda: (self.plain(params, x["ids"], x["audio"], x["frames"]),),
+                           ids.device)
+        return embeds
 
 
 @dataclass
@@ -434,6 +521,12 @@ class BatchedServer:
         # plain decode rounds: chunk length -> program, sharing one pool
         self._programs: Dict[int, DecodeProgram] = {}
         self._pool = GraphPool(self.device) if self.device.type == "cuda" and mesh is None else None
+        # admission: (step, bucket) -> program, in the same pool; the dense
+        # admission caches by length and the admission block tables by shape
+        # they are bound to, each allocated once
+        self._admission: Dict[tuple, Program] = {}
+        self._admit_caches: Dict[int, Params] = {}
+        self._admit_tables: Dict[tuple, torch.Tensor] = {}
         # exclusive-driver guard: an online engine claims the server; serve()
         # refuses to run concurrently (two drivers would race the cache)
         self.driver = None
@@ -442,15 +535,26 @@ class BatchedServer:
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
-    @staticmethod
-    def _insert_row(batch_cache: Params, new_cache: Params, src_row: int, dst_slot: int) -> None:
-        """Copy row `src_row` of a freshly prefilled cache into slot
-        `dst_slot` of the persistent batched cache, in place (leaves
-        [L, B, ...]; the admission cache may be shorter than the slot)."""
-        for key in CACHE_TENSORS:
-            if key in batch_cache:
-                row = new_cache[key][:, src_row]
-                batch_cache[key][:, dst_slot, :, : row.shape[2]] = row.to(batch_cache[key].dtype)
+    def _program(self, kind: str, bucket: int):
+        """The admission program `kind` of one bucket, made at its first use
+        and bound at its first call; on a mesh its eager `plain` route."""
+        key = (kind, bucket)
+        if key not in self._admission:
+            cfg, pool, patch = self.cfg, self._pool, self.audio_patch_id
+            make = {
+                "prefill": lambda: make_prefill_fn(cfg, patch, bucket, pool),
+                "suffix": lambda: make_suffix_prefill_fn(cfg, patch, pool),
+                "embed": lambda: EmbedProgram(cfg, patch, pool),
+                "chunk": lambda: make_prefill_chunk_fn(cfg, pool),
+                "paged_chunk": lambda: make_paged_prefill_chunk_fn(cfg, pool),
+                "last": lambda: make_prefill_last_fn(cfg, self._prefix_len, pool),
+                "insert": lambda: RowInsertProgram(pool),
+                "block_insert": lambda: make_block_insert_fn(
+                    self.kv_block_size, -(-bucket // self.kv_block_size), pool),
+            }[kind]
+            self._admission[key] = make()
+        program = self._admission[key]
+        return program.plain if self.mesh is not None else program
 
     def _suffix_len(self, req: Request) -> int:
         """Tokens the admission prefill must compute (the whole prompt
@@ -492,12 +596,18 @@ class BatchedServer:
     def _seeded_admission_cache(self, total: int, draft: bool = False) -> Params:
         """Admission cache of length `total` with the prefix KV (the
         target's, or with `draft` the draft's) copied into every row
-        (cache index = prefix length)."""
+        (cache index = prefix length). The target's is made and seeded once
+        per length, as the reference jits its seeding once per length
+        (llark_tpu/inference/server.py:635-668): suffix prefills write from
+        the prefix length on, so the prefix stays. The draft's, eager, is
+        made anew at every admission."""
         if total > self.max_cache_len:
             raise ValueError(
                 f"prefix ({self._prefix_len}) + bucket ({total - self._prefix_len}) "
                 f"exceeds max_cache_len {self.max_cache_len}"
             )
+        if not draft and total in self._admit_caches:
+            return self._admit_caches[total]
         cfg = self.draft_cfg if draft else self.cfg
         prefix = self._d_prefix_cache if draft else self._prefix_cache
         cache = init_kv_cache(cfg, self.admit_batch, total, device=self.device)
@@ -506,7 +616,19 @@ class BatchedServer:
                 p = prefix[key]  # [L, 1, Hkv, P(, D)]
                 cache[key][:, :, :, : p.shape[3]] = p
         cache["index"] = self._prefix_len
+        if not draft:
+            self._admit_caches[total] = cache
         return cache
+
+    def _admission_cache(self, total: int) -> Params:
+        """The dense admission cache of `total` positions, made at the
+        first admission that needs it and rewritten in place by every later
+        one: its programs are bound to it. What an earlier group left past
+        a row's live length is never read."""
+        if total not in self._admit_caches:
+            self._admit_caches[total] = init_kv_cache(self.cfg, self.admit_batch, total,
+                                                      device=self.device)
+        return self._admit_caches[total]
 
     def _ensure_pool_cache(self) -> None:
         """Build the paged persistent cache (block pool + tables) once."""
@@ -519,10 +641,16 @@ class BatchedServer:
     def _pool_view(self, tables: np.ndarray) -> Params:
         """A cache dict over the persistent pool tensors with the given
         (admission-span) block tables: chunks written through it land in
-        the pool that decode rounds read."""
+        the pool that decode rounds read. The tables are copied into the
+        device tensor of their shape, made once: the admission programs are
+        bound to it."""
         view = {key: self._cache[key] for key in CACHE_TENSORS if key in self._cache}
         view["index"] = 0
-        view["block_tables"] = self._tensor(tables, torch.int32)
+        shape = tuple(np.shape(tables))
+        if shape not in self._admit_tables:
+            self._admit_tables[shape] = torch.empty(shape, dtype=torch.int32, device=self.device)
+        view["block_tables"] = self._admit_tables[shape]
+        view["block_tables"].copy_(torch.from_numpy(np.ascontiguousarray(tables, np.int32)))
         return view
 
     def _ensure_paged_prefix(self) -> None:
@@ -718,9 +846,8 @@ class BatchedServer:
                 t_ids, t_plens = self._tensor(ids, torch.int64), self._tensor(plens, torch.int32)
                 t_audio, t_fcnt = self._tensor(audio, torch.float32), self._tensor(fcnt, torch.int32)
                 if self._prefix_ids is not None and not self.paged:
-                    logits, new_cache = suffix_prefill(
-                        self.cfg, self.params, t_ids, t_plens, t_audio, t_fcnt,
-                        self.audio_patch_id,
+                    logits, new_cache = self._program("suffix", head_bucket)(
+                        self.params, t_ids, t_plens, t_audio, t_fcnt,
                         self._seeded_admission_cache(self._prefix_len + head_bucket),
                     )
                 elif self.prefill_chunk is not None:
@@ -745,9 +872,9 @@ class BatchedServer:
                         t_ids, t_plens, t_audio, t_fcnt, admit_tables
                     )
                 else:
-                    logits, new_cache = prefill(
-                        self.cfg, self.params, t_ids, t_plens, t_audio, t_fcnt,
-                        self.audio_patch_id, head_bucket,
+                    logits, new_cache = self._program("prefill", head_bucket)(
+                        self.params, t_ids, t_plens, t_audio, t_fcnt,
+                        self._admission_cache(head_bucket),
                     )
                 firsts = _sample(logits, self.gen_cfg, self._rng).cpu().numpy()
                 if self.draft_cfg is not None:
@@ -796,11 +923,12 @@ class BatchedServer:
                     if new_cache is not None:
                         # direct-to-pool admission leaves new_cache None: the
                         # K/V already sit in this row's blocks
-                        insert_blocks(self._cache, new_cache, j, blocks[:bucket_blocks])
+                        self._program("block_insert", head_bucket)(
+                            self._cache, new_cache, j, blocks[:bucket_blocks])
                 else:
-                    self._insert_row(self._cache, new_cache, j, slot)
+                    self._program("insert", head_bucket)(self._cache, new_cache, j, slot)
                 if self.draft_cfg is not None:
-                    self._insert_row(self._d_cache, d_new_cache, j, slot)
+                    insert_row(self._d_cache, d_new_cache, j, slot)  # eager
                     self._prev_tok[slot] = int(ids[j, plens[j] - 1])
                 req.first_token_at = now
                 self._slot_req[slot] = req
@@ -822,7 +950,7 @@ class BatchedServer:
         masked-then-overwritten cache slots, the same invariant padded
         one-shot prefill relies on."""
         k, bucket = ids.shape
-        embeds = build_inputs_embeds(self.cfg, self.params, ids, audio, self.audio_patch_id, fcnt)
+        embeds = self._program("embed", bucket)(self.params, ids, audio, fcnt)
         pad = (-bucket) % self.prefill_chunk
         if self._prefix_len + bucket + pad > self.max_cache_len:
             raise ValueError(
@@ -845,25 +973,22 @@ class BatchedServer:
                 )
             view = self._pool_view(admit_tables)
             base = self._prefix_len
+            chunk, lengths = self._program("paged_chunk", bucket), plens + base
             for c in chunks:
-                paged_prefill_chunk(
-                    self.cfg, self.params, padded[:, c : c + self.prefill_chunk],
-                    plens + base, view, base + c,
-                )
+                chunk(self.params, padded[:, c : c + self.prefill_chunk], lengths, view, base + c)
                 if c + self.prefill_chunk < bucket + pad:
                     self._decode_round()  # live slots keep emitting mid-prefill
-            logits, _ = prefill_last(self.cfg, self.params, embeds, plens, view, base)
+            logits, _ = self._program("last", bucket)(self.params, embeds, plens, view)
             return logits, None
         # bucket-sized admission cache: the row copy into the persistent
         # cache only reads the prompt positions
-        cache = init_kv_cache(self.cfg, k, bucket + pad, device=self.device)
+        cache = dict(self._admission_cache(bucket + pad), index=0)
+        chunk = self._program("chunk", bucket)
         for c in chunks:
-            cache = prefill_chunk(
-                self.cfg, self.params, padded[:, c : c + self.prefill_chunk], plens, cache
-            )
+            cache = chunk(self.params, padded[:, c : c + self.prefill_chunk], plens, cache)
             if c + self.prefill_chunk < bucket + pad:
                 self._decode_round()
-        return prefill_last(self.cfg, self.params, embeds, plens, cache, self._prefix_len)
+        return self._program("last", bucket)(self.params, embeds, plens, cache)
 
     def _absorb(self, slot: int, t: int) -> bool:
         """Mirror of Generator.generate's per-token absorb: EOS tokens are

@@ -86,7 +86,9 @@ def xla_attention(
     if k_scale is not None:
         logits = logits * _broadcast_kv(k_scale.float(), h)[:, :, None, :]
 
-    q_off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev).reshape(-1, 1, 1)
+    # a host offset stays a Python int (a tensor made from it would be a
+    # host-to-device copy, which a CUDA graph capture refuses)
+    q_off = q_offset.to(dev, torch.int64).reshape(-1, 1, 1) if torch.is_tensor(q_offset) else q_offset
     q_pos = torch.arange(sq, device=dev)[None, :, None] + q_off  # [1|B, Sq, 1]
     k_pos = torch.arange(sk, device=dev)[None, None, :]  # [1, 1, Sk]
     rel = (k_pos - q_pos).float()  # [1|B, Sq, Sk]

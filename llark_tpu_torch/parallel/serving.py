@@ -50,6 +50,10 @@ class _RankGenerator(Generator):
         left = torch.tensor([0 if done.all() else 1], dtype=torch.int64, device=self.device)
         return int(self.cfg.shard.batch_sum(left)) == 0
 
+    def _prefill_fn(self, b, s, t):
+        # eager, as the decode chunks below
+        return super()._prefill_fn(b, s, t).plain
+
     def _decode_chunk(self, token, cache, positions, n, rng):
         # eager: the chunk's collectives may go through gloo's host staging,
         # which a CUDA graph cannot hold

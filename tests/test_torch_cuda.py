@@ -1691,6 +1691,178 @@ def test_a_failed_capture_raises(dev, monkeypatch):
     assert program._graph is None and _counts() == before
 
 
+# -- the captured prefill and admission programs (generate.py
+# make_prefill_fn & co., inference/paged.py make_block_insert_fn) -----------
+#
+# A replay runs what its capture recorded on its static buffers and bound
+# caches, so on the same inputs it must equal the eager route bit for bit:
+# the prefill (K1), the dense and paged chunks and the tail (K2 over a
+# paged pool), in every cache mode and from bf16, int8 and int4 weights.
+
+PREFILL_ROWS, PREFILL_LEN, PREFILL_CHUNK = 4, 64, 16
+
+
+def _prefill_inputs(dev, cfg, seed=0):
+    """ids [4, 64] with 3 audio patches, prompt lengths 9-64, audio
+    [4, 3, 16] and frame counts, and fused embeddings of the same rows."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(10, 500, (PREFILL_ROWS, PREFILL_LEN))
+    ids[:, 1:4] = 7
+    lengths = np.array([64, 40, 9, 33], np.int32)
+    audio = rng.randn(PREFILL_ROWS, 3, 16).astype(np.float32)
+    embeds = rng.randn(PREFILL_ROWS, PREFILL_LEN, cfg.hidden_size).astype(np.float32)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(audio).to(dev), torch.full((PREFILL_ROWS,), 3, device=dev),
+            torch.from_numpy(embeds).to(dev, torch.bfloat16))
+
+
+def _equal_caches(got, want):
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in want:
+            assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("mode,weights", [
+    ("dense_bf16", "bf16"), ("dense_int8", "bf16"), ("paged_bf16", "bf16"), ("paged_int8", "bf16"),
+    ("dense_bf16", "int8"), ("paged_int8", "int8"), ("paged_int8", "int4")])
+def test_prefill_and_chunk_replays_equal_eager(dev, mode, weights):
+    import dataclasses
+
+    from llark_tpu_torch import generate as tgen
+
+    cfg, params, cache, _, _ = _program_case(dev, mode, weights)
+    cfg = dataclasses.replace(cfg, use_pallas_attention=True)  # the prefill on K1
+    ids, lengths, audio, frames, embeds = _prefill_inputs(dev, cfg)
+    c = PREFILL_CHUNK
+    with torch.inference_mode():
+        if mode.startswith("dense"):
+            # the one-shot prefill into a random cache of 4 rows x 256
+            program = tgen.make_prefill_fn(cfg, 7, PROGRAM_LEN)
+            ref = _cache_copy(cache)
+            for seed in (0, 1):
+                ids, lengths, audio, frames, embeds = _prefill_inputs(dev, cfg, seed)
+                got, _ = program(params, ids, lengths, audio, frames, cache)
+                want, _ = program.plain(params, ids, lengths, audio, frames, ref)
+                assert torch.equal(got, want), seed
+                _equal_caches(cache, ref)
+            assert program.launches.get("flash_attention_fwd") == cfg.num_layers
+            chunk, tail = tgen.make_prefill_chunk_fn(cfg), tgen.make_prefill_last_fn(cfg)
+            work, ref = dict(cache, index=0), dict(ref, index=0)
+            for start in range(0, PREFILL_LEN, c):  # one program, every offset
+                work = chunk(params, embeds[:, start:start + c], lengths, work)
+                ref = chunk.plain(params, embeds[:, start:start + c], lengths, ref)
+                _equal_caches(cache, ref)
+        else:
+            # chunks straight into the pool through each row's first blocks
+            chunk, tail = tgen.make_paged_prefill_chunk_fn(cfg), tgen.make_prefill_last_fn(cfg)
+            cache = dict(cache, block_tables=cache["block_tables"][:, :PREFILL_LEN // PROGRAM_BLOCK]
+                         .contiguous())
+            ref = _cache_copy(cache)
+            for start in range(0, PREFILL_LEN, c):
+                chunk(params, embeds[:, start:start + c], lengths, cache, start)
+                chunk.plain(params, embeds[:, start:start + c], lengths, ref, start)
+                _equal_caches(cache, ref)
+            work = cache
+        got, _ = tail(params, embeds, lengths, work)
+        want, _ = tail.plain(params, embeds, lengths, ref)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _equal_caches(cache, ref)
+    assert chunk.calls == PREFILL_LEN // c and tail.calls == 1
+    if weights != "bf16":
+        assert chunk.launches[f"{weights}_matmul"] == 7 * cfg.num_layers
+
+
+def test_prefill_replays_allocate_nothing(dev):
+    import gc
+
+    from llark_tpu_torch import generate as tgen
+
+    cfg, params, cache, _, _ = _program_case(dev, "dense_int8", "int8")
+    ids, lengths, audio, frames, embeds = _prefill_inputs(dev, cfg)
+    prefill = tgen.make_prefill_fn(cfg, 7, PROGRAM_LEN)
+    chunk = tgen.make_prefill_chunk_fn(cfg, prefill.pool)
+    with torch.inference_mode():
+        for _ in range(2):  # the captures, then one replay each
+            prefill(params, ids, lengths, audio, frames, cache)
+            chunk(params, embeds[:, :PREFILL_CHUNK], lengths, cache)
+        torch.cuda.synchronize()
+        gc.collect()  # what the first calls left for the collector
+        held = torch.cuda.memory_allocated(dev)
+        for _ in range(3):
+            prefill(params, ids, lengths, audio, frames, cache)
+            chunk(params, embeds[:, :PREFILL_CHUNK], lengths, dict(cache, index=PREFILL_CHUNK))
+        torch.cuda.synchronize()
+        gc.collect()
+    assert torch.cuda.memory_allocated(dev) == held
+    assert prefill.capture_ms is not None and prefill.warm_ms is not None
+
+
+@pytest.mark.parametrize("mode", ["paged_int8_chunked", "dense_chunked", "dense_prefix",
+                                  "dense_one_shot", "paged_one_shot"])
+def test_admission_replays_equal_eager_admission(dev, mode):
+    """The engine, its admission and decode rounds replayed, against the
+    same engine with every program's eager route: equal streams. Two slots
+    and five requests, so later groups are admitted while rows decode; in
+    the chunked modes a decode round runs between chunks, replaying the
+    decode program of the pool the admission programs share: the fused
+    embeddings and the logits the chunks and the tail leave must survive
+    it."""
+    from llark_tpu_torch.config import ModelConfig
+    from llark_tpu_torch.generate import GenerationConfig, decode_n
+    from llark_tpu_torch.inference.server import BatchedServer, Request
+    from llark_tpu_torch.models.fusion import init_llark_params
+
+    cfg = ModelConfig.tiny("llama", kv_cache_quant="int8" in mode, use_pallas_attention=True,
+                           **PROGRAM_WIDTHS)
+    params = init_llark_params(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(9)
+    shared = rng.randint(10, 500, 20).astype(np.int32)
+    reqs = [(np.concatenate([shared, rng.randint(10, 500, n).astype(np.int32)]),
+             rng.randn(3, 16).astype(np.float32)) for n in (20, 37, 12, 44, 25)]
+    gcfg = GenerationConfig(max_new_tokens=12, stop_text="")
+    kw = dict(max_batch=2, max_cache_len=256, prompt_buckets=(32, 64), max_audio_frames=4,
+              decode_chunk=4)
+    kw.update({"paged_int8_chunked": dict(kv_block_size=16, prefill_chunk=16),
+               "dense_chunked": dict(prefill_chunk=16),
+               "dense_prefix": dict(shared_prefix_ids=shared),
+               "dense_one_shot": {}, "paged_one_shot": dict(kv_block_size=16)}[mode])
+    streams = []
+    for eager in (False, True):
+        server = BatchedServer(cfg, params, 7, gcfg, device=dev, **kw)
+        if eager:
+            server._programs = {4: lambda p, tok, c, pos, g: decode_n(cfg, gcfg, p, tok, c, pos, 4, g)}
+            server._program = lambda kind, bucket: BatchedServer._program(server, kind, bucket).plain
+        out = server.serve([Request(i, a) for i, a in reqs])
+        streams.append([r.tokens for r in out])
+        if not eager:
+            assert server._admission and all(p._graph is not None and p.calls > 0
+                                             for p in server._admission.values())
+    assert streams[0] == streams[1]
+    assert all(len(s) == 12 for s in streams[0])
+
+
+def test_a_failed_prefill_capture_raises(dev, monkeypatch):
+    from llark_tpu_torch import generate as tgen
+
+    cfg, params, cache, _, _ = _program_case(dev, "dense_bf16")
+    ids, lengths, audio, frames, _ = _prefill_inputs(dev, cfg)
+    embed = tgen.build_inputs_embeds
+
+    def reads_back(*args):  # a host read inside the prefill
+        out = embed(*args)
+        if float(out.float().abs().max()) > 1e30:
+            pass
+        return out
+
+    monkeypatch.setattr(tgen, "build_inputs_embeds", reads_back)
+    program = tgen.make_prefill_fn(cfg, 7, PROGRAM_LEN)
+    before = _counts()
+    with torch.inference_mode(), pytest.raises(RuntimeError):
+        program(params, ids, lengths, audio, frames, cache)
+    assert program._graph is None and _counts() == before
+
+
 # ---------------------------------------------------------------------------
 # the captured train step (train/step.py TrainProgram): step 1 eager, then
 # one CUDA graph replayed a step. dq's fp32 atomics make no two runs of a

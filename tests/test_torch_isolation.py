@@ -2,10 +2,14 @@
 
 Every module of llark_tpu_torch, and chip_smoke.py, is imported in a fresh
 interpreter whose import system refuses jax, flax, optax, orbax, chex and
-llark_tpu. Entry points default to the GPU and raise without one.
+llark_tpu; and every import statement in their sources, those inside
+functions included, is read with `ast` and must name none of them. Entry
+points default to the GPU and raise without one.
 """
 
+import ast
 import os
+import pathlib
 import pkgutil
 import shutil
 import subprocess
@@ -82,6 +86,35 @@ def test_port_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert f"imported {len(modules)} modules" in proc.stdout
+
+
+def _statements(node):
+    """Every statement under `node`, nested bodies included (an import is
+    a statement, so expressions need no visit)."""
+    for field in ("body", "orelse", "finalbody", "handlers", "cases"):
+        for child in getattr(node, field, ()):
+            yield child
+            yield from _statements(child)
+
+
+def test_no_source_of_the_port_imports_jax_or_reference():
+    """Cheap and without a subprocess: every `import` and `from ... import`
+    anywhere in the port's sources and chip_smoke.py, read with `ast`."""
+    sources = sorted(pathlib.Path(REPO, "llark_tpu_torch").rglob("*.py"))
+    sources.append(pathlib.Path(REPO, "chip_smoke.py"))
+    assert len(sources) > 100
+    found = []
+    for path in sources:
+        for node in _statements(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.relative_to(REPO)}:{node.lineno} {name}" for name in names
+                      if name.split(".")[0] in BLOCKED]
+    assert not found, found
 
 
 def test_entry_points_refuse_to_run_on_cpu_by_default():

@@ -3,13 +3,12 @@ port, module by module, read with `ast` (neither package is imported).
 
 A JAX module's public names are the functions, classes and variables it
 defines at its top level without a leading underscore; the port's module
-provides a name if it defines or imports it under that name. The names the
-port does not have are listed below with their reasons: the JAX package's
-factories of compiled programs, whose function the port has as a plain one
-(PyTorch runs eagerly; the decode chunk and the train step, whose structure
-a compiled program carries, are `generate.make_multistep_decode_fn` and
-`train.step.jit_train_step`), and a few
-divergences kept on purpose (ROADMAP.md).
+provides a name if it defines or imports it under that name. The JAX
+package's factories of compiled programs have counterparts that make the
+port's programs (CUDA graphs on the card: the decode chunk, the prefills
+and admission steps, the train step). The names the port does not have are
+listed below with their reasons: a few divergences kept on purpose
+(ROADMAP.md).
 """
 
 import ast
@@ -22,19 +21,6 @@ JAX_PKG, PORT_PKG = ROOT / "llark_tpu", ROOT / "llark_tpu_torch"
 
 # module -> {JAX name: (the port's counterpart in the same module, or None; why)}
 ABSENT = {
-    "generate.py": {
-        name: (plain, "a jit factory around the plain function the port runs eagerly")
-        for name, plain in (("make_prefill_fn", "prefill"),
-                            ("make_prefill_chunk_fn", "prefill_chunk"),
-                            ("make_paged_prefill_chunk_fn", "paged_prefill_chunk"),
-                            ("make_prefill_last_fn", "prefill_last"),
-                            ("make_prefix_cache_fn", "prefix_cache"),
-                            ("make_suffix_prefill_fn", "suffix_prefill"))
-    },
-    "inference/paged.py": {
-        "make_block_insert_fn": ("insert_blocks", "a jit of the block insert, which the port "
-                                                  "writes in place"),
-    },
     "parallel/pipeline.py": {
         "pp_param_shardings": ("pp_shard_params", "NamedShardings for GSPMD; a rank of the port "
                                                   "keeps its stage's shards"),
